@@ -1,0 +1,268 @@
+"""Scan-to-map point-to-plane registration, grid path (port of
+`lio_slam_tpu/ops/registration.py`, mapOptmization.cpp:1618-1897).
+
+`lax.while_loop` becomes a host loop with one device-to-host read per GN
+iteration (the convergence flag).  The stopping rule is the reference's:
+|Δrot| < 0.05 deg and |Δtrans| < 0.05 cm, at most 30 iterations, or fewer
+than 50 correspondences.  With the fused kernel enabled (the default) each
+iteration is one `fused_corr` pass; `corr_refresh_every > 1` holds the
+bucket ids computed at the refresh pose.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from lio_slam_tpu_torch.config import RegistrationConfig
+from lio_slam_tpu_torch.ops import fused_corr
+from lio_slam_tpu_torch.ops import voxel_grid as vg
+from lio_slam_tpu_torch.utils import se3
+from lio_slam_tpu_torch.utils import smallmat
+
+
+class Correspondences(NamedTuple):
+    normal: torch.Tensor    # (N, 3) plane normals (map frame, unit)
+    offset: torch.Tensor    # (N,)   plane offsets d (n·x + d = 0)
+    residual: torch.Tensor  # (N,)   signed point-to-plane distance pd2
+    weight: torch.Tensor    # (N,)   robust weight s
+    valid: torch.Tensor     # (N,)   bool
+
+
+class RegistrationResult(NamedTuple):
+    pose: torch.Tensor          # (6,) refined [roll,pitch,yaw,x,y,z]
+    degenerate: torch.Tensor    # () bool — eigenvalue gate fired
+    converged: bool             # host value (read every iteration anyway)
+    iterations: int             # host value
+    num_inliers: torch.Tensor   # () int32 — correspondences in last iteration
+    mean_residual: torch.Tensor  # () weighted mean |pd2| of last iteration
+
+
+def _eigpair_3x3(A: torch.Tensor, which: str):
+    """Closed-form eigenpair of batched symmetric 3x3 matrices (Smith's
+    trigonometric method + row-cross eigenvector).
+    Returns (lam_which (...), lam_mid (...), v (..., 3))."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a11, a12, a22 = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
+    p1 = a01 * a01 + a02 * a02 + a12 * a12
+    q = (a00 + a11 + a22) / 3.0
+    b00, b11, b22 = a00 - q, a11 - q, a22 - q
+    p2 = b00 * b00 + b11 * b11 + b22 * b22 + 2.0 * p1
+    p = torch.sqrt(torch.clamp(p2, min=1e-20) / 6.0)
+    inv_p = 1.0 / p
+    detB = (b00 * (b11 * b22 - a12 * a12)
+            - a01 * (a01 * b22 - a12 * a02)
+            + a02 * (a01 * a12 - b11 * a02)) * inv_p * inv_p * inv_p
+    r = torch.clamp(detB / 2.0, -1.0, 1.0)
+    phi = torch.acos(r) / 3.0
+    lam_max = q + 2.0 * p * torch.cos(phi)
+    lam_min = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    lam_mid = 3.0 * q - lam_max - lam_min
+    lam = lam_min if which == "min" else lam_max
+    m = A - lam[..., None, None] * torch.eye(3, dtype=A.dtype, device=A.device)
+    r0, r1, r2 = m[..., 0, :], m[..., 1, :], m[..., 2, :]
+    cands = torch.stack([torch.linalg.cross(r0, r1), torch.linalg.cross(r0, r2),
+                         torch.linalg.cross(r1, r2)], dim=-2)      # (..., 3, 3)
+    best = torch.sum(cands * cands, dim=-1)
+    pick = torch.argmax(best, dim=-1)
+    v = torch.gather(cands, -2, pick[..., None, None].expand(
+        *pick.shape, 1, 3))[..., 0, :]
+    v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12)
+    iso = p2 < 1e-12
+    z = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+    return lam, lam_mid, torch.where(iso[..., None], z, v)
+
+
+def fit_planes(neighbors: torch.Tensor, neighbor_valid: torch.Tensor,
+               plane_dist_thresh: float):
+    """Centroid + covariance smallest-eigenvector plane through k neighbours
+    (N, k, 3); returns unit normals (N,3), offsets (N,), valid (N,)."""
+    k = neighbors.shape[1]
+    centroid = torch.mean(neighbors, dim=1, keepdim=True)
+    centered = neighbors - centroid
+    cov = torch.einsum("nki,nkj->nij", centered, centered) / k
+    _, lam_mid, normal = _eigpair_3x3(cov, "min")
+    offset = -torch.einsum("ni,ni->n", normal, centroid[:, 0, :])
+    safe = lam_mid > 1e-3
+    dist = torch.abs(torch.einsum("nki,ni->nk", neighbors, normal)
+                     + offset[:, None])
+    plane_ok = torch.all(torch.where(neighbor_valid, dist,
+                                     torch.zeros_like(dist))
+                         <= plane_dist_thresh, dim=1)
+    all_neighbors = (torch.all(neighbor_valid, dim=1)
+                     & (torch.sum(neighbor_valid.to(torch.int32), dim=1) == k))
+    return normal, offset, safe & plane_ok & all_neighbors
+
+
+def find_correspondences(scan: torch.Tensor, scan_mask: torch.Tensor,
+                         map_pts, map_mask, pose6: torch.Tensor,
+                         cfg: RegistrationConfig, k: int = 5,
+                         grid: vg.HashGrid = None) -> Correspondences:
+    """One surfOptimization pass at the given pose (grid k-NN backend)."""
+    if grid is None:
+        raise NotImplementedError("the port implements the grid k-NN "
+                                  "backend only (knn_backend='grid')")
+    R, t = se3.pose6_to_Rt(pose6)
+    scan_w = se3.transform_points(R, t, scan)
+    nn = vg.query_knn(grid, scan_w, scan_mask, k=k, halo=cfg.grid_halo)
+    nn_ok = nn.valid[:, k - 1] & (nn.dist2[:, k - 1] < cfg.nn_radius ** 2)
+    normal, offset, plane_ok = fit_planes(nn.neighbors, nn.valid,
+                                          cfg.plane_dist_thresh)
+    pd2 = torch.einsum("ni,ni->n", normal, scan_w) + offset
+    rng = torch.linalg.norm(scan, dim=-1)
+    s = 1.0 - 0.9 * torch.abs(pd2) / torch.sqrt(torch.sqrt(
+        torch.clamp(rng, min=1e-6)))
+    valid = scan_mask & nn_ok & plane_ok & (s > cfg.robust_weight_floor)
+    return Correspondences(normal=normal, offset=offset, residual=pd2,
+                           weight=torch.where(valid, s, torch.zeros_like(s)),
+                           valid=valid)
+
+
+def _normal_equations(scan: torch.Tensor, corr: Correspondences,
+                      pose6: torch.Tensor):
+    """6x6 GN system in [roll,pitch,yaw,x,y,z] order: row i is
+    s_i [n·(∂R/∂θ_k p), n], rhs −s_i pd2_i."""
+    dR = se3.rpy_to_matrix_jacobian(pose6[:3])
+    Jrot = torch.einsum("ni,ijk,nj->nk", corr.normal, dR, scan)
+    J = torch.cat([Jrot, corr.normal], dim=1)
+    w = corr.weight * corr.weight
+    AtA = torch.einsum("ni,n,nj->ij", J, w, J)
+    Atb = -torch.einsum("ni,n,n->i", J, w, corr.residual)
+    return AtA, Atb
+
+
+def _degeneracy_projection(AtA: torch.Tensor, eig_thresh: float):
+    """matP (:1786-1814): P = V diag(eigval >= thresh) Vᵀ."""
+    eigval, eigvec = smallmat.eigh_jacobi(AtA)
+    keep = (eigval >= eig_thresh).to(AtA.dtype)
+    P = (eigvec * keep[None, :]) @ eigvec.T
+    return P, torch.any(eigval < eig_thresh)
+
+
+def _maybe_fused(scan, scan_mask, grid, cfg: RegistrationConfig):
+    """The fused-pass ne_fn when enabled (grid backend, use_fused_kernel).
+    The wrapper picks the kernel or its plain version by the tensors'
+    device.  With corr_refresh_every > 1 returns (bucket_fn,
+    from_ids_fn, refresh) and `_gn_loop` holds the bucket ids."""
+    if grid is None or not cfg.use_fused_kernel:
+        return None
+    kw = dict(nn_radius=cfg.nn_radius,
+              plane_dist_thresh=cfg.plane_dist_thresh,
+              robust_weight_floor=cfg.robust_weight_floor)
+    if cfg.corr_refresh_every <= 1:
+        def ne_fn(pose):
+            return fused_corr.fused_normal_equations(
+                grid, scan, scan_mask, pose, halo=cfg.grid_halo, **kw)
+
+        return ne_fn
+
+    def bucket_fn(pose):
+        Rm, t = se3.pose6_to_Rt(pose)
+        return vg.bucket_ids(se3.transform_points(Rm, t, scan),
+                             grid.cell_size, grid.table.shape[0],
+                             cfg.grid_halo)
+
+    def from_ids_fn(hh, pose):
+        return fused_corr.fused_ne_from_bucket_ids(
+            grid.table, hh, scan, scan_mask, pose, **kw)
+
+    return (bucket_fn, from_ids_fn, int(cfg.corr_refresh_every))
+
+
+def _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg: RegistrationConfig,
+             runnable: bool, min_correspondences: int,
+             ne_fn=None) -> RegistrationResult:
+    """GN iterations until converged (host loop).  `corr_fn(pose)` is the
+    unfused path; `ne_fn(pose) -> (AtA, Atb, n_inl, Σs, Σs|pd2|)` the fused
+    one, or a (bucket_fn, from_ids_fn, refresh) triple."""
+    dev = scan.device
+    pose = init_pose6.to(torch.float32).clone()
+    P = torch.eye(6, dtype=torch.float32, device=dev)
+    degen = torch.zeros((), dtype=torch.bool, device=dev)
+    n_inl = torch.zeros((), dtype=torch.int32, device=dev)
+    mean_res = torch.zeros((), dtype=torch.float32, device=dev)
+    zero6 = torch.zeros(6, dtype=torch.float32, device=dev)
+    fused_refresh = isinstance(ne_fn, tuple)
+    if fused_refresh:
+        bucket_fn, from_ids_fn, refresh = ne_fn
+    hh = None
+    it = 0
+    converged = not runnable
+    while it < cfg.max_iterations and not converged:
+        if fused_refresh:
+            if it % refresh == 0:
+                hh = bucket_fn(pose)
+            AtA, Atb, n_inl, w_sum, wres_sum = from_ids_fn(hh, pose)
+        elif ne_fn is not None:
+            AtA, Atb, n_inl, w_sum, wres_sum = ne_fn(pose)
+        else:
+            corr = corr_fn(pose)
+            n_inl = torch.sum(corr.valid).to(torch.int32)
+            AtA, Atb = _normal_equations(scan, corr, pose)
+            w_sum = torch.sum(corr.weight)
+            wres_sum = torch.sum(corr.weight * torch.abs(corr.residual))
+        # Levenberg epsilon keeps the solve finite when rank-deficient
+        dx = smallmat.cholesky_solve(AtA, Atb, eps=1e-6)
+        if it == 0:     # eigendecomposition on the first iteration only
+            P, degen = _degeneracy_projection(AtA, cfg.degeneracy_eig_thresh)
+        dx = torch.where(degen, P @ dx, dx)
+        enough = n_inl >= min_correspondences
+        dx = torch.where(enough, dx, zero6)
+        pose = pose + dx
+        delta_r_deg = torch.linalg.norm(dx[:3]) * (180.0 / math.pi)
+        delta_t_cm = torch.linalg.norm(dx[3:]) * 100.0
+        conv = (((delta_r_deg < cfg.rot_converge)
+                 & (delta_t_cm < cfg.trans_converge)) | ~enough)
+        mean_res = wres_sum / torch.clamp(w_sum, min=1e-6)
+        it += 1
+        converged = bool(conv)          # the iteration's one host read
+    return RegistrationResult(pose=pose, degenerate=degen, converged=converged,
+                              iterations=it, num_inliers=n_inl,
+                              mean_residual=mean_res)
+
+
+def register_with_grid(scan: torch.Tensor, scan_mask: torch.Tensor,
+                       grid: vg.HashGrid, init_pose6: torch.Tensor,
+                       cfg: RegistrationConfig,
+                       min_correspondences: int = 50) -> RegistrationResult:
+    """scan2MapOptimization against the persistent (incremental) voxel map.
+    Skips (returns the initial pose) below 31 scan or 51 map points
+    (:1841)."""
+    if cfg.sort_scan_by_cell:
+        raise NotImplementedError("sort_scan_by_cell is not ported")
+    scan = scan.to(torch.float32)
+
+    def corr_fn(pose):
+        return find_correspondences(scan, scan_mask, None, None, pose, cfg,
+                                    grid=grid)
+
+    n_scan = torch.sum(scan_mask.to(torch.int32))
+    n_map = torch.sum(grid.counts)
+    runnable = bool((n_scan > 30) & (n_map > 50))
+    return _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg, runnable,
+                    min_correspondences,
+                    ne_fn=_maybe_fused(scan, scan_mask, grid, cfg))
+
+
+def transform_update(pose6: torch.Tensor, imu_rpy: torch.Tensor,
+                     imu_available: torch.Tensor, imu_rpy_weight: float,
+                     rotation_tolerance: float = 1000.0,
+                     z_tolerance: float = 1000.0) -> torch.Tensor:
+    """Slerp roll/pitch toward the IMU attitude and clamp (transformUpdate,
+    mapOptmization.cpp:1867-1897)."""
+    zero = torch.zeros_like(pose6[0])
+
+    def blend(angle, target):
+        q0 = se3.matrix_to_quat(se3.rpy_to_matrix(torch.stack([angle, zero, zero])))
+        q1 = se3.matrix_to_quat(se3.rpy_to_matrix(torch.stack([target, zero, zero])))
+        q = se3.slerp(q0, q1, imu_rpy_weight)
+        return se3.matrix_to_rpy(se3.quat_to_matrix(q))[0]
+
+    roll = torch.where(imu_available, blend(pose6[0], imu_rpy[0]), pose6[0])
+    pitch = torch.where(imu_available, blend(pose6[1], imu_rpy[1]), pose6[1])
+    roll = torch.clamp(roll, -rotation_tolerance, rotation_tolerance)
+    pitch = torch.clamp(pitch, -rotation_tolerance, rotation_tolerance)
+    z = torch.clamp(pose6[5], -z_tolerance, z_tolerance)
+    return torch.stack([roll, pitch, pose6[2], pose6[3], pose6[4], z])

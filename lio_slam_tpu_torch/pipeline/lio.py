@@ -1,0 +1,355 @@
+"""The per-scan LIO mapping step (port of `lio_slam_tpu/pipeline/lio.py`,
+mapOptmization.cpp:432-506 laserCloudInfoHandler):
+
+    updateInitialGuess -> downsampleCurrentScan -> scan2MapOptimization
+    -> transformUpdate -> saveKeyFramesAndFactor (window solve, map insert)
+
+over fixed-capacity masked tensors on one device.  The JAX step's
+`lax.cond`s (eviction at capacity, keyframe save) are host branches on a
+device bool here: one device-to-host read each.
+
+Not ported yet: loop-closure factors' full-graph correction
+(`make_full_correction`), the GPS factor (`_add_gps_factor`), LOAM
+corners and the rebuild-mode local map; `make_lio_step` refuses configs
+that need them.  Pending loop constraints are still consumed, so a state
+carried over from the JAX package keeps its graph layout.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from lio_slam_tpu_torch.config import Config
+from lio_slam_tpu_torch.graph import factors as F
+from lio_slam_tpu_torch.graph import solver
+from lio_slam_tpu_torch.ops import registration as reg
+from lio_slam_tpu_torch.ops import scancontext as sc_mod
+from lio_slam_tpu_torch.ops import voxel_grid as vg
+from lio_slam_tpu_torch.pipeline import keyframes as kf
+from lio_slam_tpu_torch.utils import pointcloud as pc
+from lio_slam_tpu_torch.utils import se3
+
+
+class LioState(NamedTuple):
+    store: kf.KeyframeStore
+    graph: F.PoseGraph
+    map_grid: vg.HashGrid          # persistent world-frame voxel map
+    sc_db: sc_mod.ScanContextDB
+    last_loop_kf: torch.Tensor     # () int32
+    needs_full_solve: torch.Tensor  # () bool
+    loop_count: torch.Tensor       # () int32
+    gps_count: torch.Tensor        # () int32
+    evict_count: torch.Tensor      # () int32
+    pose: torch.Tensor             # (6,) current transformTobeMapped
+    last_incre_pose: torch.Tensor  # (6,)
+    last_gps_pos: torch.Tensor     # (3,)
+    degenerate: torch.Tensor       # () bool
+    loop_closed: torch.Tensor      # () bool
+    pend_i: torch.Tensor           # (Q,) int32
+    pend_j: torch.Tensor           # (Q,) int32
+    pend_meas: torch.Tensor        # (Q, 6)
+    pend_info: torch.Tensor        # (Q, 6)
+    pend_mask: torch.Tensor        # (Q,) bool
+
+
+class ScanInput(NamedTuple):
+    cloud: pc.Cloud                # deskewed scan, body frame
+    stamp: torch.Tensor            # () seconds
+    init_guess: torch.Tensor       # (6,) absolute pose guess
+    guess_valid: torch.Tensor      # () bool
+    imu_rpy: torch.Tensor          # (3,)
+    imu_available: torch.Tensor    # () bool
+    gps_pos: torch.Tensor          # (3,)
+    gps_info: torch.Tensor         # (3,)
+    gps_valid: torch.Tensor        # () bool
+
+
+class StepOutput(NamedTuple):
+    pose: torch.Tensor             # (6,) global odometry
+    incremental: torch.Tensor      # (6,) scan-to-scan increment
+    degenerate: torch.Tensor       # () bool
+    is_keyframe: bool              # host value (the save branch reads it)
+    num_inliers: torch.Tensor      # () int32
+    registration_iters: int        # host value (GN loop count)
+    evictions: torch.Tensor        # () int32 cumulative evictions
+
+
+class MapOps(NamedTuple):
+    """Persistent-map backend of the step (single device)."""
+
+    empty_grid: object    # () -> HashGrid
+    register: object      # (scan_xyz, scan_mask, grid, pose_guess) -> RegistrationResult
+    insert: object        # (grid, world_pts, mask) -> HashGrid
+
+
+def default_map_ops(cfg: Config, device=None) -> MapOps:
+    r = cfg.registration
+
+    def register(scan_xyz, scan_mask, grid, pose_guess):
+        return reg.register_with_grid(scan_xyz, scan_mask, grid, pose_guess, r)
+
+    def insert(grid, world_pts, mask):
+        return vg.insert_points(grid, world_pts, mask, halo=r.grid_halo)
+
+    return MapOps(
+        empty_grid=lambda: vg.empty_grid(r.nn_radius, r.grid_table_size,
+                                         r.grid_max_per_cell, device=device),
+        register=register, insert=insert)
+
+
+def init_state(cfg: Config, device=None) -> LioState:
+    s = cfg.static
+    K = s.max_keyframes
+    B = K - 1 + s.max_loop_queue * 8
+    G = s.max_gps_queue * 8 + s.max_archive_anchors
+    Q = s.max_loop_queue
+    i32 = dict(dtype=torch.int32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    b = dict(dtype=torch.bool, device=device)
+    return LioState(
+        store=kf.empty_store(K, s.max_keyframe_points, device=device),
+        graph=F.empty_graph(K, B, G, device=device),
+        map_grid=default_map_ops(cfg, device).empty_grid(),
+        sc_db=sc_mod.empty_db(K, s.sc_num_ring, s.sc_num_sector, device=device),
+        last_loop_kf=torch.full((), -1, **i32),
+        needs_full_solve=torch.zeros((), **b),
+        loop_count=torch.zeros((), **i32), gps_count=torch.zeros((), **i32),
+        evict_count=torch.zeros((), **i32),
+        pose=torch.zeros(6, **f32), last_incre_pose=torch.zeros(6, **f32),
+        last_gps_pos=torch.full((3,), 1e9, **f32),
+        degenerate=torch.zeros((), **b), loop_closed=torch.zeros((), **b),
+        pend_i=torch.zeros(Q, **i32), pend_j=torch.zeros(Q, **i32),
+        pend_meas=torch.zeros((Q, 6), **f32),
+        pend_info=torch.zeros((Q, 6), **f32),
+        pend_mask=torch.zeros(Q, **b))
+
+
+def _update_initial_guess(state: LioState, inp: ScanInput) -> torch.Tensor:
+    """updateInitialGuess (:1438-1502): the first scan takes the IMU roll
+    and pitch (yaw zeroed); later scans the IMU-odometry guess when valid,
+    else the last pose."""
+    first = state.store.count == 0
+    rp = torch.tensor([1.0, 1.0, 0.0], dtype=torch.float32,
+                      device=state.pose.device)
+    first_pose = torch.cat([
+        torch.where(inp.imu_available, inp.imu_rpy * rp, torch.zeros_like(rp)),
+        torch.zeros_like(rp)])
+    guess = torch.where(inp.guess_valid, inp.init_guess, state.pose)
+    return torch.where(first, first_pose, guess)
+
+
+def _consume_pending_loops(state: LioState, cfg: Config) -> LioState:
+    """addLoopFactor (:2043-2062): queued loop constraints into the
+    between-factor loop region (ring-allocated; masked entries go to a dump
+    row)."""
+    g = state.graph
+    K = state.store.poses.shape[0]
+    Q = state.pend_mask.shape[0]
+    B = g.bt_i.shape[0]
+    base = K - 1
+    n_slots = B - base
+    if Q > n_slots:
+        raise ValueError(f"max_loop_queue={Q} exceeds the loop-factor region "
+                         f"({n_slots} slots)")
+    put = state.pend_mask
+    offsets = torch.cumsum(put.to(torch.int32), 0) - 1
+    slots = torch.where(put, base + (state.loop_count + offsets) % n_slots,
+                        torch.full_like(offsets, B)).to(torch.int64)
+
+    def scat(arr, vals):
+        padded = torch.cat([arr, torch.zeros((1,) + arr.shape[1:],
+                                             dtype=arr.dtype,
+                                             device=arr.device)], dim=0)
+        padded[slots] = vals
+        return padded[:B]
+
+    g = g._replace(
+        bt_i=scat(g.bt_i, state.pend_i), bt_j=scat(g.bt_j, state.pend_j),
+        bt_meas=scat(g.bt_meas, state.pend_meas),
+        bt_info=scat(g.bt_info, state.pend_info),
+        bt_mask=scat(g.bt_mask, torch.ones_like(put)))
+    n_added = torch.sum(put).to(torch.int32)
+    return state._replace(graph=g, loop_count=state.loop_count + n_added,
+                          loop_closed=n_added > 0,
+                          pend_mask=torch.zeros_like(put))
+
+
+def _evict_oldest(state: LioState) -> LioState:
+    """Ring eviction of keyframe 0 at capacity with graph rebase: prior and
+    between(x0, x1) fold into a prior on x1; index-aligned stores shift
+    left; the odometry chain region rolls; factors on the evicted pose drop."""
+    store, g = state.store, state.graph
+    K = store.poses.shape[0]
+    c = K - 1
+
+    new_prior_info = torch.where(
+        g.bt_mask[0],
+        1.0 / (1.0 / torch.clamp(g.prior_info, min=1e-12)
+               + 1.0 / torch.clamp(g.bt_info[0], min=1e-12)),
+        g.prior_info)
+    new_prior_pose = g.poses[1]
+
+    def roll1(a):
+        return torch.roll(a, -1, dims=0)
+
+    cloud_masks = roll1(store.cloud_masks)
+    cloud_masks[K - 1] = False
+    corner_masks = roll1(store.corner_masks)
+    corner_masks[K - 1] = False
+    store = store._replace(
+        poses=roll1(store.poses), stamps=roll1(store.stamps),
+        clouds=roll1(store.clouds), cloud_masks=cloud_masks,
+        corner_clouds=roll1(store.corner_clouds), corner_masks=corner_masks,
+        count=store.count - 1)
+    sc_db = state.sc_db._replace(
+        descriptors=roll1(state.sc_db.descriptors),
+        ring_keys=roll1(state.sc_db.ring_keys),
+        count=state.sc_db.count - 1)
+
+    pose_mask = roll1(g.pose_mask)
+    pose_mask[K - 1] = False
+
+    def shift_chain(a):
+        return torch.cat([torch.roll(a[:c], -1, dims=0), a[c:]], dim=0)
+
+    bt_i = shift_chain(g.bt_i) - 1
+    bt_j = shift_chain(g.bt_j) - 1
+    bt_mask = shift_chain(g.bt_mask)
+    bt_mask[c - 1] = False
+    bt_mask = bt_mask & (bt_i >= 0) & (bt_j >= 0)
+    gps_i = g.gps_i - 1
+    gps_mask = g.gps_mask & (gps_i >= 0)
+    g = g._replace(
+        poses=roll1(g.poses), pose_mask=pose_mask,
+        prior_pose=new_prior_pose, prior_info=new_prior_info,
+        bt_i=torch.clamp(bt_i, 0, K - 1), bt_j=torch.clamp(bt_j, 0, K - 1),
+        bt_meas=shift_chain(g.bt_meas), bt_info=shift_chain(g.bt_info),
+        bt_mask=bt_mask, gps_i=torch.clamp(gps_i, 0, K - 1),
+        gps_mask=gps_mask)
+
+    pend_i = state.pend_i - 1
+    pend_j = state.pend_j - 1
+    return state._replace(
+        store=store, graph=g, sc_db=sc_db,
+        last_loop_kf=torch.clamp(state.last_loop_kf - 1, min=-1),
+        pend_i=torch.clamp(pend_i, 0, K - 1),
+        pend_j=torch.clamp(pend_j, 0, K - 1),
+        pend_mask=state.pend_mask & (pend_i >= 0) & (pend_j >= 0),
+        evict_count=state.evict_count + 1)
+
+
+def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
+                   scan_ds: pc.Cloud, cfg: Config,
+                   ops: MapOps = None) -> LioState:
+    """saveKeyFramesAndFactor (:2064-2171) + window-scope correctPoses."""
+    if ops is None:
+        ops = default_map_ops(cfg, pose.device)
+    K = state.store.poses.shape[0]
+    if bool(state.store.count >= K):          # host branch (JAX lax.cond)
+        state = _evict_oldest(state)
+    g = state.graph
+    prev_idx = state.store.count - 1
+    new_idx = state.store.count
+    first = new_idx == 0
+    dev = pose.device
+
+    g = g._replace(
+        prior_pose=torch.where(first, pose, g.prior_pose),
+        prior_info=torch.where(
+            first, F.info_from_variances(cfg.keyframe.prior_sigmas, dev),
+            g.prior_info))
+
+    prev_c = torch.clamp(prev_idx, min=0).to(torch.int64)
+    meas = se3.pose6_between(state.store.poses[prev_c], pose)
+    odom_info = F.info_from_variances(cfg.keyframe.odom_sigmas, dev)
+    use_between = ~first
+    bt_i, bt_j = g.bt_i.clone(), g.bt_j.clone()
+    bt_meas, bt_info = g.bt_meas.clone(), g.bt_info.clone()
+    bt_mask = g.bt_mask.clone()
+    bt_i[prev_c] = torch.where(use_between, prev_idx, bt_i[prev_c])
+    bt_j[prev_c] = torch.where(use_between, new_idx, bt_j[prev_c])
+    bt_meas[prev_c] = torch.where(use_between, meas, bt_meas[prev_c])
+    bt_info[prev_c] = torch.where(use_between, odom_info, bt_info[prev_c])
+    bt_mask[prev_c] = use_between | bt_mask[prev_c]
+    g = g._replace(bt_i=bt_i, bt_j=bt_j, bt_meas=bt_meas, bt_info=bt_info,
+                   bt_mask=bt_mask)
+
+    store = kf.add_keyframe(state.store, pose, inp.stamp, scan_ds)
+    ni = new_idx.to(torch.int64)
+    poses, pose_mask = g.poses.clone(), g.pose_mask.clone()
+    poses[ni] = pose
+    pose_mask[ni] = True
+    g = g._replace(poses=poses, pose_mask=pose_mask)
+    desc = sc_mod.make_descriptor(
+        scan_ds.xyz, scan_ds.mask, max_radius=cfg.loop.sc_max_radius,
+        lidar_height=cfg.loop.sc_lidar_height,
+        num_ring=cfg.static.sc_num_ring, num_sector=cfg.static.sc_num_sector)
+    state = state._replace(store=store, graph=g,
+                           sc_db=sc_mod.add_descriptor(state.sc_db, desc))
+    state = _consume_pending_loops(state, cfg)
+
+    g = solver.solve_window_compact(state.graph, store.count,
+                                    cfg.static.window_size, iterations=2)
+    store = store._replace(poses=torch.where(g.pose_mask[:, None], g.poses,
+                                             store.poses))
+    new_pose = g.poses[ni]
+    Rn, tn = se3.pose6_to_Rt(new_pose)
+    world_pts = se3.transform_points(Rn, tn, scan_ds.xyz)
+    state = state._replace(map_grid=ops.insert(state.map_grid, world_pts,
+                                               scan_ds.mask))
+    return state._replace(store=store, graph=g, pose=new_pose,
+                          needs_full_solve=state.needs_full_solve | state.loop_closed,
+                          loop_closed=torch.zeros_like(state.loop_closed))
+
+
+def make_lio_step(cfg: Config, ops: MapOps = None, device=None):
+    """The per-scan step for `cfg`: `step(state, inp) -> (state, out)`."""
+    s = cfg.static
+    r = cfg.registration
+    if cfg.gps.use_gps:
+        raise NotImplementedError("GPS factors are not ported yet "
+                                  "(cfg.gps.use_gps)")
+    if r.use_corner_features:
+        raise NotImplementedError("the LOAM corner path is not ported yet "
+                                  "(registration.use_corner_features)")
+    if r.local_map_mode != "incremental":
+        raise NotImplementedError(f"local_map_mode={r.local_map_mode!r}: only "
+                                  "the incremental map is ported")
+    if r.scan_downsample not in ("packed", "voxel"):
+        raise NotImplementedError(f"scan_downsample={r.scan_downsample!r} is "
+                                  "not ported")
+    if ops is None:
+        ops = default_map_ops(cfg, device)
+
+    def lio_step(state: LioState, inp: ScanInput):
+        pose_guess = _update_initial_guess(state, inp)
+        if r.scan_downsample == "packed":
+            scan_ds = pc.packed_voxel_downsample(
+                inp.cloud, r.mapping_surf_leaf_size, s.max_scan_points)
+        else:
+            scan_ds = pc.voxel_downsample(inp.cloud, r.mapping_surf_leaf_size,
+                                          s.max_scan_points)
+        has_map = state.store.count > 0
+        res = ops.register(scan_ds.xyz, scan_ds.mask & has_map,
+                           state.map_grid, pose_guess)
+        pose = torch.where(has_map, res.pose, pose_guess)
+        pose = reg.transform_update(pose, inp.imu_rpy, inp.imu_available,
+                                    cfg.imu.imu_rpy_weight,
+                                    r.rotation_tolerance, r.z_tolerance)
+        is_kf = bool(kf.should_add_keyframe(state.store, pose,
+                                            cfg.keyframe.angle_threshold,
+                                            cfg.keyframe.dist_threshold))
+        state = state._replace(pose=pose, degenerate=res.degenerate)
+        if is_kf:                              # host branch (JAX lax.cond)
+            state = _save_keyframe(state, inp, pose, scan_ds, cfg, ops=ops)
+        incremental = se3.pose6_between(state.last_incre_pose, state.pose)
+        out = StepOutput(pose=state.pose, incremental=incremental,
+                         degenerate=res.degenerate, is_keyframe=is_kf,
+                         num_inliers=res.num_inliers,
+                         registration_iters=res.iterations,
+                         evictions=state.evict_count)
+        return state._replace(last_incre_pose=state.pose), out
+
+    return lio_step

@@ -1,0 +1,138 @@
+"""Masked fixed-capacity point tensors + voxel downsampling (port of
+`lio_slam_tpu/utils/pointcloud.py`).
+
+Every cloud is a `(capacity, 3)` float32 tensor plus a `(capacity,)` bool
+mask.  The int32 voxel hashes wrap exactly like jnp's; sorts are stable,
+like `jax.lax.sort`.  The segment sums are `index_add_`, which on CUDA adds
+with atomics in no fixed order: centroids agree with the reference to float
+rounding, masks exactly.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+_I32_MAX = 0x7FFFFFFF
+
+
+class Cloud(NamedTuple):
+    """Fixed-capacity masked point cloud (the JAX `Cloud` without the
+    extra-channel `attr`, which nothing on the ported path carries).
+
+    xyz:  (N, 3) float32; undefined where ~mask
+    mask: (N,) bool
+    """
+
+    xyz: torch.Tensor
+    mask: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[0]
+
+    def count(self) -> torch.Tensor:
+        return torch.sum(self.mask).to(torch.int32)
+
+
+def compact(cloud: Cloud) -> Cloud:
+    """Move valid points to the front (stable). Same capacity."""
+    order = torch.argsort((~cloud.mask).to(torch.int32), stable=True)
+    return Cloud(xyz=cloud.xyz[order], mask=cloud.mask[order])
+
+
+def filter_points(cloud: Cloud, min_range: float, max_range: float,
+                  crop_min=None, crop_max=None) -> Cloud:
+    """Range + self-crop-box gate (imageProjection.cpp:577-615).  The JAX
+    version's intensity gate has no caller on the ported path."""
+    r = torch.linalg.norm(cloud.xyz, dim=-1)
+    keep = cloud.mask & (r >= min_range) & (r <= max_range)
+    if crop_min is not None:
+        cmin = torch.tensor(crop_min, dtype=torch.float32, device=cloud.xyz.device)
+        cmax = torch.tensor(crop_max, dtype=torch.float32, device=cloud.xyz.device)
+        inside = torch.all((cloud.xyz >= cmin) & (cloud.xyz <= cmax), dim=-1)
+        keep = keep & ~inside
+    return cloud._replace(mask=keep)
+
+
+def decimate(cloud: Cloud, point_filter_num: int, ring=None,
+             downsample_rate: int = 1) -> Cloud:
+    """1-in-k point decimation + ring decimation (point_filter_num /
+    downsampleRate)."""
+    idx = torch.arange(cloud.capacity, device=cloud.xyz.device)
+    keep = cloud.mask & (idx % point_filter_num == 0)
+    if ring is not None and downsample_rate > 1:
+        keep = keep & (ring.to(torch.int32) % downsample_rate == 0)
+    return cloud._replace(mask=keep)
+
+
+def _voxel_ids(xyz: torch.Tensor, mask: torch.Tensor,
+               leaf: torch.Tensor) -> torch.Tensor:
+    """Spatial-hash voxel id per point; invalid points get INT32_MAX."""
+    coords = torch.floor(xyz / leaf).to(torch.int32)
+    h = ((coords[..., 0] * 73856093) ^ (coords[..., 1] * 19349663)
+         ^ (coords[..., 2] * 83492791))
+    h = h & _I32_MAX
+    return torch.where(mask, h, torch.full_like(h, _I32_MAX))
+
+
+def _segment_centroids(keys_sorted: torch.Tensor, mask_s: torch.Tensor,
+                       vals: torch.Tensor, max_out: int):
+    """Run detection over sorted keys -> per-run sums and counts in the
+    first `max_out` output slots (masked points park in slot max_out)."""
+    first = torch.ones_like(mask_s)
+    first[1:] = keys_sorted[1:] != keys_sorted[:-1]
+    first = first & mask_s
+    slot = torch.cumsum(first.to(torch.int32), 0) - 1
+    slot = torch.where(mask_s, slot, torch.full_like(slot, max_out))
+    slot_c = torch.clamp(slot, 0, max_out).to(torch.int64)
+    ones = mask_s.to(torch.float32)
+    counts = torch.zeros(max_out + 1, dtype=torch.float32,
+                         device=vals.device).index_add_(0, slot_c, ones)
+    sums = torch.zeros((max_out + 1, vals.shape[1]), dtype=torch.float32,
+                       device=vals.device).index_add_(0, slot_c,
+                                                      vals * ones[:, None])
+    denom = torch.clamp(counts[:max_out], min=1.0)
+    return sums[:max_out] / denom[:, None], counts[:max_out] > 0
+
+
+def voxel_downsample(cloud: Cloud, leaf_size: float, max_out: int) -> Cloud:
+    """Centroid voxel-grid downsample (pcl::VoxelGrid) into a fixed-capacity
+    output: sort by hashed voxel id -> run detection -> segment mean."""
+    leaf = torch.tensor(leaf_size, dtype=torch.float32, device=cloud.xyz.device)
+    vid = _voxel_ids(cloud.xyz, cloud.mask, leaf)
+    vid_s, order = torch.sort(vid, stable=True)
+    out, out_mask = _segment_centroids(vid_s, cloud.mask[order],
+                                       cloud.xyz[order], max_out)
+    return Cloud(xyz=out, mask=out_mask)
+
+
+def packed_voxel_downsample(cloud: Cloud, leaf_size: float,
+                            max_out: int) -> Cloud:
+    """Exact centroid voxel downsample over exact 30-bit voxel ids — the
+    scan path (`scan_downsample="packed"`).
+
+    Voxel coords are recentred to the cloud's min corner and packed into 30
+    bits (the working volume may span 1024 voxels per axis).  In-voxel
+    offsets quantize to 16 bits per axis (leaf/65535), as in the JAX
+    version, so the centroids are the same numbers; the sort carries a
+    permutation instead of the TPU's packed payload lanes.
+    """
+    dev = cloud.xyz.device
+    leaf = torch.tensor(leaf_size, dtype=torch.float32, device=dev)
+    coords = torch.floor(cloud.xyz / leaf).to(torch.int32)            # (N, 3)
+    big = torch.full_like(coords, 1 << 20)
+    cmin = torch.min(torch.where(cloud.mask[:, None], coords, big), dim=0).values
+    rel = coords - cmin
+    valid = cloud.mask & torch.all(rel < 1024, dim=-1)
+    vid = (rel[:, 0] << 20) | (rel[:, 1] << 10) | rel[:, 2]
+    vid = torch.where(valid, vid, torch.full_like(vid, _I32_MAX))
+    off = cloud.xyz - coords.to(torch.float32) * leaf
+    q = torch.clamp(torch.round(off / leaf * 65535.0), 0, 65535).to(torch.int32)
+    vid_s, order = torch.sort(vid, stable=True)
+    mask_s = vid_s != _I32_MAX
+    qs = q[order].to(torch.float32) * (1.0 / 65535.0)
+    xyz_s = (coords[order].to(torch.float32) + qs) * leaf
+    out, out_mask = _segment_centroids(vid_s, mask_s, xyz_s, max_out)
+    return Cloud(xyz=out, mask=out_mask)

@@ -13,6 +13,16 @@
    half-masked scan, checks that repeated launches are bit-identical, and
    times kernel and plain version: device time per call from torch.profiler
    (the JSON line's ms / plain_ms) and per-call time from CUDA events.
+   The kernel is also held to its first version (`lio_fused_corr_v1`, kept
+   in the source as a yardstick: same inliers, sums within the same
+   tolerances, since only the order of summation differs) and to the plain
+   version on a scan with a few non-finite points, and timed against the
+   first version in turns (v1, kernel, kernel, v1), once with a cold L2 (a
+   64 MB buffer written between launches, as the first GN iteration after a
+   grid insert finds it), and against its bound: the bytes this run's
+   inputs and outputs hold (distinct buckets touched x row bytes, ids, scan,
+   mask, pose, outputs) over 3.35 TB/s, or its operations over 67 TFLOP/s,
+   whichever is larger.
 3. Mission phase: drives `Runner(device="cuda")` over the 40-scan synthetic
    mission at bench.py's shapes (loop closure off) and checks finite poses,
    ATE against truth, that the GN loop went through the kernel (launch count
@@ -50,6 +60,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_SCAN = 8192
 N_MAP = 65536
 TABLE, CAP = 32768, 24
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
+FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+L2_FLUSH_BYTES = 64 << 20     # more than the card's 50 MB of L2
 MAX_DEV_M = 0.02
 MAX_DEV_RAD = math.radians(0.1)
 # with the reference's IMU state carried in (CPU: 1.5e-4 m, 2.4e-4 deg, one
@@ -122,7 +135,35 @@ def device_busy_ms(prof) -> float:
 
 def device_ms(fn, reps=20):
     """Device time per call: the durations of every kernel and copy `fn`
-    puts on the card, summed by torch.profiler over `reps` calls."""
+    puts on the card, summed by torch.profiler over `reps` calls.  Every
+    call puts the same kernels there, so a kernel seen some other number of
+    times than a multiple of `reps` means the tracer dropped records: the
+    pass is made again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        if rows and all(e.count % reps == 0 for e in rows):
+            return 1e-3 * sum(e.self_device_time_total for e in rows) / reps
+        print("device_ms: the profiler saw "
+              f"{sorted(e.count for e in rows)} launches by kernel for {reps} "
+              "calls; profiling again", flush=True)
+    fail("the profiler lost device records in five passes")
+
+
+def named_kernel_ms(fn, name_part, reps=20, between=None):
+    """Device time per launch of the kernels whose name holds `name_part`,
+    from torch.profiler; `between` runs before every call (not counted)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -130,17 +171,61 @@ def device_ms(fn, reps=20):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if between is not None:
+                between()
             fn()
         torch.cuda.synchronize()
-    return device_busy_ms(prof) / reps
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and name_part in e.key]
+    seen = sum(e.count for e in rows)
+    if not reps // 2 <= seen <= reps:      # the tracer may drop a record
+        fail(f"profiler saw {seen} launches of *{name_part}*, expected {reps}")
+    return 1e-3 * sum(e.self_device_time_total for e in rows) / seen
 
 
-def kernel_phase(dev):
+def unpack_v1(packed):
+    """The first kernel's 30 packed sums as (AtA, Atb, n_inliers, sum s,
+    sum s|pd2|), with the torch ops its wrapper ran on every call."""
+    import torch
+
+    iu = torch.triu_indices(6, 6, device=packed.device)
+    upper = torch.zeros((6, 6), dtype=packed.dtype, device=packed.device)
+    upper[iu[0], iu[1]] = packed[:21]
+    AtA = upper + upper.T - torch.diag(torch.diagonal(upper))
+    return (AtA, packed[21:27], packed[27].to(torch.int32), packed[28],
+            packed[29])
+
+
+def kernel_bound(table, hh, scan, mask):
+    """The least time the card could take for one call on these inputs:
+    (bound_ms, bound_by, bytes, flop).  Bytes: each bucket row that some
+    unmasked point's ids name, once; ids, scan, mask and pose once; the 45
+    output words once.  Operations: 8 a candidate distance, about 300 a
+    plane fit, for the unmasked points."""
+    import torch
+
+    T, C, _ = table.shape
+    live = hh[:, mask]
+    live = live[(live >= 0) & (live < T)]
+    n_rows = int(torch.unique(live).numel())
+    n_bytes = (n_rows * C * 12 + hh.numel() * 4 + scan.numel() * 4
+               + mask.numel() + 6 * 4 + 45 * 4)
+    n_live = int(mask.sum())
+    flop = n_live * (hh.shape[0] * C * 8 + 300)
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flop / FP32_FLOP_PER_S
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations",
+            n_bytes, flop, n_rows)
+
+
+def kernel_scene(dev):
+    """The main path's shapes: an 8192-point scan drawn from a 65536-point
+    map in a 32768 x 24 grid, and a pose a GN step away from the truth."""
     import numpy as np
     import torch
 
     from lio_slam_tpu_torch.io import synthetic
-    from lio_slam_tpu_torch.ops import fused_corr as fc
     from lio_slam_tpu_torch.ops import voxel_grid as vg
     from lio_slam_tpu_torch.utils import se3
 
@@ -162,6 +247,19 @@ def kernel_phase(dev):
     mask = torch.ones(N_SCAN, dtype=torch.bool, device=dev)
     pose = torch.from_numpy(pose0 + np.array([2e-3, -1e-3, 4e-3, 0.05, -0.04,
                                               0.02], np.float32)).to(dev)
+    return grid, scan, mask, pose, torch.from_numpy(pose0).to(dev)
+
+
+
+
+def kernel_phase(dev):
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import voxel_grid as vg
+    from lio_slam_tpu_torch.utils import se3
+
+    grid, scan, mask, pose, pose_held = kernel_scene(dev)
     kw = dict(nn_radius=1.0, plane_dist_thresh=0.2, robust_weight_floor=0.1)
     print(f"kernel phase: scan {N_SCAN}, map {N_MAP} points in a {TABLE} x "
           f"{CAP} grid ({int(grid.counts.sum())} slots filled)", flush=True)
@@ -177,7 +275,7 @@ def kernel_phase(dev):
     if not all(torch.equal(a, b) for a, b in zip(out, again)):
         fail("repeated launches are not bit-identical")
 
-    Rg, tg = se3.pose6_to_Rt(torch.from_numpy(pose0).to(dev))
+    Rg, tg = se3.pose6_to_Rt(pose_held)
     hh = vg.bucket_ids(se3.transform_points(Rg, tg, scan), grid.cell_size, TABLE)
     held = fc.fused_ne_from_bucket_ids(grid.table, hh, scan, mask, pose, **kw)
     errs.append(check_ne("held-bucket-ids", held, fc.fused_ne_from_bucket_ids_ref(
@@ -196,33 +294,82 @@ def kernel_phase(dev):
         fail("empty map gave a non-zero system")
     print("kernel check empty-map: zeros", flush=True)
 
-    # kernel against plain version on held bucket ids, in turns (plain,
-    # kernel, kernel, plain); L2-warm, as inside the GN loop
     hh_now = vg.bucket_ids(se3.transform_points(*se3.pose6_to_Rt(pose), scan),
                            grid.cell_size, TABLE)
     kernel = lambda: fc.fused_ne_from_bucket_ids(grid.table, hh_now, scan, mask,
                                                  pose, **kw)
     plain = lambda: fc.fused_ne_from_bucket_ids_ref(grid.table, hh_now, scan,
                                                     mask, pose, **kw)
-    on_device = [device_ms(plain), device_ms(kernel), device_ms(kernel),
-                 device_ms(plain)]
-    per_call = [call_ms(plain, reps=10), call_ms(kernel), call_ms(kernel),
-                call_ms(plain, reps=10)]
+    v1_raw = lambda: fc.fused_ne_from_bucket_ids_v1(grid.table, hh_now, scan,
+                                                    mask, pose, **kw)
+    v1 = lambda: unpack_v1(v1_raw())
+
+    # against the first version: the same five neighbours a point, so the
+    # same inliers; the sums are taken in another order, so within the
+    # plain-version tolerances and not bit-equal
+    launches_before = fc.KERNEL_LAUNCHES
+    from_v1 = v1()
+    if fc.KERNEL_LAUNCHES != launches_before:
+        fail("the first version's launch was counted")
+    errs.append(check_ne("against-v1", kernel(), from_v1))
+
+    # a few non-finite points, masked and not: they contribute nothing, in
+    # the kernel and in the plain version, on the same tensors
+    bad = scan.clone()
+    bad[7] = float("nan")
+    bad[N_SCAN // 3, 1] = float("inf")
+    bad[N_SCAN // 2] = float("nan")
+    bad[N_SCAN - 1, 2] = float("-inf")
+    bad_mask = mask.clone()
+    bad_mask[N_SCAN // 2] = False
+    bad_mask[N_SCAN - 1] = False
+    nf = fc.fused_ne_from_bucket_ids(grid.table, hh_now, bad, bad_mask, pose, **kw)
+    if not all(bool(torch.isfinite(x.float()).all()) for x in nf):
+        fail("non-finite points reached the sums")
+    errs.append(check_ne("non-finite-points", nf, fc.fused_ne_from_bucket_ids_ref(
+        grid.table, hh_now, bad, bad_mask, pose, **kw)))
+    if int(nf[2]) > int(out[2]):
+        fail("the non-finite points were counted as inliers")
+
+    # in turns on held bucket ids, L2-warm as inside the GN loop
+    on_device = [device_ms(plain), device_ms(v1_raw), device_ms(kernel),
+                 device_ms(kernel), device_ms(v1_raw), device_ms(plain)]
+    per_call = [call_ms(plain, reps=10), call_ms(v1), call_ms(kernel),
+                call_ms(kernel), call_ms(v1), call_ms(plain, reps=10)]
+    # the kernel alone (without the wrapper's allocation), warm and with a
+    # cold L2: a 64 MB buffer written before every launch
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    warm_ms = named_kernel_ms(kernel, "fused_corr_groups")
+    cold_ms = named_kernel_ms(kernel, "fused_corr_groups",
+                              between=lambda: flush.fill_(1.0))
+    del flush
     # the entry point as the GN loop calls it at refresh 1 (bucket ids + kernel)
     entry = {name: call_ms(lambda: fc.fused_normal_equations(g, scan, m, pose,
                                                              **kw))
              for name, g, m in (("full", grid, mask), ("half-masked", grid, half),
                                 ("empty-map", empty, mask))}
+    bound_ms, bound_by, n_bytes, flop, n_rows = kernel_bound(grid.table, hh_now,
+                                                             scan, mask)
     fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)
-    print("kernel timing, device ms per call (torch.profiler): plain, kernel, "
-          f"kernel, plain = {fmt(on_device)}", flush=True)
+    print("kernel timing, device ms per call (torch.profiler): plain, v1, "
+          f"kernel, kernel, v1, plain = {fmt(on_device)}", flush=True)
     print("kernel timing, ms per call as the caller sees it (CUDA events over "
-          f"back-to-back calls): plain, kernel, kernel, plain = {fmt(per_call)}; "
+          "back-to-back calls; v1 with its wrapper's unpacking): plain, v1, "
+          f"kernel, kernel, v1, plain = {fmt(per_call)}; "
           "bucket ids + kernel: " + ", ".join(f"{k} {v:.4f}"
                                               for k, v in entry.items()),
           flush=True)
-    return {"max_abs_err": max(errs), "ms": min(on_device[1:3]),
-            "plain_ms": min(on_device[0], on_device[3])}
+    ms = min(on_device[2:4])
+    print(f"kernel alone (fused_corr_groups, torch.profiler): warm {warm_ms:.4f} "
+          f"ms, cold L2 {cold_ms:.4f} ms", flush=True)
+    print(f"kernel bound: {n_rows} distinct bucket rows, {n_bytes} bytes, "
+          f"{flop} FLOP -> {bound_ms:.5f} ms by {bound_by}; time over bound: "
+          f"warm {ms / bound_ms:.2f}, cold {cold_ms / bound_ms:.2f}, v1 "
+          f"{min(on_device[1], on_device[4]) / bound_ms:.2f}", flush=True)
+    return {"max_abs_err": max(errs), "ms": ms,
+            "plain_ms": min(on_device[0], on_device[5]),
+            "v1_ms": min(on_device[1], on_device[4]), "cold_ms": cold_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def mission_phase(dev, profile_dir):
@@ -419,7 +566,7 @@ def main():
     print(f"kernel library ready in {time.perf_counter() - t0:.2f} s ({built})",
           flush=True)
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
     k = kernel_phase(dev)
@@ -429,7 +576,9 @@ def main():
         "source": "lio_slam_tpu_torch/ops/csrc/fused_corr.cu",
         "replaces": "lio_slam_tpu/ops/fused_corr.py:124",
         "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}), flush=True)
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None, "v1_ms": k["v1_ms"],
+        "cold_ms": k["cold_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -48,7 +48,8 @@ def _digest() -> str:
 
 
 def load_fused_corr() -> ctypes.CDLL:
-    """Return the kernel library, compiling it if this source has no build."""
+    """Return the kernel library, compiling it if this source has no build.
+    BUILD_SECONDS and BUILD_LOG describe the compile this call made."""
     global _lib, BUILD_SECONDS, BUILD_LOG
     if _lib is not None:
         return _lib
@@ -67,8 +68,13 @@ def load_fused_corr() -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lio_fused_corr.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp,
-                                   cf, cf, cf, vp, ci, vp, vp]
-    lib.lio_fused_corr.restype = ci
+    # table, T, C, hh, O, scan, mask, N, pose6, three thresholds, then
+    # (scratch, scratch_floats, out, stream) / v1: (partials, blocks, out, stream)
+    for fn in (lib.lio_fused_corr, lib.lio_fused_corr_v1):
+        fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp, cf, cf, cf,
+                       vp, ci, vp, vp]
+        fn.restype = ci
+    lib.lio_fused_corr_scratch_floats.argtypes = []
+    lib.lio_fused_corr_scratch_floats.restype = ci
     _lib = lib
     return lib

@@ -21,7 +21,18 @@ on the input's device; nothing here waits for the device.
   eigensolver is the trigonometric form of `registration._eigpair_3x3`
   (the JAX kernel's Newton iteration only works around Mosaic's missing
   acos).
-- `KERNEL_LAUNCHES` counts kernel launches and nothing else.
+- A scan point whose world image is not finite (a NaN or an infinity in
+  the point) contributes nothing, whatever its mask bit, in the kernel and
+  in the plain version alike.  This departs from the JAX package, where
+  such a point's zero weight multiplies a non-finite Jacobian row and the
+  sums come out NaN; its loaders (the vendor adapters of `io/formats.py`,
+  not ported yet) remove such points before they get here.  `pose6` must
+  be finite.
+- `fused_ne_from_bucket_ids_v1` launches the first version of the kernel,
+  kept in the source as the yardstick the current one is timed against.  It
+  is not on the main path and not counted.
+- `KERNEL_LAUNCHES` counts launches of the main path's kernel and nothing
+  else.
 
 The (O, N) bucket ids stay plain torch (`voxel_grid.bucket_ids`), as the
 JAX package computes them in XLA outside its kernel.  The kernel reads the
@@ -40,22 +51,28 @@ from lio_slam_tpu_torch.ops import voxel_grid as vg
 from lio_slam_tpu_torch.utils import se3
 
 KNN = 5
-# kernel output layout: AtA upper triangle (21, row-major), Atb (6),
-# n_inliers, Σs, Σs·|pd2|
-N_OUT = 30
-THREADS = 128                 # threads per block of the point kernel
 MAX_OFFSETS = 9               # bucket ids per point the kernel holds
+# the kernel's output words: AtA (6x6, symmetric), Atb (6), Σs, Σs·|pd2| as
+# float32, then n_inliers as an int32
+OUT_WORDS = 45
+# the first version's packed output: AtA upper triangle (21, row-major),
+# Atb (6), n_inliers, Σs, Σs·|pd2|; and its threads per block
+N_OUT_V1 = 30
+THREADS_V1 = 128
 KERNEL_LAUNCHES = 0
+# zeroed scratch (ticket + per-block partials) per (device index, stream):
+# the kernel's last block resets the ticket, so a buffer serves every call
+# on its stream.  Calls on one stream run in order, so one host thread
+# launches on a stream at a time; a launch that is aborted part-way (a
+# device fault) leaves the ticket unusable, like the rest of the context.
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
-def _unpack(out: torch.Tensor):
-    """The kernel's 30 sums as (AtA, Atb, n_inliers, Σs, Σs·|pd2|).  The
-    indices are made on the device: a host-built index tensor would be a
-    copy that waits for the stream."""
-    iu = torch.triu_indices(6, 6, device=out.device)    # row-major, as packed
-    upper = torch.zeros((6, 6), dtype=out.dtype, device=out.device)
-    upper[iu[0], iu[1]] = out[:21]
-    AtA = upper + upper.T - torch.diag(torch.diagonal(upper))
-    return (AtA, out[21:27], out[27].to(torch.int32), out[28], out[29])
+
+def _views(out: torch.Tensor):
+    """The kernel's 45 output words as (AtA, Atb, n_inliers, Σs, Σs·|pd2|),
+    all views of `out`."""
+    return (out[:36].view(6, 6), out[36:42], out[44:].view(torch.int32)[0],
+            out[42], out[43])
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +131,12 @@ def fused_ne_from_bucket_ids_ref(table: torch.Tensor, hh: torch.Tensor,
     dev = scan.device
     Rm, t = se3.pose6_to_Rt(pose6)
     scan_w = se3.transform_points(Rm, t, scan)
+    # a point with no finite world image is dropped (the kernel finds it no
+    # neighbour): zeroed, so that its zero weight meets finite terms
+    finite = torch.isfinite(scan_w).all(dim=1)
+    scan = torch.where(finite[:, None], scan, torch.zeros_like(scan))
+    scan_w = torch.where(finite[:, None], scan_w, torch.zeros_like(scan_w))
+    scan_mask = scan_mask & finite
     in_table = (hh >= 0) & (hh < T)
     cand = table[torch.where(in_table, hh, 0).to(torch.int64)]    # (O, N, C, 3)
     cx, cy, cz = cand.permute(3, 0, 2, 1).reshape(3, R, N)        # row o*C + c
@@ -232,6 +255,21 @@ def _check_cuda_inputs(table, hh, scan, scan_mask, pose6):
     if not 1 <= hh.shape[0] <= MAX_OFFSETS:
         raise ValueError(f"the kernel scans 1 to {MAX_OFFSETS} buckets per "
                          f"point, hh has {hh.shape[0]} rows")
+    if N > 2 ** 24:
+        raise ValueError(f"the kernel counts inliers in float32: N={N} > 2^24")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned: the kernel copies "
+                         "its rows 16 bytes at a time")
+
+
+def _kernel_args(table, hh, scan, scan_mask, pose6, nn_radius,
+                 plane_dist_thresh, robust_weight_floor):
+    T, C, _ = table.shape
+    O, N = hh.shape
+    return (table.data_ptr(), T, C, hh.data_ptr(), O, scan.data_ptr(),
+            scan_mask.data_ptr(), N, pose6.data_ptr(),
+            ctypes.c_float(nn_radius), ctypes.c_float(plane_dist_thresh),
+            ctypes.c_float(robust_weight_floor))
 
 
 def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
@@ -243,7 +281,8 @@ def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
     """The fused pass on bucket ids `hh` (O, N) from `voxel_grid.bucket_ids`
     — held across GN iterations when corr_refresh_every > 1.  An id outside
     [0, T) reads as an empty bucket.  CUDA tensors launch the kernel; CPU
-    tensors run the plain version."""
+    tensors run the plain version.  On CUDA the five results are views of
+    one buffer the kernel wrote whole."""
     if table.device.type == "cpu":
         return fused_ne_from_bucket_ids_ref(
             table, hh, scan, scan_mask, pose6, k=k, nn_radius=nn_radius,
@@ -257,23 +296,53 @@ def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
     from lio_slam_tpu_torch.ops import _build
 
     lib = _build.load_fused_corr()
-    T, C, _ = table.shape
-    O, N = hh.shape
-    blocks = -(-N // THREADS)
-    partials = torch.empty((blocks, N_OUT), dtype=torch.float32,
-                           device=table.device)
-    out = torch.empty(N_OUT, dtype=torch.float32, device=table.device)
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = lib.lio_fused_corr(
-        table.data_ptr(), T, C, hh.data_ptr(), O, scan.data_ptr(),
-        scan_mask.data_ptr(), N, pose6.data_ptr(), ctypes.c_float(nn_radius),
-        ctypes.c_float(plane_dist_thresh), ctypes.c_float(robust_weight_floor),
-        partials.data_ptr(), blocks, out.data_ptr(), stream)
+    dev = table.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _SCRATCH.get((dev.index, stream))
+    if scratch is None:
+        scratch = _SCRATCH[(dev.index, stream)] = torch.zeros(
+            lib.lio_fused_corr_scratch_floats(), dtype=torch.float32, device=dev)
+    out = torch.empty(OUT_WORDS, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):      # the launcher works on the current device
+        err = lib.lio_fused_corr(
+            *_kernel_args(table, hh, scan, scan_mask, pose6, nn_radius,
+                          plane_dist_thresh, robust_weight_floor),
+            scratch.data_ptr(), scratch.numel(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_corr kernel launch failed: cudaError_t {err}")
     global KERNEL_LAUNCHES
     KERNEL_LAUNCHES += 1
-    return _unpack(out)
+    return _views(out)
+
+
+def fused_ne_from_bucket_ids_v1(table: torch.Tensor, hh: torch.Tensor,
+                                scan: torch.Tensor, scan_mask: torch.Tensor,
+                                pose6: torch.Tensor, nn_radius: float = 1.0,
+                                plane_dist_thresh: float = 0.2,
+                                robust_weight_floor: float = 0.1):
+    """The first version of the kernel on CUDA tensors, as its wrapper
+    launched it (two buffers, two launches).  Returns its 30 packed sums:
+    AtA's upper triangle row-major, Atb, n_inliers, Σs, Σs·|pd2|.  A
+    yardstick for timing and tests; the main path never calls it."""
+    if table.device.type != "cuda":
+        raise ValueError(f"the v1 kernel runs on cuda only, not {table.device}")
+    _check_cuda_inputs(table, hh, scan, scan_mask, pose6)
+    from lio_slam_tpu_torch.ops import _build
+
+    lib = _build.load_fused_corr()
+    blocks = -(-hh.shape[1] // THREADS_V1)
+    partials = torch.empty((blocks, N_OUT_V1), dtype=torch.float32,
+                           device=table.device)
+    out = torch.empty(N_OUT_V1, dtype=torch.float32, device=table.device)
+    with torch.cuda.device(table.device):
+        err = lib.lio_fused_corr_v1(
+            *_kernel_args(table, hh, scan, scan_mask, pose6, nn_radius,
+                          plane_dist_thresh, robust_weight_floor),
+            partials.data_ptr(), blocks, out.data_ptr(),
+            torch.cuda.current_stream(table.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_corr v1 launch failed: cudaError_t {err}")
+    return out
 
 
 def fused_normal_equations(grid: vg.HashGrid, scan: torch.Tensor,

@@ -1,7 +1,7 @@
 """Host-side mission runner (port of `lio_slam_tpu/pipeline/runner.py`).
 
-`Runner(cfg, device=...)` drives one scan at a time through the port's main
-path:
+`Runner(cfg)` drives one scan at a time through the port's main path, on
+the CUDA device unless the caller passes `device="cpu"`:
 
     IMU prediction (predict_rate, TransformFusion) -> scan prep (deskew,
     range/crop filter, decimation) -> mapping step (downsample, GN
@@ -15,7 +15,7 @@ raises NotImplementedError.
 
 CLI:
     python -m lio_slam_tpu_torch.pipeline.runner --synthetic --scans 20 \
-        --points 8192 [--device cuda]
+        --points 8192 [--device cpu]
 """
 
 from __future__ import annotations
@@ -58,13 +58,14 @@ class ScanResult:
 
 
 class Runner:
-    def __init__(self, cfg: Optional[Config] = None, device="cpu",
+    def __init__(self, cfg: Optional[Config] = None, device="cuda",
                  record_bag: Optional[str] = None,
                  mission_log: Optional[str] = None, fetch_every: int = 1,
                  auto_checkpoint: Optional[str] = None, mesh=None):
-        """`device`: where every tensor of the mission lives.  The other
-        arguments mirror the JAX Runner's; the features behind them are
-        not ported yet, so anything but their defaults raises."""
+        """`device`: where every tensor of the mission lives; the card by
+        default, and never the CPU unless asked (`device="cpu"`).  The
+        other arguments mirror the JAX Runner's; the features behind them
+        are not ported yet, so anything but their defaults raises."""
         self.cfg = cfg or get_config("default")
         unported = {
             "cfg.loop.enabled (loop closure)": self.cfg.loop.enabled,
@@ -82,6 +83,10 @@ class Runner:
                 + " (disable loop closure with dataclasses.replace(cfg, "
                 "loop=dataclasses.replace(cfg.loop, enabled=False)))")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Runner(device={str(device)!r}) needs a CUDA device and torch "
+                'finds none; pass device="cpu" to run on the CPU')
         self.step = lio.make_lio_step(self.cfg, device=self.device)
         self._prep = self._make_prep()
         self.correct, self.predict_rate, self.transform_fusion = \
@@ -329,7 +334,8 @@ def main():
     ap.add_argument("--points", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--preset", default="default")
-    ap.add_argument("--device", default="cpu", help="cpu or cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
     args = ap.parse_args()
     if not args.synthetic:
         ap.error("pass --synthetic; bag replay is not ported yet")

@@ -144,6 +144,32 @@ def test_out_of_table_ids_read_as_empty_buckets():
         gb.table, hh, t(scan), mask, t(POSE), **KW)[2])
 
 
+def test_non_finite_points_contribute_nothing():
+    """A point with a NaN or an infinity, masked or not, leaves the sums
+    what they are without it.  The JAX kernel departs here: the point's zero
+    weight meets a non-finite Jacobian row and AtA comes out NaN."""
+    map_pts, scan = planar_scene(7)
+    ga, gb = grids(map_pts)
+    bad = scan.copy()
+    bad[3] = np.nan
+    bad[50, 1] = np.inf
+    bad[51] = np.nan
+    bad[100, 2] = -np.inf
+    mask = np.ones(len(scan), bool)
+    mask[[51, 100]] = False
+    got = tfc.fused_normal_equations(gb, t(bad), t(mask), t(POSE), **KW)
+    ok = np.isfinite(bad).all(axis=1)
+    want = tfc.fused_normal_equations(gb, t(np.where(ok[:, None], bad, 0.0)),
+                                      t(mask & ok), t(POSE), **KW)
+    assert int(got[2]) > 100
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(n(a), n(b))
+    ref = jfc.fused_normal_equations(ga, jnp.asarray(bad), jnp.asarray(mask),
+                                     jnp.asarray(POSE), halo="z", tile=128,
+                                     interpret=True, **KW)
+    assert not np.isfinite(n(ref[0])).all()
+
+
 def test_cpu_tensors_never_launch_the_kernel():
     map_pts, scan = planar_scene(4, n_scan=256)
     _, gb = grids(map_pts)
@@ -159,10 +185,14 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 
 def test_unpack_layout():
-    out = torch.arange(30, dtype=torch.float32)
-    AtA, Atb, n_inl, wsum, wres = tfc._unpack(out)
-    assert torch.equal(AtA, AtA.T)
-    assert AtA[0].tolist() == [0, 1, 2, 3, 4, 5]
-    assert AtA[1, 1] == 6 and AtA[5, 5] == 20
-    assert Atb.tolist() == [21, 22, 23, 24, 25, 26]
-    assert int(n_inl) == 27 and float(wsum) == 28 and float(wres) == 29
+    """The kernel's 45 output words, as the wrapper hands them out."""
+    out = torch.arange(tfc.OUT_WORDS, dtype=torch.float32)
+    out[44:].view(torch.int32)[0] = 27
+    AtA, Atb, n_inl, wsum, wres = tfc._views(out)
+    assert AtA.shape == (6, 6) and AtA[0].tolist() == [0, 1, 2, 3, 4, 5]
+    assert AtA[1, 1] == 7 and AtA[5, 5] == 35
+    assert Atb.tolist() == [36, 37, 38, 39, 40, 41]
+    assert n_inl.dtype == torch.int32 and n_inl.dim() == 0 and int(n_inl) == 27
+    assert float(wsum) == 42 and float(wres) == 43
+    for x in (AtA, Atb, n_inl, wsum, wres):       # views: nothing is copied
+        assert x.untyped_storage().data_ptr() == out.untyped_storage().data_ptr()

@@ -14,6 +14,8 @@ to float32 rounding.
 """
 
 import dataclasses
+import inspect
+import json
 import os
 import subprocess
 import sys
@@ -22,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_port_helpers import n, small_config, t
 from lio_slam_tpu import config as jax_config
@@ -167,12 +170,40 @@ def test_unported_features_refused():
     seq = synthetic.make_sequence(n_scans=1, n_points=256, seed=0)
     scans, _ = sm.synthetic_inputs(seq, cfg)
     with pytest.raises(NotImplementedError):
-        Runner(cfg).process_scan(scans[0], gps_fix=(45.0, 7.0, 200.0))
+        Runner(cfg, device="cpu").process_scan(scans[0],
+                                               gps_fix=(45.0, 7.0, 200.0))
+
+
+def run_cli(*args):
+    return subprocess.run([sys.executable, "-m", "lio_slam_tpu_torch.pipeline.runner",
+                           *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
 
 
 def test_cli_help_says_loop_closure_is_off():
-    out = subprocess.run([sys.executable, "-m", "lio_slam_tpu_torch.pipeline.runner",
-                          "--help"], cwd=ROOT, capture_output=True, text=True,
-                         timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    out = run_cli("--help")
     assert out.returncode == 0, out.stderr
     assert "Loop closure is not ported" in out.stdout
+
+
+def test_runner_defaults_to_the_card_and_never_falls_back():
+    """Without a CUDA device the default raises and names the argument to
+    pass; it does not carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default runs on it")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Runner(small_config(port_config))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Runner(small_config(port_config), device="cuda:0")
+    assert Runner(small_config(port_config), device="cpu").device.type == "cpu"
+
+
+def test_cli_device_defaults_to_cuda():
+    assert inspect.signature(Runner.__init__).parameters["device"].default == "cuda"
+    out = run_cli("--synthetic", "--scans", "1", "--points", "256")
+    if torch.cuda.is_available():
+        assert out.returncode == 0, out.stderr
+        assert json.loads(out.stdout.splitlines()[-1])["device"].startswith("cuda")
+    else:
+        assert out.returncode != 0
+        assert 'device="cpu"' in out.stderr

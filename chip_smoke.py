@@ -13,16 +13,14 @@
    half-masked scan, checks that repeated launches are bit-identical, and
    times kernel and plain version: device time per call from torch.profiler
    (the JSON line's ms / plain_ms) and per-call time from CUDA events.
-   The kernel is also held to its first version (`lio_fused_corr_v1`, kept
-   in the source as a yardstick: same inliers, sums within the same
-   tolerances, since only the order of summation differs) and to the plain
-   version on a scan with a few non-finite points, and timed against the
-   first version in turns (v1, kernel, kernel, v1), once with a cold L2 (a
-   64 MB buffer written between launches, as the first GN iteration after a
-   grid insert finds it), and against its bound: the bytes this run's
-   inputs and outputs hold (distinct buckets touched x row bytes, ids, scan,
-   mask, pose, outputs) over 3.35 TB/s, or its operations over 67 TFLOP/s,
-   whichever is larger.
+   The kernel is also held to the plain version on a scan with a few
+   non-finite points, timed once with a cold L2 (a 64 MB buffer written
+   between launches, as the first GN iteration after a grid insert finds
+   it), and against its bound: the bytes this run's inputs and outputs hold
+   (distinct buckets touched x row bytes, ids, scan, mask, pose, outputs)
+   over 3.35 TB/s, or its operations over 67 TFLOP/s, whichever is larger.
+   `fused_normal_equations` (bucket ids at the pose, then the sums) is timed
+   the same way beside its plain version `fused_normal_equations_ref`.
 3. Mission phase: drives `Runner(device="cuda")` over the 40-scan synthetic
    mission at bench.py's shapes (loop closure off) and checks finite poses,
    ATE against truth, that the GN loop went through the kernel (launch count
@@ -39,6 +37,24 @@
    busy time against the wall time of the same scans (idle share), and each
    runner stage's device time from its record_function range;
    `--profile-dir` also writes the profiler's table there.
+
+6. Loop-mission phase: `Runner(cfg)` (the card is its default device) over
+   the 125-scan closed circle with loop closure and GPS on
+   (`synthetic_mission.loop_mission_config`), the loop detector every 10
+   scans.  Fails unless loop and GPS factors were added in the numbers of
+   the JAX reference run (lio_slam_tpu_torch/fixtures/loop_mission_jax.npz),
+   a full correction ran with its map rebuild, the kernel's launches equal
+   the GN iterations of mapping plus those of loop verification (counted
+   apart, cycle by cycle), the trajectory stays within the stated distances
+   of the reference run (the mapping limits before the first full
+   correction, looser measured ones after) and the ATE against truth under
+   its limit.  Prints each event's time, then times one full correction and
+   one detector cycle on the final state under torch.profiler.
+7. Verification-kernel check: the kernel against its plain version on a
+   submap grid of that mission built in one shot by `build_grid`, with a
+   keyframe cloud as the scan (the shapes loop verification launches it at).
+8. Solver check: `solve_sparse` against the dense `solve` on the mission's
+   final graph, and the time of a 5-iteration solve at K=256 and K=2048.
 
 Prints the card's name and power limit, one JSON line describing the
 kernel, and last `{"ok": true, "device": {...}}`.  Exits non-zero, without
@@ -70,6 +86,15 @@ MAX_DEV_RAD = math.radians(0.1)
 CARRIED_MAX_DEV_M = 1e-3
 CARRIED_MAX_DEV_RAD = math.radians(0.005)
 CARRIED_MAX_ITER_DIFF = 1
+# the loop mission against its JAX reference run: the 40-scan mission's
+# limits until the first full correction; then every GPS factor's
+# correction moves the map a little differently in float32, and a loop
+# verified from a slightly different pose moves everything after it
+LOOP_GPS_MAX_DEV_M = 0.05
+LOOP_GPS_MAX_DEV_RAD = math.radians(0.25)
+LOOP_MAX_DEV_M = 0.5
+LOOP_MAX_DEV_RAD = math.radians(2.0)
+LOOP_MAX_ATE_M = 1.0
 
 
 def fail(msg: str):
@@ -137,8 +162,10 @@ def device_ms(fn, reps=20):
     """Device time per call: the durations of every kernel and copy `fn`
     puts on the card, summed by torch.profiler over `reps` calls.  Every
     call puts the same kernels there, so a kernel seen some other number of
-    times than a multiple of `reps` means the tracer dropped records: the
-    pass is made again."""
+    times than a multiple of `reps` means the tracer dropped records (late in
+    a long process it drops most of the first call's).  Dropped records, up
+    to 5% of a pass, are made good with that kernel's mean duration; with
+    more the pass is made again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -153,12 +180,32 @@ def device_ms(fn, reps=20):
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)]
-        if rows and all(e.count % reps == 0 for e in rows):
-            return 1e-3 * sum(e.self_device_time_total for e in rows) / reps
+        full = [-(-e.count // reps) * reps for e in rows]
+        lost = [f - e.count for f, e in zip(full, rows)]
+        if rows and sum(lost) <= max(2, sum(full) // 20):
+            if sum(lost):
+                print(f"device_ms: {sum(lost)} dropped record(s) made good with "
+                      "their kernel's mean duration", flush=True)
+            return 1e-3 * sum(e.self_device_time_total / e.count * f
+                              for f, e in zip(full, rows)) / reps
         print("device_ms: the profiler saw "
               f"{sorted(e.count for e in rows)} launches by kernel for {reps} "
               "calls; profiling again", flush=True)
     fail("the profiler lost device records in five passes")
+
+
+def warm_profiler(dev):
+    """The tracer reports nothing from the first profile of a process (it
+    starts inside it): spend that one on a throwaway."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1024, device=dev)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            for _ in range(10):
+                x = x + 1.0
+            torch.cuda.synchronize()
 
 
 def named_kernel_ms(fn, name_part, reps=20, between=None):
@@ -182,19 +229,6 @@ def named_kernel_ms(fn, name_part, reps=20, between=None):
     if not reps // 2 <= seen <= reps:      # the tracer may drop a record
         fail(f"profiler saw {seen} launches of *{name_part}*, expected {reps}")
     return 1e-3 * sum(e.self_device_time_total for e in rows) / seen
-
-
-def unpack_v1(packed):
-    """The first kernel's 30 packed sums as (AtA, Atb, n_inliers, sum s,
-    sum s|pd2|), with the torch ops its wrapper ran on every call."""
-    import torch
-
-    iu = torch.triu_indices(6, 6, device=packed.device)
-    upper = torch.zeros((6, 6), dtype=packed.dtype, device=packed.device)
-    upper[iu[0], iu[1]] = packed[:21]
-    AtA = upper + upper.T - torch.diag(torch.diagonal(upper))
-    return (AtA, packed[21:27], packed[27].to(torch.int32), packed[28],
-            packed[29])
 
 
 def kernel_bound(table, hh, scan, mask):
@@ -250,8 +284,6 @@ def kernel_scene(dev):
     return grid, scan, mask, pose, torch.from_numpy(pose0).to(dev)
 
 
-
-
 def kernel_phase(dev):
     import torch
 
@@ -300,18 +332,11 @@ def kernel_phase(dev):
                                                  pose, **kw)
     plain = lambda: fc.fused_ne_from_bucket_ids_ref(grid.table, hh_now, scan,
                                                     mask, pose, **kw)
-    v1_raw = lambda: fc.fused_ne_from_bucket_ids_v1(grid.table, hh_now, scan,
-                                                    mask, pose, **kw)
-    v1 = lambda: unpack_v1(v1_raw())
-
-    # against the first version: the same five neighbours a point, so the
-    # same inliers; the sums are taken in another order, so within the
-    # plain-version tolerances and not bit-equal
-    launches_before = fc.KERNEL_LAUNCHES
-    from_v1 = v1()
-    if fc.KERNEL_LAUNCHES != launches_before:
-        fail("the first version's launch was counted")
-    errs.append(check_ne("against-v1", kernel(), from_v1))
+    # the entry point as the GN loop calls it at refresh 1 (bucket ids at the
+    # pose, then the kernel), and its plain version on the same tensors
+    entry_kernel = lambda: fc.fused_normal_equations(grid, scan, mask, pose, **kw)
+    entry_plain = lambda: fc.fused_normal_equations_ref(grid, scan, mask, pose,
+                                                        **kw)
 
     # a few non-finite points, masked and not: they contribute nothing, in
     # the kernel and in the plain version, on the same tensors
@@ -332,10 +357,14 @@ def kernel_phase(dev):
         fail("the non-finite points were counted as inliers")
 
     # in turns on held bucket ids, L2-warm as inside the GN loop
-    on_device = [device_ms(plain), device_ms(v1_raw), device_ms(kernel),
-                 device_ms(kernel), device_ms(v1_raw), device_ms(plain)]
-    per_call = [call_ms(plain, reps=10), call_ms(v1), call_ms(kernel),
-                call_ms(kernel), call_ms(v1), call_ms(plain, reps=10)]
+    on_device = [device_ms(plain), device_ms(kernel), device_ms(kernel),
+                 device_ms(plain)]
+    per_call = [call_ms(plain, reps=10), call_ms(kernel), call_ms(kernel),
+                call_ms(plain, reps=10)]
+    entry_device = [device_ms(entry_plain), device_ms(entry_kernel),
+                    device_ms(entry_kernel), device_ms(entry_plain)]
+    entry_call = [call_ms(entry_plain, reps=10), call_ms(entry_kernel),
+                  call_ms(entry_kernel), call_ms(entry_plain, reps=10)]
     # the kernel alone (without the wrapper's allocation), warm and with a
     # cold L2: a 64 MB buffer written before every launch
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -343,7 +372,6 @@ def kernel_phase(dev):
     cold_ms = named_kernel_ms(kernel, "fused_corr_groups",
                               between=lambda: flush.fill_(1.0))
     del flush
-    # the entry point as the GN loop calls it at refresh 1 (bucket ids + kernel)
     entry = {name: call_ms(lambda: fc.fused_normal_equations(g, scan, m, pose,
                                                              **kw))
              for name, g, m in (("full", grid, mask), ("half-masked", grid, half),
@@ -351,24 +379,26 @@ def kernel_phase(dev):
     bound_ms, bound_by, n_bytes, flop, n_rows = kernel_bound(grid.table, hh_now,
                                                              scan, mask)
     fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)
-    print("kernel timing, device ms per call (torch.profiler): plain, v1, "
-          f"kernel, kernel, v1, plain = {fmt(on_device)}", flush=True)
+    print("kernel timing, device ms per call (torch.profiler): plain, "
+          f"kernel, kernel, plain = {fmt(on_device)}", flush=True)
     print("kernel timing, ms per call as the caller sees it (CUDA events over "
-          "back-to-back calls; v1 with its wrapper's unpacking): plain, v1, "
-          f"kernel, kernel, v1, plain = {fmt(per_call)}; "
-          "bucket ids + kernel: " + ", ".join(f"{k} {v:.4f}"
-                                              for k, v in entry.items()),
-          flush=True)
-    ms = min(on_device[2:4])
+          "back-to-back calls): plain, kernel, kernel, plain = "
+          f"{fmt(per_call)}; bucket ids + kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in entry.items()), flush=True)
+    print("fused_normal_equations (bucket ids at the pose + the sums), plain, "
+          f"kernel, kernel, plain: device ms per call {fmt(entry_device)}; ms "
+          f"per call as the caller sees it {fmt(entry_call)}", flush=True)
+    ms = min(on_device[1:3])
     print(f"kernel alone (fused_corr_groups, torch.profiler): warm {warm_ms:.4f} "
           f"ms, cold L2 {cold_ms:.4f} ms", flush=True)
     print(f"kernel bound: {n_rows} distinct bucket rows, {n_bytes} bytes, "
           f"{flop} FLOP -> {bound_ms:.5f} ms by {bound_by}; time over bound: "
-          f"warm {ms / bound_ms:.2f}, cold {cold_ms / bound_ms:.2f}, v1 "
-          f"{min(on_device[1], on_device[4]) / bound_ms:.2f}", flush=True)
+          f"warm {ms / bound_ms:.2f}, cold {cold_ms / bound_ms:.2f}",
+          flush=True)
     return {"max_abs_err": max(errs), "ms": ms,
-            "plain_ms": min(on_device[0], on_device[5]),
-            "v1_ms": min(on_device[1], on_device[4]), "cold_ms": cold_ms,
+            "plain_ms": min(on_device[0], on_device[3]), "cold_ms": cold_ms,
+            "entry_ms": min(entry_device[1:3]),
+            "entry_plain_ms": min(entry_device[0], entry_device[3]),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -535,11 +565,408 @@ def profiled_phase(dev, cfg, scans, imus, profile_dir):
         print(f"profile table written to {profile_dir}", flush=True)
 
 
+def synced_ms(fn):
+    """(result, ms): `fn()` between two device synchronizations, on the
+    host's clock: the host's work and the device's, whichever ends last."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def profiled_once(fn):
+    """(result, device busy ms, device kernels and copies, wall ms) of one
+    call under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    n_dev = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    return out, device_busy_ms(prof), n_dev, wall_ms
+
+
+def lever_graph(K, n_loops, dev):
+    """A graph at capacity K with every pose active: a noisy straight chain
+    of 1 m steps, `n_loops` loop factors i <-> i + K/4 and a
+    translation-soft prior (the long-lever-arm shape the sparse solver's
+    step control exists for)."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.graph import factors as F
+
+    rs = np.random.RandomState(0)
+    truth = np.zeros((K, 6), np.float32)
+    truth[:, 3] = np.arange(K)
+    poses = truth + rs.randn(K, 6).astype(np.float32) * 0.02
+    B = (K - 1) + 64
+    bt_i, bt_j = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    bt_i[:K - 1], bt_j[:K - 1] = np.arange(K - 1), np.arange(1, K)
+    meas = np.tile(np.array([0, 0, 0, 1, 0, 0], np.float32), (B, 1))
+    bt_mask = np.zeros(B, bool)
+    bt_mask[:K - 1] = True
+    for q in range(n_loops):
+        s = (K - 1) + q
+        bt_i[s], bt_j[s] = q * (K // 16), q * (K // 16) + K // 4
+        meas[s, 3] = K // 4
+        bt_mask[s] = True
+    info = F.info_from_variances((1e-6, 1e-6, 1e-6, 1e-4, 1e-4, 1e-4))
+    to = lambda a: torch.from_numpy(a).to(dev)
+    g = F.empty_graph(K, B, 64, device=dev)._replace(
+        poses=to(poses), pose_mask=torch.ones(K, dtype=torch.bool, device=dev),
+        prior_pose=to(poses[0]),
+        prior_info=F.info_from_variances((1e-2, 1e-2, math.pi ** 2, 1e8, 1e8,
+                                          1e8)).to(dev),
+        bt_i=to(bt_i), bt_j=to(bt_j), bt_meas=to(meas),
+        bt_info=info.to(dev)[None].repeat(B, 1), bt_mask=to(bt_mask))
+    return g
+
+
+def solver_check(graph, dev):
+    """The sparse full-graph solve against the dense one on the mission's
+    final graph (poses perturbed by seeded noise, so that there is a step to
+    take): poses within 5e-3, the limit the sparse solver is held to against
+    the dense one in the tests.  The last pose's marginal covariance is
+    printed from both and held to be finite and positive only: this graph is
+    anchored by a few GPS factors of 1 m^2, so its covariance is set by the
+    solvers' relative damping, which the sparse factorization applies twice
+    a block and the dense one once.  Then the time of one 5-iteration solve
+    at K=256 (the mission's graph, both solvers) and at K=2048 (a chain with
+    8 loops, sparse; dense would hold a 12288^2 system), which must lower
+    the graph's chi2."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.graph import factors as F
+    from lio_slam_tpu_torch.graph import solver, sparse
+
+    K = graph.poses.shape[0]
+    n_act = int(graph.pose_mask.sum())
+    rs = np.random.RandomState(3)
+    noise = torch.from_numpy((rs.randn(K, 6) * 0.01).astype(np.float32)).to(dev)
+    g = graph._replace(poses=graph.poses
+                       + noise * graph.pose_mask[:, None].float())
+    dense, dense_ms = synced_ms(lambda: solver.solve(g, g.pose_mask, iterations=5))
+    sp, sparse_ms = synced_ms(lambda: sparse.solve_sparse(g, iterations=5))
+    diff = float((sp.graph.poses - dense.graph.poses).abs().max())
+    moved = float((dense.graph.poses - g.poses).abs().max())
+    idx = torch.tensor(n_act - 1, device=dev)
+    cd = solver.marginal_covariance(g, idx)
+    cs = sparse.marginal_covariance_sparse(g, idx)
+    print(f"solver check on the mission's graph (K={K}, {n_act} active poses, "
+          f"{int(g.bt_mask[K - 1:].sum())} loop and {int(g.gps_mask.sum())} GPS "
+          f"factors): sparse against dense max pose difference {diff:.3e} "
+          f"(the solve moved poses by up to {moved:.3e}); chi2 dense "
+          f"{float(dense.chi2):.4f} sparse {float(sp.chi2):.4f}", flush=True)
+    if not (diff <= 5e-3 and math.isfinite(diff)):
+        fail(f"sparse solve differs from the dense one by {diff}")
+    if moved < 1e-3:
+        fail("the solver check's solve moved nothing")
+    fmt = lambda c: " ".join(f"{x:.3e}" for x in c.diagonal().tolist())
+    print(f"marginal covariance of pose {n_act - 1}, diagonal: dense {fmt(cd)}; "
+          f"sparse {fmt(cs)}", flush=True)
+    for c in (cd, cs):
+        if not (bool(torch.isfinite(c).all()) and bool((c.diagonal() > 0).all())):
+            fail(f"marginal covariance {c.diagonal().tolist()}")
+    # the timed solves run once more (everything is loaded by now)
+    _, dense_ms = synced_ms(lambda: solver.solve(g, g.pose_mask, iterations=5))
+    _, sparse_ms = synced_ms(lambda: sparse.solve_sparse(g, iterations=5))
+    full = lever_graph(K, 8, dev)
+    _, sparse_full_ms = synced_ms(lambda: sparse.solve_sparse(full, iterations=5))
+    big = lever_graph(2048, 8, dev)
+    r, big_ms = synced_ms(lambda: sparse.solve_sparse(big, iterations=5))
+    before, after = float(F.graph_chi2(big)), float(F.graph_chi2(r.graph))
+    if not (math.isfinite(after) and after < before):
+        fail(f"the K=2048 sparse solve took chi2 from {before} to {after}")
+    print(f"solve times, one 5-iteration full-graph solve, ms (host clock, "
+          f"device synchronized): K={K} mission graph ({n_act} active) dense "
+          f"{dense_ms:.1f}, sparse {sparse_ms:.1f}; K={K} all active with 8 "
+          f"loops sparse {sparse_full_ms:.1f}; K=2048 all active with 8 loops "
+          f"sparse {big_ms:.1f} (chi2 {before:.4g} -> {after:.4g})", flush=True)
+
+
+def verification_kernel_check(runner, cfg, pair, dev):
+    """The kernel the way loop verification launches it: the table is a
+    submap grid built in one shot by `build_grid` around a matched keyframe
+    of this mission, the scan is a keyframe cloud.  Held to its plain
+    version with the kernel phase's tolerances."""
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import voxel_grid as vg
+    from lio_slam_tpu_torch.pipeline import loop_closure
+
+    r, l, s = cfg.registration, cfg.loop, cfg.static
+    store = runner.state.store
+    cur, cand = (torch.tensor(int(k), device=dev) for k in pair)
+    submap = loop_closure._submap_around(store, cand, l.search_num,
+                                         s.icp_submap_points,
+                                         r.mapping_surf_leaf_size)
+    grid = vg.build_grid(submap.xyz, submap.mask, r.nn_radius,
+                         r.grid_table_size, r.grid_max_per_cell,
+                         halo=r.grid_halo)
+    scan, mask, pose = store.clouds[cur], store.cloud_masks[cur], store.poses[cur]
+    kw = dict(halo=r.grid_halo, nn_radius=r.nn_radius,
+              plane_dist_thresh=r.plane_dist_thresh,
+              robust_weight_floor=r.robust_weight_floor)
+    print(f"verification kernel check: keyframe {int(cur)} ({int(mask.sum())} of "
+          f"{mask.numel()} points) against the submap around keyframe "
+          f"{int(cand)} ({int(submap.mask.sum())} of {submap.mask.numel()} "
+          f"points, {int(grid.counts.sum())} slots of a "
+          f"{grid.table.shape[0]} x {grid.table.shape[1]} table filled)",
+          flush=True)
+    out = fc.fused_normal_equations(grid, scan, mask, pose, **kw)
+    torch.cuda.synchronize()
+    err = check_ne("submap-grid", out,
+                   fc.fused_normal_equations_ref(grid, scan, mask, pose, **kw))
+    if int(out[2]) < 100:
+        fail(f"only {int(out[2])} inliers of a keyframe against its own submap")
+    ms = device_ms(lambda: fc.fused_normal_equations(grid, scan, mask, pose, **kw))
+    plain_ms = device_ms(lambda: fc.fused_normal_equations_ref(
+        grid, scan, mask, pose, **kw))
+    print(f"verification shapes, bucket ids + sums, device ms per call: kernel "
+          f"route {ms:.4f}, plain version {plain_ms:.4f}", flush=True)
+    return err
+
+
+def loop_mission_phase(profile_dir=None):
+    """The loop mission through `Runner(cfg)` on the card (its default
+    device); returns (kernel launches of mapping, of loop verification, the
+    submap-grid check's largest difference)."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import voxel_grid as vg
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+    from lio_slam_tpu_torch.pipeline.runner import Runner
+
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "loop_mission_jax.npz"))
+    cfg = sm.loop_mission_config()
+    seq, scans, imus, fixes = sm.loop_mission_inputs(cfg)
+    runner = Runner(cfg, loop_every=sm.LOOP_EVERY)
+    dev = runner.device
+    if dev.type != "cuda":
+        fail(f"Runner(cfg) chose {dev}, not the card")
+
+    # every grid built whole (full corrections' rebuilds, verifications'
+    # submap grids) goes through vg.build_grid: count them
+    builds = [0]
+    build_grid = vg.build_grid
+
+    def counting_build(*a, **k):
+        builds[0] += 1
+        return build_grid(*a, **k)
+
+    vg.build_grid = counting_build
+    events = {"full_correction": [], "loop_closure": []}
+    full_correct, detector = runner.full_correct, runner.detector
+
+    flag_reads = [0]
+
+    def timed_correct(state):
+        flag_reads[0] += 1
+        launches = fc.KERNEL_LAUNCHES
+        new, ms = synced_ms(lambda: full_correct(state))
+        if new is not state:
+            events["full_correction"].append(ms)
+        if fc.KERNEL_LAUNCHES != launches:
+            fail("the full correction launched the registration kernel")
+        return new
+
+    cycles = []
+
+    def timed_detector(state):
+        launches = fc.KERNEL_LAUNCHES
+        (new, aux), ms = synced_ms(lambda: detector(state))
+        n_it = sum(aux["loop_iters"])
+        if fc.KERNEL_LAUNCHES - launches != n_it:
+            fail(f"a detector cycle launched the kernel "
+                 f"{fc.KERNEL_LAUNCHES - launches} times for {n_it} GN "
+                 "iterations of verification")
+        cycles.append({"scan": runner.scan_count - 1, "ms": ms,
+                       "verifications": len(aux["loop_iters"]), "iters": n_it,
+                       **{k: aux[k].cpu().numpy() for k in
+                          ("loop_accepted", "loop_pair_i", "loop_pair_j",
+                           "loop_fitness")}})
+        events["loop_closure"].append(ms)
+        return new, aux
+
+    runner.full_correct, runner.detector = timed_correct, timed_detector
+
+    fc.KERNEL_LAUNCHES = 0
+    results, loops, gps = [], [], []
+    t0 = time.perf_counter()
+    for i in range(len(scans)):
+        results.append(runner.process_scan(scans[i], imu=imus[i],
+                                           gps_fixes=fixes[i]))
+        loops.append(int(runner.state.loop_count))
+        gps.append(int(runner.state.gps_count))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = fc.KERNEL_LAUNCHES
+    vg.build_grid = build_grid
+    runner.full_correct, runner.detector = full_correct, detector
+
+    poses = np.stack([r.pose for r in results])
+    if not np.isfinite(poses).all():
+        fail("loop mission: non-finite poses")
+    map_iters = sum(r.registration_iters for r in results)
+    ver_iters = sum(c["iters"] for c in cycles)
+    n_ver = sum(c["verifications"] for c in cycles)
+    corrected = runner.full_correction_scans
+    print(f"loop mission: {len(scans)} scans in {elapsed:.3f} s = "
+          f"{len(scans) / elapsed:.3f} scans/s (the events' timing "
+          f"synchronizes the device); kernel launches {launches} = "
+          f"{map_iters} GN iterations of mapping + {ver_iters} of "
+          f"{n_ver} loop verifications (JAX reference: {int(fixture['registration_iters'].sum())} "
+          "of mapping)", flush=True)
+    if map_iters == 0 or ver_iters == 0 or launches != map_iters + ver_iters:
+        fail(f"kernel launches {launches} != {map_iters} (mapping) + "
+             f"{ver_iters} (verification)")
+    for c in cycles:
+        if c["verifications"]:
+            print(f"  detector cycle at scan {c['scan']}: "
+                  f"{c['verifications']} verification(s), {c['iters']} GN "
+                  f"iterations, accepted {c['loop_accepted'].tolist()}, pair "
+                  f"{c['loop_pair_i'].tolist()} -> {c['loop_pair_j'].tolist()}, "
+                  f"fitness {[round(float(x), 5) for x in c['loop_fitness']]}, "
+                  f"{c['ms']:.1f} ms", flush=True)
+    ref_cycles = [(int(s), a.tolist(), j.tolist()) for s, a, j in
+                  zip(fixture["cycle_scan"], fixture["loop_accepted"],
+                      fixture["loop_pair_j"]) if a.any()]
+    print(f"loop mission: loop factors {loops[-1]} (JAX {int(fixture['loop_count'][-1])}), "
+          f"GPS factors {gps[-1]} (JAX {int(fixture['gps_count'][-1])}), "
+          f"keyframes {int(runner.state.store.count)} (JAX {int(fixture['keyframes'])}); "
+          f"full corrections at scans {corrected} (JAX "
+          f"{fixture['full_correction_scans'].tolist()}); grids built whole: "
+          f"{builds[0]} = {len(corrected)} rebuilds + {n_ver} submap grids; "
+          f"JAX accepted cycles (scan, [radius, SC], matched): {ref_cycles}",
+          flush=True)
+    if loops[-1] < 1 or loops[-1] != int(fixture["loop_count"][-1]):
+        fail(f"{loops[-1]} loop factors, JAX reference {int(fixture['loop_count'][-1])}")
+    if gps[-1] < 1 or gps[-1] != int(fixture["gps_count"][-1]):
+        fail(f"{gps[-1]} GPS factors, JAX reference {int(fixture['gps_count'][-1])}")
+    if not corrected or builds[0] != len(corrected) + n_ver:
+        fail(f"{len(corrected)} full corrections, {builds[0]} grids built whole")
+    if bool(runner.state.needs_full_solve):
+        fail("a factor was left without its full correction")
+
+    ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
+    d = np.abs(poses - fixture["poses"])
+    first = min(int(fixture["full_correction_scans"][0]), corrected[0])
+    first_loop = min([c["scan"] for c in cycles if c["loop_accepted"].any()]
+                     + [int(s) for s, a in zip(fixture["cycle_scan"],
+                                               fixture["loop_accepted"])
+                        if a.any()])
+    spans = (("before the first full correction", slice(0, first + 1),
+              MAX_DEV_M, MAX_DEV_RAD),
+             ("up to the first accepted loop", slice(0, first_loop + 1),
+              LOOP_GPS_MAX_DEV_M, LOOP_GPS_MAX_DEV_RAD),
+             ("whole mission", slice(None), LOOP_MAX_DEV_M, LOOP_MAX_DEV_RAD))
+    failures = []
+    err_truth = np.linalg.norm(poses[:, 3:] - sm.relative_truth(seq)[:, 3:], axis=1)
+    print("loop mission: distance from truth, m, every 5th scan: "
+          + " ".join(f"{x:.3f}" for x in err_truth[::5]) + "; from the JAX "
+          "reference: " + " ".join(f"{x:.3f}" for x in
+                                   np.linalg.norm(d[:, 3:], axis=1)[::5]),
+          flush=True)
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        np.savez(os.path.join(profile_dir, "loop_mission_run.npz"), poses=poses,
+                 is_keyframe=np.array([r.is_keyframe for r in results]),
+                 registration_iters=np.array([r.registration_iters
+                                              for r in results]),
+                 loop_count=np.array(loops), gps_count=np.array(gps),
+                 full_correction_scans=np.array(corrected),
+                 keyframe_poses=runner.state.store.poses.cpu().numpy())
+    for label, sl, lim_m, lim_rad in spans:
+        dm, dr = float(d[sl, 3:].max()), float(d[sl, :3].max())
+        print(f"loop mission, {label} (scans {sl.start or 0}-"
+              f"{(sl.stop or len(scans)) - 1}): max deviation from the JAX "
+              f"reference {dm:.3e} m, {math.degrees(dr):.3e} deg (limits "
+              f"{lim_m} m, {math.degrees(lim_rad):.2f} deg)", flush=True)
+        if not (dm <= lim_m and dr <= lim_rad):
+            failures.append(f"loop mission, {label}: deviation {dm} m / {dr} rad")
+    n_kf = int(runner.state.store.count)
+    if n_kf == int(fixture["keyframes"]):
+        dk = np.abs(runner.state.store.poses[:n_kf].cpu().numpy()
+                    - fixture["keyframe_poses"])
+        print(f"loop mission: final keyframe poses within {dk[:, 3:].max():.3e} m, "
+              f"{math.degrees(dk[:, :3].max()):.3e} deg of the JAX reference's",
+              flush=True)
+    print(f"loop mission: ATE {ate:.5f} m (JAX reference run "
+          f"{float(fixture['ate_rmse_m']):.5f} m, limit {LOOP_MAX_ATE_M} m); "
+          f"mapping_error {runner.mapping_error}", flush=True)
+    if not (ate <= LOOP_MAX_ATE_M):
+        failures.append(f"loop mission: ATE {ate} m against truth")
+    if failures:
+        fail("; ".join(failures))
+    if runner.mapping_error:
+        fail("loop mission: IMU front-end reported a mapping error")
+
+    med = lambda xs: sorted(xs)[len(xs) // 2] if xs else float("nan")
+    ran = [c["ms"] for c in cycles if c["verifications"]]
+    idle = [c["ms"] for c in cycles if not c["verifications"]]
+    host = {k: round(v, 3) for k, v in runner.timer.mean_ms().items()}
+    print(f"loop mission events, ms on the host's clock with the device "
+          f"synchronized: full correction (K={cfg.static.max_keyframes} dense "
+          f"solve x5 + map rebuild) median {med(events['full_correction']):.1f}, "
+          f"max {max(events['full_correction']):.1f} over "
+          f"{len(events['full_correction'])}; detector cycle with verification "
+          f"median {med(ran):.1f}, max {max(ran, default=float('nan')):.1f} over {len(ran)}; without "
+          f"a candidate median {med(idle):.2f} over {len(idle)}; stages, host "
+          f"ms per entry: {json.dumps(host)}", flush=True)
+
+    # one more of each event on the final state under the profiler: the
+    # device's own time and the number of kernels it took
+    st = runner.state
+    _, read_ms = synced_ms(lambda: [bool(st.needs_full_solve)
+                                    for _ in range(100)])
+    print(f"host read of needs_full_solve (one a scan once a GPS candidate or "
+          f"a detector cycle has armed it; on {flag_reads[0]} of {len(scans)} "
+          f"scans here): {10 * read_ms:.1f} us a read on an idle device",
+          flush=True)
+    _, busy, n_dev, wall = profiled_once(lambda: runner.full_correct(
+        st._replace(needs_full_solve=torch.ones_like(st.needs_full_solve))))
+    print(f"profiled full correction on the final state: device busy "
+          f"{busy:.2f} ms in {n_dev} kernels and copies, {wall:.1f} ms wall "
+          "under the profiler", flush=True)
+    launches_before = fc.KERNEL_LAUNCHES
+    (_, aux), busy, n_dev, wall = profiled_once(lambda: runner.detector(
+        st._replace(last_loop_kf=torch.full_like(st.last_loop_kf, -1))))
+    print(f"profiled detector cycle on the final state: "
+          f"{len(aux['loop_iters'])} verification(s), "
+          f"{fc.KERNEL_LAUNCHES - launches_before} launches of the fused "
+          f"kernel, device busy {busy:.2f} ms in {n_dev} kernels and copies, "
+          f"{wall:.1f} ms wall under the profiler", flush=True)
+
+    accepted = [c for c in cycles if c["loop_accepted"].any()]
+    k = int(np.argmax(accepted[0]["loop_accepted"]))
+    pair = (accepted[0]["loop_pair_i"][k], accepted[0]["loop_pair_j"][k])
+    err = verification_kernel_check(runner, cfg, pair, dev)
+    solver_check(runner.state.graph, dev)
+    return map_iters, ver_iters, err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-dir", default=None,
                     help="also write the torch.profiler table of scans 10-19 "
-                         "here")
+                         "and the loop mission's per-scan results here")
     args = ap.parse_args()
 
     import torch
@@ -569,16 +996,22 @@ def main():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
+    warm_profiler(dev)
     k = kernel_phase(dev)
     launches = mission_phase(dev, args.profile_dir)
+    loop_map, loop_ver, loop_err = loop_mission_phase(args.profile_dir)
     print(json.dumps({"kernels": [{
         "name": "fused_corr", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/fused_corr.cu",
         "replaces": "lio_slam_tpu/ops/fused_corr.py:124",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
+        "launches": launches + loop_map + loop_ver,
+        "launches_mission": launches, "launches_loop_mapping": loop_map,
+        "launches_loop_verification": loop_ver,
+        "max_abs_err": max(k["max_abs_err"], loop_err),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None, "v1_ms": k["v1_ms"],
-        "cold_ms": k["cold_ms"]}]}), flush=True)
+        "bound_by": k["bound_by"], "library_ms": None, "cold_ms": k["cold_ms"],
+        "entry_ms": k["entry_ms"], "entry_plain_ms": k["entry_plain_ms"]}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from lio_slam_tpu_torch.utils import enu
 from lio_slam_tpu_torch.utils import se3
 
 
@@ -105,6 +106,31 @@ def make_sequence(n_scans: int = 40, n_points: int = 8192, seed: int = 0,
     imu_rpy = poses[:, :3] + rs.randn(n_scans, 3).astype(np.float32) * rpy_noise
     return SyntheticSequence(world=world, poses=poses, stamps=stamps,
                              scans=scans, scan_masks=masks, imu_rpy=imu_rpy)
+
+
+def gps_fixes_from_truth(positions: np.ndarray, stamps: np.ndarray,
+                         seed: int = 0, noise: float = 0.05,
+                         datum=(48.0, 11.0, 500.0), n_datum: int = 5):
+    """Per-scan lists of GPS fixes (stamp, lat, lon, alt, status, covariance)
+    for `Runner.process_scan(gps_fixes=...)`: the truth positions (T, 3), in
+    metres in the frame anchored at the first pose, through
+    `LocalCartesian.reverse` at `datum`, with seeded Gaussian noise.  Scan 0
+    carries `n_datum` fixes of the start position (a receiver that had a
+    fix before the vehicle moved), so the intake's averaged datum is the
+    trajectory's origin; every later scan carries one fix."""
+    rs = np.random.RandomState(seed)
+    lc = enu.LocalCartesian(*datum)
+
+    def fix(stamp, pos):
+        lat, lon, alt = lc.reverse(pos + rs.randn(3) * noise)
+        return (float(stamp), float(lat), float(lon), float(alt), 0, None)
+
+    dt = float(stamps[1] - stamps[0]) if len(stamps) > 1 else 0.1
+    out = [[fix(stamps[0] - (n_datum - 1 - k) * dt, positions[0])
+            for k in range(n_datum)]]
+    for i in range(1, len(stamps)):
+        out.append([fix(stamps[i], positions[i])])
+    return out
 
 
 def ate_rmse(est: np.ndarray, truth: np.ndarray) -> float:

@@ -69,11 +69,10 @@ def load_fused_corr() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # table, T, C, hh, O, scan, mask, N, pose6, three thresholds, then
-    # (scratch, scratch_floats, out, stream) / v1: (partials, blocks, out, stream)
-    for fn in (lib.lio_fused_corr, lib.lio_fused_corr_v1):
-        fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp, cf, cf, cf,
-                       vp, ci, vp, vp]
-        fn.restype = ci
+    # scratch, scratch_floats, out, stream
+    lib.lio_fused_corr.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp,
+                                   cf, cf, cf, vp, ci, vp, vp]
+    lib.lio_fused_corr.restype = ci
     lib.lio_fused_corr_scratch_floats.argtypes = []
     lib.lio_fused_corr_scratch_floats.restype = ci
     _lib = lib

@@ -50,8 +50,7 @@
 //   jnp.argmin.  Most slots of a row are empty, so most candidates cost the
 //   distance and that one comparison.  d is the expression of the plain
 //   version, so the five neighbours are the same five.  An empty slot
-//   (d = inf) and a non-finite query (d = NaN) never enter, as in the first
-//   version of this kernel.
+//   (d = inf) and a non-finite query (d = NaN) never enter.
 // - Five rounds of a group-wide minimum over the lanes' heads merge the
 //   lists: xor shuffles of a 64-bit key (bits of d, then the row; d >= 0, so
 //   the float's bits order like the float).  The group's first lane keeps
@@ -81,8 +80,8 @@
 //   rounds like the plain PyTorch version's separate ops.
 //
 // Tried on the card and left (NVIDIA H100 80GB HBM3, 700 W; device ms a call
-// of builds of this source with the variant in place, the first version
-// 0.045 in the same runs; PERF.md has the table):
+// of builds of this source with the variant in place, 0.0145 as it stands
+// in the same runs; PERF.md has the table):
 // - The whole warp ranking one point after another (4, 8 or 16 points a
 //   warp, the next point's rows prefetched through a ring of 2 stages, every
 //   candidate through a five-step 64-bit min/max insertion, two redux.sync
@@ -106,11 +105,6 @@
 // - LANES 4 / 8 / 16 / 32 (at 8, 16, 16, 16 warps): 0.0175 / 0.0145 /
 //   0.0219 / 0.0362 ms; WARPS 4 / 8 / 16 at LANES 8: 0.0205 / 0.0157 /
 //   0.0145 ms.
-//
-// lio_fused_corr_v1 is the first version of this kernel (one thread a
-// point, 4-byte loads scattered over 32 rows a warp, a second launch that
-// sums 64 blocks serially).  It stays as the yardstick the redesign is
-// timed against, in turns in one run, and is not on the main path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,7 +116,6 @@ namespace {
 constexpr int KNN = 5;
 constexpr int MAX_O = 9;
 constexpr int N_OUT = 30;        // AtA upper triangle (21), Atb (6), 3 sums
-constexpr int THREADS_V1 = 128;  // must match fused_corr.THREADS_V1
 constexpr float BIG_D2 = 3.0e38f;
 constexpr float VALID_MAX = 1e10f;
 constexpr float EMPTY_SLOT = 1e30f;  // as voxel_grid fills an empty slot
@@ -162,14 +155,7 @@ __device__ void pose_tables_from(float sr, float sp, float sy, float cr, float c
   }
 }
 
-__device__ void pose_tables(const float* pose6, float* R, float* t,
-                            float* dR) {
-  const float r = pose6[0], p = pose6[1], y = pose6[2];
-  pose_tables_from(sinf(r), sinf(p), sinf(y), cosf(r), cosf(p), cosf(y), pose6,
-                   R, t, dR);
-}
-
-// The same by one warp: the six sines and cosines on six lanes at once.
+// By one warp: the six sines and cosines on six lanes at once.
 __device__ __forceinline__ void pose_tables_warp(const float* pose6, float* R,
                                                  float* t, float* dR, int lane) {
   const float angle = pose6[lane % 3];
@@ -523,114 +509,6 @@ fused_corr_groups(const float* __restrict__ table, int T, int C,
   if (tid == 0) *ticket = 0u;
 }
 
-// ---------------------------------------------------------------------------
-// the first version, kept as the yardstick
-// ---------------------------------------------------------------------------
-
-// One thread a point: the top 5 live in registers, kept sorted by insertion;
-// a candidate replaces the 5th only if strictly nearer, and rows are visited
-// in order o*C + c.
-__device__ void point_terms_v1(const float* __restrict__ table, int T, int C,
-                               const int* __restrict__ hh, int O,
-                               const float* __restrict__ scan,
-                               const unsigned char* __restrict__ mask, int N,
-                               int n, const float* R, const float* t,
-                               const float* dR, float nn_radius,
-                               float plane_dist_thresh, float weight_floor,
-                               float* acc) {
-  const float px = scan[3 * n + 0], py = scan[3 * n + 1], pz = scan[3 * n + 2];
-  const float qx = (R[0] * px + R[1] * py) + R[2] * pz + t[0];
-  const float qy = (R[3] * px + R[4] * py) + R[5] * pz + t[1];
-  const float qz = (R[6] * px + R[7] * py) + R[8] * pz + t[2];
-
-  int h[MAX_O];
-#pragma unroll
-  for (int o = 0; o < MAX_O; ++o) h[o] = (o < O) ? hh[o * N + n] : -1;
-
-  float bd[KNN], bx[KNN], by[KNN], bz[KNN];
-#pragma unroll
-  for (int j = 0; j < KNN; ++j) { bd[j] = BIG_D2; bx[j] = by[j] = bz[j] = 0.f; }
-
-#pragma unroll
-  for (int o = 0; o < MAX_O; ++o) {
-    if (o >= O) break;
-    // an id outside [0, T) reads as an empty bucket, never out of bounds
-    bool dup = h[o] < 0 || h[o] >= T;
-#pragma unroll
-    for (int p = 0; p < MAX_O; ++p)
-      if (p < o && h[p] == h[o]) dup = true;
-    if (dup) continue;
-    const float* row = table + (size_t)h[o] * C * 3;
-    for (int c = 0; c < C; ++c) {
-      const float x = row[3 * c + 0], y = row[3 * c + 1], z = row[3 * c + 2];
-      const float d = (sq(x - qx) + sq(y - qy)) + sq(z - qz);
-      if (d < bd[KNN - 1]) {
-        bd[KNN - 1] = d; bx[KNN - 1] = x; by[KNN - 1] = y; bz[KNN - 1] = z;
-#pragma unroll
-        for (int j = KNN - 1; j > 0; --j) {
-          if (bd[j] < bd[j - 1]) {
-            float tmp;
-            tmp = bd[j]; bd[j] = bd[j - 1]; bd[j - 1] = tmp;
-            tmp = bx[j]; bx[j] = bx[j - 1]; bx[j - 1] = tmp;
-            tmp = by[j]; by[j] = by[j - 1]; by[j - 1] = tmp;
-            tmp = bz[j]; bz[j] = bz[j - 1]; bz[j - 1] = tmp;
-          }
-        }
-      }
-    }
-  }
-  plane_terms(bd, bx, by, bz, px, py, pz, qx, qy, qz, mask[n] != 0, dR,
-              nn_radius, plane_dist_thresh, weight_floor, acc);
-}
-
-__global__ void __launch_bounds__(THREADS_V1)
-fused_corr_points_v1(const float* __restrict__ table, int T, int C,
-                     const int* __restrict__ hh, int O,
-                     const float* __restrict__ scan,
-                     const unsigned char* __restrict__ mask, int N,
-                     const float* __restrict__ pose6, float nn_radius,
-                     float plane_dist_thresh, float weight_floor,
-                     float* __restrict__ partials) {
-  __shared__ float sR[9], st[3], sdR[27];
-  __shared__ float warp_sums[THREADS_V1 / 32][N_OUT];
-  if (threadIdx.x == 0) pose_tables(pose6, sR, st, sdR);
-  __syncthreads();
-
-  float acc[N_OUT];
-#pragma unroll
-  for (int i = 0; i < N_OUT; ++i) acc[i] = 0.f;
-  const int n = blockIdx.x * THREADS_V1 + threadIdx.x;
-  if (n < N)
-    point_terms_v1(table, T, C, hh, O, scan, mask, N, n, sR, st, sdR, nn_radius,
-                   plane_dist_thresh, weight_floor, acc);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N_OUT; ++i) {
-    float v = acc[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(FULL, v, off);
-    if (lane == 0) warp_sums[warp][i] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < N_OUT) {
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < THREADS_V1 / 32; ++w) v += warp_sums[w][threadIdx.x];
-    partials[blockIdx.x * N_OUT + threadIdx.x] = v;
-  }
-}
-
-__global__ void fused_corr_finalize_v1(const float* __restrict__ partials,
-                                       int blocks, float* __restrict__ out) {
-  const int i = threadIdx.x;
-  if (i >= N_OUT) return;
-  float v = 0.f;
-  for (int b = 0; b < blocks; ++b) v += partials[b * N_OUT + i];
-  out[i] = v;
-}
-
 }  // namespace
 
 // Floats of scratch lio_fused_corr needs: the ticket, then the blocks'
@@ -691,27 +569,5 @@ extern "C" int lio_fused_corr(const float* table, int T, int C, const int* hh,
       table, T, C, hh, O, scan, mask, N, pose6, nn_radius, plane_dist_thresh,
       weight_floor, stage_floats, C % 4 == 0, reinterpret_cast<unsigned*>(scratch),
       scratch + SCRATCH_HEAD, out);
-  return (int)cudaGetLastError();
-}
-
-// The first version: two launches on `stream`; `out` takes the 30 packed sums
-// (AtA upper triangle row-major, Atb, n_inliers, sum s, sum s|pd2|).
-extern "C" int lio_fused_corr_v1(const float* table, int T, int C, const int* hh,
-                                 int O, const float* scan,
-                                 const unsigned char* mask, int N,
-                                 const float* pose6, float nn_radius,
-                                 float plane_dist_thresh, float weight_floor,
-                                 float* partials, int blocks, float* out,
-                                 void* stream) {
-  if (O < 1 || O > MAX_O || T < 1 || C < 1 || N < 1 ||
-      blocks != (N + THREADS_V1 - 1) / THREADS_V1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fused_corr_points_v1<<<blocks, THREADS_V1, 0, s>>>(
-      table, T, C, hh, O, scan, mask, N, pose6, nn_radius, plane_dist_thresh,
-      weight_floor, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fused_corr_finalize_v1<<<1, 32, 0, s>>>(partials, blocks, out);
   return (int)cudaGetLastError();
 }

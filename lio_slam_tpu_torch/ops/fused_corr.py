@@ -28,11 +28,7 @@ on the input's device; nothing here waits for the device.
   sums come out NaN; its loaders (the vendor adapters of `io/formats.py`,
   not ported yet) remove such points before they get here.  `pose6` must
   be finite.
-- `fused_ne_from_bucket_ids_v1` launches the first version of the kernel,
-  kept in the source as the yardstick the current one is timed against.  It
-  is not on the main path and not counted.
-- `KERNEL_LAUNCHES` counts launches of the main path's kernel and nothing
-  else.
+- `KERNEL_LAUNCHES` counts launches of the kernel and nothing else.
 
 The (O, N) bucket ids stay plain torch (`voxel_grid.bucket_ids`), as the
 JAX package computes them in XLA outside its kernel.  The kernel reads the
@@ -55,10 +51,6 @@ MAX_OFFSETS = 9               # bucket ids per point the kernel holds
 # the kernel's output words: AtA (6x6, symmetric), Atb (6), Σs, Σs·|pd2| as
 # float32, then n_inliers as an int32
 OUT_WORDS = 45
-# the first version's packed output: AtA upper triangle (21, row-major),
-# Atb (6), n_inliers, Σs, Σs·|pd2|; and its threads per block
-N_OUT_V1 = 30
-THREADS_V1 = 128
 KERNEL_LAUNCHES = 0
 # zeroed scratch (ticket + per-block partials) per (device index, stream):
 # the kernel's last block resets the ticket, so a buffer serves every call
@@ -313,36 +305,6 @@ def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
     global KERNEL_LAUNCHES
     KERNEL_LAUNCHES += 1
     return _views(out)
-
-
-def fused_ne_from_bucket_ids_v1(table: torch.Tensor, hh: torch.Tensor,
-                                scan: torch.Tensor, scan_mask: torch.Tensor,
-                                pose6: torch.Tensor, nn_radius: float = 1.0,
-                                plane_dist_thresh: float = 0.2,
-                                robust_weight_floor: float = 0.1):
-    """The first version of the kernel on CUDA tensors, as its wrapper
-    launched it (two buffers, two launches).  Returns its 30 packed sums:
-    AtA's upper triangle row-major, Atb, n_inliers, Σs, Σs·|pd2|.  A
-    yardstick for timing and tests; the main path never calls it."""
-    if table.device.type != "cuda":
-        raise ValueError(f"the v1 kernel runs on cuda only, not {table.device}")
-    _check_cuda_inputs(table, hh, scan, scan_mask, pose6)
-    from lio_slam_tpu_torch.ops import _build
-
-    lib = _build.load_fused_corr()
-    blocks = -(-hh.shape[1] // THREADS_V1)
-    partials = torch.empty((blocks, N_OUT_V1), dtype=torch.float32,
-                           device=table.device)
-    out = torch.empty(N_OUT_V1, dtype=torch.float32, device=table.device)
-    with torch.cuda.device(table.device):
-        err = lib.lio_fused_corr_v1(
-            *_kernel_args(table, hh, scan, scan_mask, pose6, nn_radius,
-                          plane_dist_thresh, robust_weight_floor),
-            partials.data_ptr(), blocks, out.data_ptr(),
-            torch.cuda.current_stream(table.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_corr v1 launch failed: cudaError_t {err}")
-    return out
 
 
 def fused_normal_equations(grid: vg.HashGrid, scan: torch.Tensor,

@@ -4,15 +4,15 @@ mapOptmization.cpp:432-506 laserCloudInfoHandler):
     updateInitialGuess -> downsampleCurrentScan -> scan2MapOptimization
     -> transformUpdate -> saveKeyFramesAndFactor (window solve, map insert)
 
-over fixed-capacity masked tensors on one device.  The JAX step's
-`lax.cond`s (eviction at capacity, keyframe save) are host branches on a
-device bool here: one device-to-host read each.
+over fixed-capacity masked tensors on one device, plus what follows a loop
+or GPS factor: `make_full_correction` (the full-graph solve, the store
+brought up to date, the voxel map rebuilt) and `inject_loop_constraint`.
+The JAX package's `lax.cond`s (eviction at capacity, keyframe save, the GPS
+covariance gate, the correction itself) are host branches on a device bool
+here: one device-to-host read each.
 
-Not ported yet: loop-closure factors' full-graph correction
-(`make_full_correction`), the GPS factor (`_add_gps_factor`), LOAM
-corners and the rebuild-mode local map; `make_lio_step` refuses configs
-that need them.  Pending loop constraints are still consumed, so a state
-carried over from the JAX package keeps its graph layout.
+Not ported yet: LOAM corners and the rebuild-mode local map;
+`make_lio_step` refuses configs that need them.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from lio_slam_tpu_torch.config import Config
 from lio_slam_tpu_torch.graph import factors as F
 from lio_slam_tpu_torch.graph import solver
+from lio_slam_tpu_torch.graph import sparse
 from lio_slam_tpu_torch.ops import registration as reg
 from lio_slam_tpu_torch.ops import scancontext as sc_mod
 from lio_slam_tpu_torch.ops import voxel_grid as vg
@@ -77,11 +78,24 @@ class StepOutput(NamedTuple):
 
 
 class MapOps(NamedTuple):
-    """Persistent-map backend of the step (single device)."""
+    """Persistent-map and solver backend of the step (single device)."""
 
     empty_grid: object    # () -> HashGrid
     register: object      # (scan_xyz, scan_mask, grid, pose_guess) -> RegistrationResult
     insert: object        # (grid, world_pts, mask) -> HashGrid
+    rebuild: object       # (store) -> HashGrid (full map rebuild)
+    full_solve: object    # (graph) -> graph (the x5 full-graph correction)
+    marginal_cov: object  # (graph, idx) -> (6, 6)
+
+
+def _use_sparse_solver(cfg: Config) -> bool:
+    """Full-graph solver selection (StaticConfig.full_solver): the dense
+    (K*6)^2 assembly at small capacities, the block-tridiagonal + Woodbury
+    factorization (graph/sparse.py) above 512 keyframes."""
+    fs = cfg.static.full_solver
+    if fs not in ("auto", "dense", "sparse"):
+        raise ValueError(f"full_solver must be auto|dense|sparse, got {fs!r}")
+    return fs == "sparse" or (fs == "auto" and cfg.static.max_keyframes > 512)
 
 
 def default_map_ops(cfg: Config, device=None) -> MapOps:
@@ -93,10 +107,26 @@ def default_map_ops(cfg: Config, device=None) -> MapOps:
     def insert(grid, world_pts, mask):
         return vg.insert_points(grid, world_pts, mask, halo=r.grid_halo)
 
+    def rebuild(store):
+        all_world = kf.transform_keyframe_clouds(store)
+        return vg.build_grid(all_world.reshape(-1, 3),
+                             store.cloud_masks.reshape(-1), r.nn_radius,
+                             r.grid_table_size, r.grid_max_per_cell,
+                             halo=r.grid_halo)
+
+    if _use_sparse_solver(cfg):
+        full_solve = lambda g: sparse.solve_sparse(g, iterations=5).graph
+        marginal_cov = sparse.marginal_covariance_sparse
+    else:
+        full_solve = lambda g: solver.solve(g, g.pose_mask,
+                                            iterations=5).graph
+        marginal_cov = solver.marginal_covariance
+
     return MapOps(
         empty_grid=lambda: vg.empty_grid(r.nn_radius, r.grid_table_size,
                                          r.grid_max_per_cell, device=device),
-        register=register, insert=insert)
+        register=register, insert=insert, rebuild=rebuild,
+        full_solve=full_solve, marginal_cov=marginal_cov)
 
 
 def init_state(cfg: Config, device=None) -> LioState:
@@ -138,6 +168,69 @@ def _update_initial_guess(state: LioState, inp: ScanInput) -> torch.Tensor:
         torch.zeros_like(rp)])
     guess = torch.where(inp.guess_valid, inp.init_guess, state.pose)
     return torch.where(first, first_pose, guess)
+
+
+def _first_free(mask: torch.Tensor):
+    """(index of the first False of `mask` (0 if none), whether there is
+    one), as `jnp.argmin` of a bool mask answers."""
+    n = mask.shape[0]
+    idx = torch.arange(n, device=mask.device)
+    first = torch.min(torch.where(mask, torch.full_like(idx, n), idx))
+    free = first < n
+    return torch.where(free, first, torch.zeros_like(first)), free
+
+
+def _put(arr: torch.Tensor, slot: torch.Tensor, val, add: torch.Tensor):
+    """`arr` with `val` written at `slot` where the device bool `add` holds,
+    `arr` as it is where not (no host read)."""
+    new = arr.clone()
+    new[slot] = val
+    return torch.where(add, new, arr)
+
+
+def _add_gps_factor(state: LioState, inp: ScanInput, new_idx: torch.Tensor,
+                    cfg: Config, ops: MapOps) -> LioState:
+    """addGPSFactor gates (:1946-2041): a valid fix, enough travel since the
+    datum, spacing from the previous GPS factor, and (computed only when
+    those hold: one host read) a pose covariance above the threshold."""
+    g = state.graph
+    ni = torch.clamp(new_idx, min=0).to(torch.int64)
+    first_pos = state.store.poses[0, 3:]
+    cur_pos = state.store.poses[ni, 3:]
+    traveled = torch.linalg.norm(cur_pos - first_pos) > cfg.gps.min_travel_before_gps
+    spaced = torch.linalg.norm(cur_pos - state.last_gps_pos) > cfg.gps.gps_distance_frequency
+    if not bool(inp.gps_valid & traveled & spaced):   # host branch (JAX lax.cond)
+        return state
+    cov = ops.marginal_cov(g, new_idx)
+    add = ((cov[3, 3] > cfg.gps.pose_cov_threshold)
+           | (cov[4, 4] > cfg.gps.pose_cov_threshold))
+    # slot allocation: the first FREE slot (keyframe eviction clears gps_mask
+    # without touching gps_count); with none free, the ring recycles the
+    # OLDEST factor.  Only the live region [0, G_live): the tail slots are
+    # reserved for archive anchors
+    G_live = g.gps_i.shape[0] - cfg.static.max_archive_anchors
+    free_slot, has_free = _first_free(g.gps_mask[:G_live])
+    slot = torch.where(has_free, free_slot,
+                       (state.gps_count % G_live).to(torch.int64))
+    # useGpsElevation (:1991-1995): unless enabled, the current estimate's z
+    # stands in, so the factor constrains x/y only
+    gps_meas = inp.gps_pos
+    if not cfg.gps.use_gps_elevation:
+        gps_meas = torch.cat([gps_meas[:2], state.store.poses[ni, 5:6]])
+
+    g = g._replace(
+        gps_i=_put(g.gps_i, slot, new_idx.to(g.gps_i.dtype), add),
+        gps_meas=_put(g.gps_meas, slot, gps_meas, add),
+        gps_info=_put(g.gps_info, slot, inp.gps_info, add),
+        gps_mask=_put(g.gps_mask, slot, True, add))
+    return state._replace(
+        graph=g, gps_count=state.gps_count + add.to(torch.int32),
+        last_gps_pos=torch.where(add, cur_pos, state.last_gps_pos),
+        # addGPSFactor sets aLoopIsClosed (:2037): a GPS factor triggers the
+        # same full correction and map rebuild as a loop closure; without it
+        # the window solve's corrections leave ghost geometry in the
+        # incremental voxel map
+        loop_closed=state.loop_closed | add)
 
 
 def _consume_pending_loops(state: LioState, cfg: Config) -> LioState:
@@ -289,6 +382,8 @@ def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
     state = state._replace(store=store, graph=g,
                            sc_db=sc_mod.add_descriptor(state.sc_db, desc))
     state = _consume_pending_loops(state, cfg)
+    if cfg.gps.use_gps:
+        state = _add_gps_factor(state, inp, new_idx, cfg, ops)
 
     g = solver.solve_window_compact(state.graph, store.count,
                                     cfg.static.window_size, iterations=2)
@@ -304,13 +399,69 @@ def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
                           loop_closed=torch.zeros_like(state.loop_closed))
 
 
+def inject_loop_constraint(state: LioState, i, j, meas: torch.Tensor,
+                           info: torch.Tensor):
+    """External loop-constraint intake (detectLoopClosureExternal,
+    mapOptmization.cpp:1306-1358): a third-party detector posts a
+    keyframe-pair constraint; it is queued like an internally detected loop
+    and consumed by the next keyframe save's addLoopFactor.
+
+    `meas` is the measured relative pose X_i^-1 X_j (pose6, gtsam between
+    convention), `info` the (6,) information diagonal.  Returns
+    (state, accepted () bool): refused when an endpoint is not a live
+    keyframe or the pending queue is full."""
+    dev = state.pend_mask.device
+    i = torch.as_tensor(i, dtype=torch.int32, device=dev)
+    j = torch.as_tensor(j, dtype=torch.int32, device=dev)
+    slot, free = _first_free(state.pend_mask)
+    n = state.store.count
+    add = free & (i >= 0) & (j >= 0) & (i < n) & (j < n) & (i != j)
+
+    return _queue_loop(state, slot, add, i, j, meas.to(dev), info.to(dev)), add
+
+
+def _queue_loop(state: LioState, slot, add, i, j, meas, info) -> LioState:
+    """The pending-loop queue with the constraint (i, j, meas, info) at
+    `slot` where the device bool `add` holds."""
+    return state._replace(
+        pend_i=_put(state.pend_i, slot, i, add),
+        pend_j=_put(state.pend_j, slot, j, add),
+        pend_meas=_put(state.pend_meas, slot, meas, add),
+        pend_info=_put(state.pend_info, slot, info, add),
+        pend_mask=_put(state.pend_mask, slot, True, add))
+
+
+def make_full_correction(cfg: Config, ops: MapOps = None, device=None):
+    """Full-graph GN after loop closures and GPS factors (correctPoses,
+    :2173-2204, with the isam x5 extra updates, :2085-2092): every pose
+    solved again, the store brought up to date, the voxel map rebuilt from
+    the corrected keyframes.  `full_correct(state)` reads
+    `state.needs_full_solve` (one device-to-host read) and returns the state
+    as it is when the flag is down."""
+    if ops is None:
+        ops = default_map_ops(cfg, device)
+
+    def full_correct(state: LioState) -> LioState:
+        if not bool(state.needs_full_solve):       # host branch (JAX lax.cond)
+            return state
+        g = ops.full_solve(state.graph)
+        store = state.store._replace(poses=torch.where(
+            g.pose_mask[:, None], g.poses, state.store.poses))
+        last = torch.clamp(store.count - 1, min=0).to(torch.int64)
+        state = state._replace(
+            graph=g, store=store, pose=g.poses[last],
+            needs_full_solve=torch.zeros_like(state.needs_full_solve))
+        if cfg.registration.local_map_mode == "incremental":
+            state = state._replace(map_grid=ops.rebuild(store))
+        return state
+
+    return full_correct
+
+
 def make_lio_step(cfg: Config, ops: MapOps = None, device=None):
     """The per-scan step for `cfg`: `step(state, inp) -> (state, out)`."""
     s = cfg.static
     r = cfg.registration
-    if cfg.gps.use_gps:
-        raise NotImplementedError("GPS factors are not ported yet "
-                                  "(cfg.gps.use_gps)")
     if r.use_corner_features:
         raise NotImplementedError("the LOAM corner path is not ported yet "
                                   "(registration.use_corner_features)")

@@ -4,18 +4,21 @@
 the CUDA device unless the caller passes `device="cpu"`:
 
     IMU prediction (predict_rate, TransformFusion) -> scan prep (deskew,
-    range/crop filter, decimation) -> mapping step (downsample, GN
-    registration through the fused kernel, keyframe save) -> IMU
-    front-end correction
+    range/crop filter, decimation) -> GPS intake (FSM, datum, gates) ->
+    mapping step (downsample, GN registration through the fused kernel,
+    keyframe save with loop and GPS factors) -> full-graph correction and
+    map rebuild when a factor landed -> IMU front-end correction -> every
+    `loop_every` scans the loop detector (radius search and Scan Context,
+    each verified by a registration against a submap grid)
 
-Results come back synchronously (the JAX runner's fetch_every=1).  Loop
-closure, GPS fixes, the sharded mesh, batched fetches, bag recording,
-mission logs and checkpoints are not ported yet: asking for any of them
-raises NotImplementedError.
+Results come back synchronously (the JAX runner's fetch_every=1).  The
+keyframe archive, the sharded mesh, batched fetches, bag recording, mission
+logs and checkpoints are not ported yet: asking for any of them raises
+NotImplementedError.
 
 CLI:
     python -m lio_slam_tpu_torch.pipeline.runner --synthetic --scans 20 \
-        --points 8192 [--device cpu]
+        --points 8192 [--loop-every 10] [--device cpu]
 """
 
 from __future__ import annotations
@@ -33,15 +36,13 @@ import torch
 from lio_slam_tpu_torch.config import Config, get_config
 from lio_slam_tpu_torch.io import formats
 from lio_slam_tpu_torch.ops import deskew as deskew_mod
+from lio_slam_tpu_torch.pipeline import gps_fusion as gf
 from lio_slam_tpu_torch.pipeline import imu_frontend as fe
 from lio_slam_tpu_torch.pipeline import lio
+from lio_slam_tpu_torch.pipeline import loop_closure
 from lio_slam_tpu_torch.utils import pointcloud as pc
 from lio_slam_tpu_torch.utils import profiling
 from lio_slam_tpu_torch.utils import se3
-
-# positioning-health FSM mode of a mission without GPS
-# (lio_slam_tpu/pipeline/gps_fusion.MODE_NORMAL)
-MODE_NORMAL = 0
 
 
 @dataclass
@@ -59,17 +60,20 @@ class ScanResult:
 
 class Runner:
     def __init__(self, cfg: Optional[Config] = None, device="cuda",
+                 loop_every: int = 10,
                  record_bag: Optional[str] = None,
                  mission_log: Optional[str] = None, fetch_every: int = 1,
                  auto_checkpoint: Optional[str] = None, mesh=None):
         """`device`: where every tensor of the mission lives; the card by
-        default, and never the CPU unless asked (`device="cpu"`).  The
-        other arguments mirror the JAX Runner's; the features behind them
-        are not ported yet, so anything but their defaults raises."""
+        default, and never the CPU unless asked (`device="cpu"`).
+        `loop_every`: the loop detector runs every that many processed
+        scans (the reference's 0.2-1 Hz thread).  The other arguments
+        mirror the JAX Runner's; the features behind them are not ported
+        yet, so anything but their defaults raises."""
         self.cfg = cfg or get_config("default")
         unported = {
-            "cfg.loop.enabled (loop closure)": self.cfg.loop.enabled,
-            "cfg.gps.use_gps": self.cfg.gps.use_gps,
+            "cfg.loop.enabled and cfg.loop.archive_enabled (archive)":
+                self.cfg.loop.enabled and self.cfg.loop.archive_enabled,
             "record_bag": record_bag is not None,
             "mission_log": mission_log is not None,
             "fetch_every > 1": int(fetch_every) > 1,
@@ -80,19 +84,26 @@ class Runner:
         if missing:
             raise NotImplementedError(
                 "not ported yet: " + ", ".join(missing)
-                + " (disable loop closure with dataclasses.replace(cfg, "
-                "loop=dataclasses.replace(cfg.loop, enabled=False)))")
+                + " (turn the keyframe archive off with dataclasses.replace("
+                "cfg, loop=dataclasses.replace(cfg.loop, "
+                "archive_enabled=False)))")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"Runner(device={str(device)!r}) needs a CUDA device and torch "
                 'finds none; pass device="cpu" to run on the CPU')
+        self.loop_every = int(loop_every)
         self.step = lio.make_lio_step(self.cfg, device=self.device)
         self._prep = self._make_prep()
+        self.full_correct = lio.make_full_correction(self.cfg,
+                                                     device=self.device)
+        self.detector = loop_closure.make_loop_detector(self.cfg)
         self.correct, self.predict_rate, self.transform_fusion = \
             fe.make_frontend(self.cfg.imu)
         self.state = lio.init_state(self.cfg, device=self.device)
         self.imu_state = fe.init_state(device=self.device)
+        self.gps_intake = gf.GpsIntake(self.cfg.gps)
+        self.fsm = gf.PositioningModeFSM(self.cfg.gps)
         self.scan_count = 0
         self.trajectory: list[np.ndarray] = []
         self.mapping_error = False
@@ -100,6 +111,21 @@ class Runner:
         self._last_pose_dev: Optional[torch.Tensor] = None
         self._imu_ready = False
         self._last_correct_t: Optional[float] = None
+        # whether needs_full_solve could be set: only once a loop detector
+        # has run, a constraint was injected or a GPS candidate reached the
+        # step; until then the per-scan read of the flag is skipped
+        self._full_correct_armed = False
+        # indices (0-based, among processed scans) of the scans after
+        # whose mapping step a full correction ran
+        self.full_correction_scans: list[int] = []
+        # provenance of the last loop-detector cycle (host numpy; None
+        # before the first): loop_accepted, loop_pair_i/j, loop_fitness for
+        # [radius search, Scan Context], loop_iters (GN iterations of each
+        # verification that ran)
+        self.last_loop_aux: Optional[dict] = None
+        # last raw vehicle GPS record (lat, lon, alt, heading?, stamp): the
+        # "gpsdata" side of the sensor_fusion_output arbitration (:707-724)
+        self._last_raw_fix: Optional[tuple] = None
         self._last_processed_stamp = -1e18
         self._t0: Optional[float] = None
         self._ext_R = np.asarray(self.cfg.imu.ext_rot, np.float32).reshape(3, 3)
@@ -108,6 +134,20 @@ class Runner:
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
+
+    def on_raw_gps(self, stamp: float, lat: float = None, lon: float = None,
+                   alt: float = None, heading: float = None) -> int:
+        """Raw vehicle-GPS stream ("gpsdata" role, gpsDataHandler
+        :616-726): every raw fix steps the positioning-mode FSM against the
+        corrected stream's last timestamp and caches the raw record for the
+        sensor_fusion_output arbitration.  `stamp` is epoch seconds.
+        Returns the current mode (the /positioning_mode output)."""
+        mode = self.fsm.step(float(stamp), now=float(stamp))
+        if lat is not None:
+            self._last_raw_fix = (float(lat), float(lon), float(alt),
+                                  None if heading is None else float(heading),
+                                  float(stamp))
+        return mode
 
     def _prep_imu_window(self, imu: Optional[dict], scan_stamp: float = 0.0):
         """Pad an IMU window {acc (T,3), gyr (T,3), stamps (T,)} to the
@@ -202,14 +242,64 @@ class Runner:
             return se3.matrix_to_rpy(self.imu_state.nav.R)
         return zero
 
+    def _gps_intake(self, t: float, scan_stamp: float, gps_fix, gps_fixes):
+        """The scan's GPS candidates through the FSM, the intake and the
+        covariance gate.  Returns (mode, gps_pos (3,), gps_info (3,),
+        gps_valid) as host values: the first candidate passing every gate
+        becomes the factor's measurement."""
+        cfg = self.cfg
+        candidates = []
+        if gps_fixes:
+            candidates = list(gps_fixes)
+        elif gps_fix is not None:
+            candidates = [(scan_stamp, *gps_fix[:3],
+                           gps_fix[3] if len(gps_fix) > 3 else 0,
+                           gps_fix[4] if len(gps_fix) > 4 else None)]
+        mode = gf.MODE_NORMAL
+        gps_pos = np.zeros(3, np.float32)
+        gps_info = np.zeros(3, np.float32)
+        gps_valid = False
+        if not (candidates and cfg.gps.use_gps):
+            return mode, gps_pos, gps_info, gps_valid
+        # candidates are the CORRECTED stream ("GPSmsg" role): they mark the
+        # FSM's corrected-side timestamp; the raw vehicle stream drives the
+        # transitions via on_raw_gps (:625-660).  FSM time is epoch seconds
+        # so both sides share a clock.
+        self.fsm.on_gps(max(float(c[0]) for c in candidates))
+        mode = self.fsm.mode
+        for c in candidates:
+            _, lat, lon, alt = c[:4]
+            status = c[4] if len(c) > 4 else 0
+            gps_cov = (np.asarray(c[5], np.float64)
+                       if len(c) > 5 and c[5] is not None else None)
+            # EVERY fix passes through the intake: datum averaging and the
+            # jump gate must see the full stream
+            obs = self.gps_intake.on_fix(
+                t, lat, lon, alt, status, covariance=gps_cov,
+                mode_normal=(mode == gf.MODE_NORMAL))
+            # message-covariance gate (addGPSFactor :1984-1989)
+            cov_ok = (obs is not None and
+                      float(max(obs.covariance[0], obs.covariance[1]))
+                      <= cfg.gps.gps_cov_threshold)
+            if obs is not None and obs.accurate and cov_ok and not gps_valid:
+                gps_pos = obs.enu.astype(np.float32)
+                # factor variances floored at 1.0 m^2 like the reference
+                # (addGPSFactor :2030): GPS softly anchors the global frame
+                gps_info = (1.0 / np.maximum(obs.covariance, 1.0)) \
+                    .astype(np.float32)
+                gps_valid = True
+        return mode, gps_pos, gps_info, gps_valid
+
     def process_scan(self, scan: formats.StandardScan,
                      imu: Optional[dict] = None,
                      gps_fix: Optional[tuple] = None,
                      gps_fixes: Optional[list] = None) -> Optional[ScanResult]:
-        """Process one scan; returns None when the mappingProcessInterval
-        throttle drops it."""
-        if gps_fix is not None or gps_fixes:
-            raise NotImplementedError("GPS fusion is not ported yet")
+        """Process one scan.  `gps_fix`: optional (lat, lon, alt, status[,
+        covariance]) at about scan time; `gps_fixes`: optional list of
+        candidate fixes (stamp, lat, lon, alt, status, covariance) in time
+        order (the reference's per-keyframe GPS-queue scan, addGPSFactor
+        :1961-1976).  Returns None when the mappingProcessInterval throttle
+        drops the scan."""
         cfg = self.cfg
         if self._t0 is None:
             first = float(scan.stamp)
@@ -254,6 +344,8 @@ class Runner:
             cloud = self._prep(xyz_p, t_p, mask_p, ring_p, gyr, rel_t, imask,
                                have_imu, pos_inc)
 
+        mode, gps_pos, gps_info, gps_valid = self._gps_intake(
+            t, float(scan.stamp), gps_fix, gps_fixes)
         imu_rpy = self._imu_rpy(imu, float(scan.stamp), have_imu)
         f32 = dict(dtype=torch.float32, device=self.device)
         as_bool = lambda v: torch.tensor(bool(v), device=self.device)
@@ -261,10 +353,29 @@ class Runner:
             cloud=cloud, stamp=torch.tensor(t, **f32), init_guess=guess,
             guess_valid=as_bool(gvalid), imu_rpy=imu_rpy,
             imu_available=as_bool(have_imu),
-            gps_pos=torch.zeros(3, **f32), gps_info=torch.zeros(3, **f32),
-            gps_valid=as_bool(False))
+            gps_pos=self._dev(gps_pos), gps_info=self._dev(gps_info),
+            gps_valid=as_bool(gps_valid))
         with self.timer.stage("mapping_step"):
             self.state, out = self.step(self.state, inp)
+
+        # full-graph correction when the step consumed loop or GPS factors.
+        # It runs BEFORE the front-end correction so the front-end is
+        # re-anchored in the CORRECTED frame: corrected with the
+        # pre-correction pose, the front-end frame and the map frame drift
+        # apart scan over scan (each correction moves the map, the front-end
+        # keeps predicting in the stale frame and misguides the next
+        # registration).  The reference orders the same way
+        # (laserCloudInfoHandler, mapOptmization.cpp:432-506).  Once armed it
+        # stays armed: queued loop constraints are consumed at a LATER
+        # keyframe save.
+        if gps_valid:
+            self._full_correct_armed = True
+        if self._full_correct_armed:
+            with self.timer.stage("full_correction"):
+                before = self.state
+                self.state = self.full_correct(self.state)
+                if self.state is not before:
+                    self.full_correction_scans.append(self.scan_count)
         pose_dev = self.state.pose.clone()
         self._last_pose_dev = pose_dev
 
@@ -279,13 +390,21 @@ class Runner:
                                                   out.degenerate)
             self._imu_ready = True
             self._last_correct_t = t
+        # loop-closure cadence (the reference's 0.2-1 Hz thread)
         self.scan_count += 1
+        if cfg.loop.enabled and self.scan_count % self.loop_every == 0:
+            with self.timer.stage("loop_closure"):
+                self.state, aux = self.detector(self.state)
+                self.last_loop_aux = {
+                    k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                    for k, v in aux.items()}
+            self._full_correct_armed = True
 
         host = lambda x: None if x is None else x.cpu().numpy()
         result = ScanResult(
             pose=host(pose_dev), incremental=host(out.incremental),
             degenerate=bool(out.degenerate), is_keyframe=out.is_keyframe,
-            num_inliers=int(out.num_inliers), positioning_mode=MODE_NORMAL,
+            num_inliers=int(out.num_inliers), positioning_mode=mode,
             imu_rate_poses=host(rate_poses), fused_rate_poses=host(fused_rate),
             registration_iters=out.registration_iters)
         self.trajectory.append(result.pose)
@@ -294,15 +413,56 @@ class Runner:
         self.keyframe_evictions = int(out.evictions)
         return result
 
+    def fusion_output(self, stamp: float) -> gf.FusionOutput:
+        """The SLAM pose as a geodetic record (fusionGps :2374-2430)."""
+        pose = self.trajectory[-1] if self.trajectory else np.zeros(6)
+        return gf.fusion_gps_output(pose.astype(np.float64), stamp,
+                                    self.gps_intake.transform, self.fsm.mode)
+
+    def sensor_fusion_output(self, stamp: float):
+        """The arbitrated `sensor_fusion_output` record (gpsDataHandler
+        :707-724): the FSM's `select_source` decides whether the SLAM-fused
+        geodetic record or the raw vehicle GPS record is published.  Returns
+        (FusionOutput, source) with source in {"fusion", "raw"}."""
+        fused = self.fusion_output(stamp)
+        raw = self._last_raw_fix
+        raw_heading = (raw[3] if raw is not None and raw[3] is not None
+                       else fused.heading)
+        src = self.fsm.select_source(fused.heading, raw_heading)
+        if src == "raw" and raw is not None:
+            return gf.FusionOutput(
+                stamp=stamp, latitude=raw[0], longitude=raw[1],
+                altitude=raw[2], heading=raw_heading,
+                roll=0.0, pitch=0.0, mode=self.fsm.mode), "raw"
+        return fused, "fusion"
+
+    def inject_loop_constraint(self, i: int, j: int, meas,
+                               info=None) -> bool:
+        """External loop-constraint feed (detectLoopClosureExternal,
+        mapOptmization.cpp:1306-1358): a constraint between live keyframes
+        i and j is queued into the pending-loop slots and consumed by the
+        next keyframe's addLoopFactor.  `meas`: (6,) pose6 relative
+        measurement X_i^-1 X_j; `info`: (6,) information diagonal (default:
+        the stiffness of a loop of fitness 0.3).  Returns whether the
+        constraint was accepted (endpoints live, queue not full)."""
+        if info is None:
+            info = np.full(6, 1.0 / 0.3 ** 2, np.float32)
+        self.state, accepted = lio.inject_loop_constraint(
+            self.state, int(i), int(j),
+            self._dev(np.asarray(meas, np.float32)),
+            self._dev(np.asarray(info, np.float32)))
+        self._full_correct_armed = True
+        return bool(accepted)
+
 
 def _run_synthetic(args):
     from lio_slam_tpu_torch.io import synthetic
     from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
 
     base = get_config(args.preset)
-    cfg = dataclasses.replace(base, loop=dataclasses.replace(base.loop,
-                                                             enabled=False))
-    runner = Runner(cfg, device=args.device)
+    cfg = dataclasses.replace(base, loop=dataclasses.replace(
+        base.loop, archive_enabled=False))
+    runner = Runner(cfg, device=args.device, loop_every=args.loop_every)
     seq = synthetic.make_sequence(n_scans=args.scans, n_points=args.points,
                                   seed=args.seed)
     scans, imus = sm.synthetic_inputs(seq, cfg)
@@ -320,20 +480,25 @@ def _run_synthetic(args):
         "scans_per_sec": round(args.scans / elapsed, 3),
         "ate_rmse_m": round(float(ate), 5),
         "keyframes": int(runner.state.store.count),
+        "loops": int(runner.state.loop_count),
+        "full_corrections": len(runner.full_correction_scans),
         "mapping_error": runner.mapping_error}))
 
 
 def main():
     ap = argparse.ArgumentParser(
         description="lio_slam_tpu_torch mission runner (PyTorch port). "
-                    "Loop closure is not ported yet: the preset's "
-                    "loop.enabled is turned off with dataclasses.replace.")
+                    "The keyframe archive is not ported yet: the preset's "
+                    "loop.archive_enabled is turned off with "
+                    "dataclasses.replace.")
     ap.add_argument("--synthetic", action="store_true",
                     help="run the synthetic mission (the only input so far)")
     ap.add_argument("--scans", type=int, default=40)
     ap.add_argument("--points", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--preset", default="default")
+    ap.add_argument("--loop-every", type=int, default=10,
+                    help="run the loop detector every N processed scans")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args()

@@ -6,12 +6,16 @@ of a comparison sees the same numbers.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from lio_slam_tpu_torch.config import (Config, ImuConfig, LoopClosureConfig,
-                                       RegistrationConfig, StaticConfig)
+from lio_slam_tpu_torch.config import (Config, GpsConfig, ImuConfig,
+                                       LoopClosureConfig, RegistrationConfig,
+                                       StaticConfig)
 from lio_slam_tpu_torch.io import formats
+from lio_slam_tpu_torch.io import synthetic
 from lio_slam_tpu_torch.io.synthetic import SyntheticSequence
 from lio_slam_tpu_torch.utils import se3
 
@@ -21,12 +25,27 @@ SMOKE_POINTS = 32768
 SMOKE_SEED = 0
 SMOKE_SPEED = 2.0
 
+# the loop mission: a closed circle of radius speed / yaw_rate = 3.33 m, one
+# lap in 2 pi / yaw_rate = 10.47 s = 105 scans, run on until the start has
+# been revisited; the loop detector runs every LOOP_EVERY scans.  (At 4 m/s
+# on this world the registration slips by more than a metre around scan 50,
+# in the JAX package as in the port, and nothing after it is repeatable
+# between two float32 implementations; at 2 m/s no scan takes more than 6
+# GN iterations.)
+LOOP_SCANS = 125
+LOOP_SPEED = 2.0
+LOOP_YAW_RATE = 0.6
+LOOP_EXTENT = 60.0          # half-width of the synthetic world, metres
+LOOP_EVERY = 10
+LOOP_GPS_SEED = 7
+LOOP_GPS_NOISE = 0.05      # metres, each axis
+
 
 def bench_config() -> Config:
     """The shapes of `bench.py:bench_config()` (8192 registered points
     against a 32768 x 24 bucket map, K=256 keyframes of 8192 points, window
     32, a 64-sample IMU window at 100 Hz, corr_refresh_every=2), with loop
-    closure off because the port does not run it yet."""
+    closure and GPS off: the per-scan path alone."""
     return Config(
         static=StaticConfig(
             max_raw_points=32768, max_scan_points=8192, max_map_points=65536,
@@ -36,6 +55,24 @@ def bench_config() -> Config:
         imu=ImuConfig(imu_rate=100.0),
         registration=RegistrationConfig(corr_refresh_every=2),
         loop=LoopClosureConfig(enabled=False))
+
+
+def loop_mission_config() -> Config:
+    """`bench_config()` with loop closure (keyframe archive off) and GPS
+    on.  A mission of 12.5 s cannot meet the default 30 s gap between the
+    keyframes of a loop pair, so `time_diff` is 10 s: a pair is then a full
+    lap apart, a true revisit.  Its pose covariance never comes near the
+    default 25 m^2 below which GPS factors are withheld, so
+    `pose_cov_threshold` is -1 (the estimate always counts as uncertain) and
+    a GPS factor lands every `gps_distance_frequency` = 5 m once the vehicle
+    is `min_travel_before_gps` = 5 m from its start.  Every other loop and
+    GPS setting is the default."""
+    base = bench_config()
+    return dataclasses.replace(
+        base,
+        loop=LoopClosureConfig(enabled=True, archive_enabled=False,
+                               time_diff=10.0),
+        gps=GpsConfig(use_gps=True, pose_cov_threshold=-1.0))
 
 
 def synthetic_inputs(seq: SyntheticSequence, cfg: Config):
@@ -64,6 +101,20 @@ def synthetic_inputs(seq: SyntheticSequence, cfg: Config):
             "gyr": np.tile(inc[:3] / (T * dtau), (T, 1)).astype(np.float32),
             "stamps": seq.stamps[i - 1] + np.arange(1, T + 1) * dtau})
     return scans, imus
+
+
+def loop_mission_inputs(cfg: Config, n_scans: int = LOOP_SCANS,
+                        n_points: int = SMOKE_POINTS):
+    """(sequence, scans, IMU windows, per-scan GPS fix lists) of the loop
+    mission."""
+    seq = synthetic.make_sequence(n_scans=n_scans, n_points=n_points,
+                                  seed=SMOKE_SEED, speed=LOOP_SPEED,
+                                  yaw_rate=LOOP_YAW_RATE, extent=LOOP_EXTENT)
+    scans, imus = synthetic_inputs(seq, cfg)
+    fixes = synthetic.gps_fixes_from_truth(
+        relative_truth(seq)[:, 3:].astype(np.float64), seq.stamps,
+        seed=LOOP_GPS_SEED, noise=LOOP_GPS_NOISE)
+    return seq, scans, imus, fixes
 
 
 def relative_truth(seq: SyntheticSequence) -> np.ndarray:

@@ -79,22 +79,39 @@ def _voxel_ids(xyz: torch.Tensor, mask: torch.Tensor,
 
 def _segment_centroids(keys_sorted: torch.Tensor, mask_s: torch.Tensor,
                        vals: torch.Tensor, max_out: int):
-    """Run detection over sorted keys -> per-run sums and counts in the
-    first `max_out` output slots (masked points park in slot max_out)."""
+    """Run detection over sorted keys -> per-run means in the first
+    `max_out` output slots.  The valid points are a prefix of the sorted
+    order (masked points carry the largest key), so every run is a
+    contiguous range: its sum is a difference of the float64 running sum at
+    its two ends, and its count the distance between them.  Nothing is
+    accumulated with atomics, so two runs give the same bits."""
+    N = keys_sorted.shape[0]
+    dev = vals.device
     first = torch.ones_like(mask_s)
     first[1:] = keys_sorted[1:] != keys_sorted[:-1]
     first = first & mask_s
-    slot = torch.cumsum(first.to(torch.int32), 0) - 1
-    slot = torch.where(mask_s, slot, torch.full_like(slot, max_out))
-    slot_c = torch.clamp(slot, 0, max_out).to(torch.int64)
-    ones = mask_s.to(torch.float32)
-    counts = torch.zeros(max_out + 1, dtype=torch.float32,
-                         device=vals.device).index_add_(0, slot_c, ones)
-    sums = torch.zeros((max_out + 1, vals.shape[1]), dtype=torch.float32,
-                       device=vals.device).index_add_(0, slot_c,
-                                                      vals * ones[:, None])
-    denom = torch.clamp(counts[:max_out], min=1.0)
-    return sums[:max_out] / denom[:, None], counts[:max_out] > 0
+    slot = torch.cumsum(first.to(torch.int64), 0) - 1
+    # start position of each run; slot max_out takes the least start among
+    # the runs past capacity (the end of run max_out - 1), slot max_out + 1
+    # is where the points that start no run park
+    park = torch.full_like(slot, max_out + 1)
+    slot_c = torch.where(first, torch.clamp(slot, max=max_out), park)
+    n_valid = torch.sum(mask_s.to(torch.int64))
+    starts = torch.full((max_out + 2,), N, dtype=torch.int64, device=dev)
+    starts.scatter_reduce_(0, slot_c, torch.arange(N, device=dev), "amin")
+    starts = torch.minimum(starts, n_valid)
+    lo, hi = starts[:max_out], starts[1:max_out + 1]
+    # one row a column, scanned along the row: on CUDA a scan down the
+    # columns of (N, C) is one thread a column, and a 1-D scan is the only
+    # one whose order of sums is not fixed
+    masked = torch.where(mask_s[:, None], vals, torch.zeros_like(vals))
+    running = torch.cat([
+        torch.zeros((vals.shape[1], 1), dtype=torch.float64, device=dev),
+        torch.cumsum(masked.to(torch.float64).T.contiguous(), 1)], dim=1)
+    counts = hi - lo
+    sums = (running[:, hi] - running[:, lo]).T
+    denom = torch.clamp(counts, min=1).to(torch.float64)
+    return (sums / denom[:, None]).to(torch.float32).contiguous(), counts > 0
 
 
 def voxel_downsample(cloud: Cloud, leaf_size: float, max_out: int) -> Cloud:

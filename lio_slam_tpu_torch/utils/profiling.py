@@ -14,7 +14,8 @@ from collections import defaultdict
 
 import torch
 
-STAGES = ("imu_predict", "deskew", "mapping_step", "imu_frontend")
+STAGES = ("imu_predict", "deskew", "mapping_step", "full_correction",
+          "imu_frontend", "loop_closure")
 
 
 class StageTimer:

@@ -48,15 +48,6 @@ def assert_ne_close(out, ref):
         torch.testing.assert_close(out[i], ref[i], rtol=1e-4, atol=1e-4)
 
 
-def unpack_v1(packed):
-    """The first kernel's 30 packed sums as the five results."""
-    iu = torch.triu_indices(6, 6, device=packed.device)
-    AtA = torch.zeros((6, 6), device=packed.device)
-    AtA[iu[0], iu[1]] = packed[:21]
-    AtA[iu[1], iu[0]] = packed[:21]
-    return AtA, packed[21:27], packed[27].to(torch.int32), packed[28], packed[29]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1])
 def test_kernel_matches_plain_version(cuda, seed):
@@ -92,11 +83,9 @@ def test_kernel_any_capacity_and_ragged_scan(cuda, cap, n_scan):
 
 
 @pytest.mark.cuda
-def test_kernel_matches_its_first_version(cuda):
-    """Same five neighbours a point, so the same inliers; the sums are taken
-    in another order, so close and not bit-equal.  Non-finite points, masked
-    or not, contribute nothing in either, nor in the plain version on the
-    same tensors."""
+def test_kernel_ignores_non_finite_points(cuda):
+    """Non-finite points, masked or not, contribute nothing, in the kernel
+    as in the plain version on the same tensors."""
     grid, scan = scene_on(cuda, seed=4)
     scan[5] = float("nan")
     scan[40, 1] = float("inf")
@@ -105,16 +94,122 @@ def test_kernel_matches_its_first_version(cuda):
     mask[41] = False
     pose = t(POSE).to(cuda)
     hh = fc._bucket_ids_at(grid, torch.nan_to_num(scan), pose, "z")
-    before = fc.KERNEL_LAUNCHES
-    v1 = unpack_v1(fc.fused_ne_from_bucket_ids_v1(grid.table, hh, scan, mask,
-                                                  pose, **KW))
-    assert fc.KERNEL_LAUNCHES == before           # the yardstick is not counted
     out = fc.fused_ne_from_bucket_ids(grid.table, hh, scan, mask, pose, **KW)
     torch.cuda.synchronize()
     assert int(out[2]) > 100 and bool(torch.isfinite(out[0]).all())
-    assert_ne_close(out, v1)
     assert_ne_close(out, fc.fused_ne_from_bucket_ids_ref(
         grid.table, hh, scan, mask, pose, **KW))
+
+
+def keyframe_submap(dev, n_keyframes=9, points=2048, capacity=8192):
+    """A keyframe store along a 16 m path through the planar scene, the
+    submap around its middle keyframe as loop verification builds it, and
+    the last keyframe's cloud and pose as the scan."""
+    from lio_slam_tpu_torch.pipeline import keyframes as kf
+    from lio_slam_tpu_torch.pipeline import loop_closure
+    from lio_slam_tpu_torch.utils import pointcloud as pc
+    from lio_slam_tpu_torch.utils import se3
+
+    rs = np.random.RandomState(0)
+    world, _ = planar_scene(1, n_map=32768, n_scan=8)
+    store = kf.empty_store(16, points, device=dev)
+    for k in range(n_keyframes):
+        pose = np.array([0.01, -0.01, 0.05 * k, 2.0 * k - 8.0, 0.3 * k, 1.0],
+                        np.float32)
+        near = world[np.linalg.norm(world[:, :2] - pose[3:5], axis=1) < 12.0]
+        pts = near[rs.permutation(len(near))[:points - 200]]   # a masked tail
+        R, tr = se3.pose6_to_Rt(t(pose))
+        body = ((t(pts) - tr) @ R).to(dev)
+        mask = torch.zeros(points, dtype=torch.bool, device=dev)
+        mask[:len(pts)] = True
+        cloud = torch.zeros((points, 3), device=dev)
+        cloud[:len(pts)] = body
+        store = kf.add_keyframe(store, t(pose).to(dev),
+                                torch.tensor(float(k), device=dev),
+                                pc.Cloud(xyz=cloud, mask=mask))
+    submap = loop_closure._submap_around(store, torch.tensor(4, device=dev), 3,
+                                         capacity, 0.4)
+    last = n_keyframes - 1
+    return store, submap, store.clouds[last], store.cloud_masks[last], \
+        store.poses[last]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [4096, 32768])
+def test_kernel_on_a_submap_grid_with_a_keyframe_scan(cuda, table):
+    """The kernel the way loop verification launches it: a table built in
+    one shot by `build_grid` over a downsampled submap (many rows hold one or
+    two points, and in the large table most rows are empty), a keyframe
+    cloud with its masked tail as the scan."""
+    _, submap, scan, mask, pose = keyframe_submap(cuda)
+    grid = vg.build_grid(submap.xyz, submap.mask, 1.0, table, 24, halo="z")
+    assert 1000 < int(submap.mask.sum()) and not bool(mask.all())
+    out = fc.fused_normal_equations(grid, scan, mask, pose, **KW)
+    torch.cuda.synchronize()
+    assert int(out[2]) > 100
+    assert_ne_close(out, fc.fused_normal_equations_ref(grid, scan, mask, pose, **KW))
+
+
+@pytest.mark.cuda
+def test_register_launches_the_kernel_once_a_gn_iteration(cuda):
+    from lio_slam_tpu_torch.config import RegistrationConfig
+    from lio_slam_tpu_torch.ops import registration as reg
+
+    _, submap, scan, mask, pose = keyframe_submap(cuda)
+    # the scene (a ground plane and one wall) does not constrain y
+    init = pose + torch.tensor([0.0, 0.0, 0.01, 0.1, 0.0, 0.02], device=cuda)
+    for refresh in (1, 2):
+        fc.KERNEL_LAUNCHES = 0
+        r = reg.register(scan, mask, submap.xyz, submap.mask, init,
+                         RegistrationConfig(corr_refresh_every=refresh))
+        assert fc.KERNEL_LAUNCHES == r.iterations > 1
+        assert float((r.pose - pose).abs().max()) < 0.05
+    # below the point gates nothing is launched and the guess comes back
+    fc.KERNEL_LAUNCHES = 0
+    few = torch.zeros_like(mask)
+    few[:20] = True
+    r = reg.register(scan, few, submap.xyz, submap.mask, init, RegistrationConfig())
+    assert fc.KERNEL_LAUNCHES == 0 and r.iterations == 0
+    assert torch.equal(r.pose, init)
+
+
+@pytest.mark.cuda
+def test_loop_mission_on_the_card_is_repeatable(cuda):
+    """Loop closure and GPS through `Runner` on the card: launches equal the
+    GN iterations of mapping plus verification, and two runs give the same
+    bits (no sum on this path is accumulated with atomics)."""
+    import dataclasses
+
+    from lio_slam_tpu_torch.config import GpsConfig
+
+    cfg = dataclasses.replace(
+        Config(), loop=LoopClosureConfig(enabled=True, archive_enabled=False,
+                                         time_diff=0.8, sc_exclude_recent=3),
+        gps=GpsConfig(use_gps=True, pose_cov_threshold=-1.0,
+                      gps_distance_frequency=2.0, min_travel_before_gps=1.0),
+        static=dataclasses.replace(Config().static, max_keyframes=64,
+                                   max_keyframe_points=2048))
+    seq = synthetic.make_sequence(n_scans=20, n_points=4096, seed=0, speed=3.0)
+    scans, imus = sm.synthetic_inputs(seq, cfg)
+    fixes = synthetic.gps_fixes_from_truth(
+        sm.relative_truth(seq)[:, 3:].astype(np.float64), seq.stamps, seed=4)
+    runs = []
+    for _ in range(2):
+        runner = Runner(cfg, loop_every=6)
+        assert runner.device.type == "cuda"
+        fc.KERNEL_LAUNCHES = 0
+        results, ver = [], 0
+        for i in range(20):
+            results.append(runner.process_scan(scans[i], imu=imus[i],
+                                               gps_fixes=fixes[i]))
+            if (i + 1) % 6 == 0:
+                ver += sum(runner.last_loop_aux["loop_iters"])
+        assert ver > 0 and fc.KERNEL_LAUNCHES \
+            == sum(r.registration_iters for r in results) + ver
+        assert int(runner.state.gps_count) >= 1 and runner.full_correction_scans
+        runs.append(np.stack([r.pose for r in results]))
+    assert np.isfinite(runs[0]).all()
+    np.testing.assert_array_equal(runs[0], runs[1])
 
 
 @pytest.mark.cuda

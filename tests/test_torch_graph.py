@@ -1,4 +1,5 @@
-"""graph/factors and graph/solver (window solve) of the port against the JAX
+"""graph/factors and graph/solver (window solve, dense full-graph
+linearization, solve and marginal covariance) of the port against the JAX
 package.  Jacobians come from torch.func.jacfwd and jax.jacfwd; both run in
 float32, so values agree to float32 rounding (errors are Log maps of
 near-identity transforms)."""
@@ -101,3 +102,38 @@ def test_window_mask():
     np.testing.assert_array_equal(
         n(TS.window_mask(t(mask), t(np.int32(7)), 3)),
         n(JS.window_mask(jnp.asarray(mask), jnp.int32(7), 3)))
+
+
+@pytest.mark.parametrize("seed,gps", [(0, True), (3, False)])
+def test_linearize_full_matches(seed, gps):
+    """The dense normal equations, the loop factor and the GPS factors
+    included: every block within 1e-5 of the largest entry."""
+    ja, tb = both_graphs(chain_graph(seed=seed, with_gps=gps))
+    Ha, ba, ca = jax.jit(JS.linearize_full)(ja, ja.pose_mask)
+    Hb, bb, cb = TS.linearize_full(tb, tb.pose_mask)
+    assert Hb.shape == (60, 60) and bb.shape == (60,)
+    np.testing.assert_allclose(n(Hb), n(Ha), atol=1e-5 * np.abs(n(Ha)).max())
+    np.testing.assert_allclose(n(bb), n(ba), atol=1e-5 * np.abs(n(ba)).max())
+    np.testing.assert_allclose(float(cb), float(ca), rtol=1e-4)
+    np.testing.assert_allclose(n(Hb), n(Hb).T, atol=1e-6 * np.abs(n(Hb)).max())
+    # inactive poses (8, 9): identity diagonal, nothing coupled, zero gradient
+    np.testing.assert_allclose(n(Hb)[48:, 48:], np.eye(12) * (1 + 1e-5), atol=1e-7)
+    assert not n(Hb)[:48, 48:].any() and not n(bb)[48:].any()
+
+
+def test_dense_solve_and_marginal_covariance_match():
+    """1e-3 on poses as for the window solve (the same near-singular prior);
+    covariance blocks within 2e-3 of their largest entry."""
+    import torch
+
+    ja, tb = both_graphs(chain_graph(seed=5))
+    ra = JS.solve(ja, ja.pose_mask, iterations=3)
+    rb = TS.solve(tb, tb.pose_mask, iterations=3)
+    np.testing.assert_allclose(n(rb.graph.poses), n(ra.graph.poses), atol=1e-3)
+    assert float(TF.graph_chi2(rb.graph)) < float(TF.graph_chi2(tb))
+    np.testing.assert_array_equal(n(rb.graph.poses)[8:], n(tb.poses)[8:])
+    for idx in (0, 4, 7):
+        ca = n(JS.marginal_covariance(ja, jnp.int32(idx)))
+        cb = n(TS.marginal_covariance(tb, torch.tensor(idx)))
+        np.testing.assert_allclose(cb, ca, atol=2e-3 * np.abs(ca).max())
+        np.testing.assert_allclose(cb, cb.T, atol=1e-6 * np.abs(cb).max())

@@ -35,8 +35,55 @@ def test_port_imports_without_jax_or_triton():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = (out.stdout.split("\n") + [""])[:2]
-    assert int(count) >= 20
+    assert int(count) >= 24
     assert bad == "", f"the port imported {bad}"
+
+
+def test_loop_path_modules_and_chip_smoke_import_no_jax():
+    """The modules of the loop-closure / GPS / full-correction path by name,
+    and chip_smoke.py (imported, not run)."""
+    code = ("import sys, lio_slam_tpu_torch.pipeline.runner, "
+            "lio_slam_tpu_torch.pipeline.loop_closure, "
+            "lio_slam_tpu_torch.graph.sparse, "
+            "lio_slam_tpu_torch.pipeline.gps_fusion, lio_slam_tpu_torch.utils.enu, "
+            "chip_smoke; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'triton', 'lio_slam_tpu')]; "
+            "assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    assert "import jax" not in src and "lio_slam_tpu." not in src.replace(
+        "lio_slam_tpu_torch", "")
+
+
+def test_loop_mission_fixture_matches_its_configuration():
+    """The recorded JAX run of the loop mission has the mission's length and
+    holds what chip_smoke.py compares: at least one loop and one GPS factor
+    and a full correction."""
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    f = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                             "loop_mission_jax.npz"))
+    assert f["poses"].shape == (sm.LOOP_SCANS, 6)
+    assert int(f["loop_count"][-1]) >= 1 and int(f["gps_count"][-1]) >= 1
+    assert len(f["full_correction_scans"]) >= 2
+    assert f["cycle_scan"].tolist() == list(range(sm.LOOP_EVERY - 1, sm.LOOP_SCANS,
+                                                  sm.LOOP_EVERY))
+    assert f["loop_accepted"].shape == (len(f["cycle_scan"]), 2)
+    assert f["keyframe_poses"].shape == (int(f["keyframes"]), 6)
+    cfg = sm.loop_mission_config()
+    assert cfg.loop.enabled and not cfg.loop.archive_enabled and cfg.gps.use_gps
+    assert dataclasses.asdict(cfg.static) == dataclasses.asdict(
+        sm.bench_config().static)
+    assert dataclasses.asdict(cfg.registration) == dataclasses.asdict(
+        sm.bench_config().registration)
+    d = port_config.LoopClosureConfig()
+    assert (cfg.loop.search_num, cfg.loop.search_radius, cfg.loop.fitness_score,
+            cfg.loop.sc_exclude_recent) == (d.search_num, d.search_radius,
+                                            d.fitness_score, d.sc_exclude_recent)
 
 
 def test_port_mirrors_module_paths():
@@ -46,8 +93,10 @@ def test_port_mirrors_module_paths():
                 "ops/deskew.py", "ops/voxel_grid.py", "ops/registration.py",
                 "ops/fused_corr.py", "ops/scancontext.py",
                 "ops/preintegration.py", "graph/factors.py", "graph/solver.py",
-                "pipeline/keyframes.py", "pipeline/lio.py",
-                "pipeline/imu_frontend.py", "pipeline/runner.py"):
+                "graph/sparse.py", "utils/enu.py", "pipeline/gps_fusion.py",
+                "pipeline/loop_closure.py", "pipeline/keyframes.py",
+                "pipeline/lio.py", "pipeline/imu_frontend.py",
+                "pipeline/runner.py"):
         assert os.path.exists(os.path.join(ROOT, "lio_slam_tpu", rel)), rel
         assert os.path.exists(os.path.join(ROOT, "lio_slam_tpu_torch", rel)), rel
     assert os.path.exists(os.path.join(ROOT, "lio_slam_tpu_torch", "ops",

@@ -75,6 +75,16 @@ def test_packed_voxel_downsample(leaf, max_out):
     assert int(n(b.mask).sum()) > 10
 
 
+@pytest.mark.parametrize("fn", ["voxel_downsample", "packed_voxel_downsample"])
+def test_downsample_output_is_contiguous(fn):
+    """The kernel's wrapper takes the downsampled scan as it comes and
+    refuses a strided one."""
+    xyz, mask, _ = cloud_arrays(4)
+    out = getattr(tpc, fn)(tpc.Cloud(xyz=t(xyz), mask=t(mask)), 0.4, 512)
+    assert out.xyz.is_contiguous() and out.mask.is_contiguous()
+    assert out.xyz.shape == (512, 3)
+
+
 def imu_table_inputs(seed=0, T=32, n_valid=24):
     rs = np.random.RandomState(seed)
     gyr = (rs.randn(T, 3) * 0.3).astype(np.float32)

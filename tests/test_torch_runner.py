@@ -1,6 +1,9 @@
 """The port's slice as a whole: `Runner(device="cpu")` against the JAX
 `Runner` on the small mission of tests/test_runner.py (loop closure off),
-and one mapping step from a state carried over from the JAX package.
+one mapping step from a state carried over from the JAX package, and a small
+mission with loop closure and GPS on (factor counts, detector decisions and
+the scans of the full corrections identical, poses within 2e-3: a loop's
+measurement is the result of a float32 GN run; measured 2e-4).
 
 Tolerance: keyframe decisions and GN iteration counts identical, per-scan
 poses within 1e-4 (m and rad); measured 3.3e-6 at seed 0 and 1.1e-6 at
@@ -159,19 +162,192 @@ def test_step_from_carried_state():
 
 def test_unported_features_refused():
     cfg = small_config(port_config)
-    with pytest.raises(NotImplementedError):
-        Runner(dataclasses.replace(cfg, loop=port_config.LoopClosureConfig()))
+    # the default loop configuration has the keyframe archive on
+    with pytest.raises(NotImplementedError, match="archive"):
+        Runner(dataclasses.replace(cfg, loop=port_config.LoopClosureConfig()),
+               device="cpu")
+    with pytest.raises(NotImplementedError, match="archive"):
+        Runner(port_config.get_config("default"), device="cpu")
     with pytest.raises(NotImplementedError):
         Runner(cfg, fetch_every=4)
     with pytest.raises(NotImplementedError):
         Runner(cfg, auto_checkpoint="ckpt.npz")
-    with pytest.raises(NotImplementedError):
-        Runner(dataclasses.replace(cfg, gps=port_config.GpsConfig(use_gps=True)))
+    # loop closure without the archive, and GPS, are ported
+    on = dataclasses.replace(
+        cfg, loop=port_config.LoopClosureConfig(archive_enabled=False),
+        gps=port_config.GpsConfig(use_gps=True))
+    runner = Runner(on, device="cpu", loop_every=7)
+    assert runner.loop_every == 7 and runner.last_loop_aux is None
+    # a fix on a mission without GPS is taken and ignored, as in the JAX Runner
     seq = synthetic.make_sequence(n_scans=1, n_points=256, seed=0)
     scans, _ = sm.synthetic_inputs(seq, cfg)
-    with pytest.raises(NotImplementedError):
-        Runner(cfg, device="cpu").process_scan(scans[0],
-                                               gps_fix=(45.0, 7.0, 200.0))
+    r = Runner(cfg, device="cpu").process_scan(scans[0], gps_fix=(45.0, 7.0, 200.0))
+    assert r.positioning_mode == 0
+
+
+def loop_gps_config(m):
+    """The small mission config with loop closure (archive off) and GPS on,
+    gates lowered so that a 3 s mission meets them."""
+    return dataclasses.replace(
+        small_config(m),
+        loop=m.LoopClosureConfig(enabled=True, archive_enabled=False,
+                                 time_diff=0.8, sc_exclude_recent=3),
+        gps=m.GpsConfig(use_gps=True, pose_cov_threshold=-1.0,
+                        gps_distance_frequency=2.0, min_travel_before_gps=1.0))
+
+
+def run_loop_gps_missions():
+    """Both runners over 22 scans at 3 m/s with a GPS fix a scan and the
+    loop detector every 6 scans.  The radius search finds the nearest
+    keyframe older than 0.8 s, a few metres back, and verification against
+    the submap around it accepts it: a loop factor without a revisit.  (The
+    mission ends after the loop's correction: a later verification starts
+    at its optimum, where the GN stopping rule is decided by float32 noise,
+    and two states 1e-3 apart may disagree on `converged`, in either
+    package.)"""
+    n_scans, every = 22, 6
+    seq = synthetic.make_sequence(n_scans=n_scans, n_points=2048, seed=0, speed=3.0)
+    tcfg = loop_gps_config(port_config)
+    scans, imus = sm.synthetic_inputs(seq, tcfg)
+    fixes = synthetic.gps_fixes_from_truth(
+        sm.relative_truth(seq)[:, 3:].astype(np.float64), seq.stamps, seed=4)
+    jr = JaxRunner(loop_gps_config(jax_config), loop_every=every)
+    tr = Runner(tcfg, device="cpu", loop_every=every)
+    corrected, full_correct = [], jr.full_correct
+
+    def watching_correct(state):
+        if bool(state.needs_full_solve):
+            corrected.append(jr.scan_count)
+        return full_correct(state)
+
+    jr.full_correct = watching_correct
+    cycles, detector = [], jr.detector
+
+    def watching_detector(state):
+        state, aux = detector(state)
+        cycles.append(jax.tree.map(np.array, aux))
+        return state, aux
+
+    jr.detector = watching_detector
+    ja, tb, tcycles, counts = [], [], [], []
+    for i in range(n_scans):
+        ja.append(jr.process_scan(scans[i], imu=imus[i], gps_fixes=fixes[i]))
+        tb.append(tr.process_scan(scans[i], imu=imus[i], gps_fixes=fixes[i]))
+        if (i + 1) % every == 0:
+            tcycles.append(tr.last_loop_aux)
+        counts.append(((int(jr.state.loop_count), int(jr.state.gps_count)),
+                       (int(tr.state.loop_count), int(tr.state.gps_count))))
+    return (jr, ja, corrected, cycles), (tr, tb, tcycles), counts
+
+
+@pytest.fixture(scope="module")
+def loop_gps_missions():
+    return run_loop_gps_missions()
+
+
+def test_loop_gps_mission_factors_and_corrections_match(loop_gps_missions):
+    (jr, ja, corrected, _), (tr, tb, _), counts = loop_gps_missions
+    assert [c[1] for c in counts] == [c[0] for c in counts]
+    assert counts[-1][1][0] >= 1 and counts[-1][1][1] >= 2   # loops, GPS factors
+    assert tr.full_correction_scans == corrected
+    assert len(corrected) >= 3
+    assert not bool(tr.state.needs_full_solve)
+    assert [r.is_keyframe for r in tb] == [bool(r.is_keyframe) for r in ja]
+    K = tr.cfg.static.max_keyframes
+    for name in ("bt_i", "bt_j", "bt_mask", "gps_i", "gps_mask", "pose_mask"):
+        np.testing.assert_array_equal(n(getattr(tr.state.graph, name)),
+                                      n(getattr(jr.state.graph, name)), err_msg=name)
+    assert n(tr.state.graph.bt_mask)[K - 1:].sum() == counts[-1][1][0]
+
+
+def test_loop_gps_mission_detector_cycles_match(loop_gps_missions):
+    (_, _, _, cycles), (tr, _, tcycles), _ = loop_gps_missions
+    assert len(tcycles) == len(cycles) == 3
+    for a, b in zip(cycles, tcycles):
+        np.testing.assert_array_equal(b["loop_accepted"], a["loop_accepted"])
+        np.testing.assert_array_equal(b["loop_pair_i"], a["loop_pair_i"])
+        acc = a["loop_accepted"]
+        np.testing.assert_array_equal(b["loop_pair_j"][acc], a["loop_pair_j"][acc])
+        np.testing.assert_allclose(b["loop_fitness"], a["loop_fitness"], atol=2e-3)
+        assert isinstance(b["loop_accepted"], np.ndarray)
+        assert len(b["loop_iters"]) == int((b["loop_fitness"] > 0).sum())
+    assert any(a["loop_accepted"].any() for a in cycles)
+    assert tr.timer.count["loop_closure"] == 3
+
+
+def test_loop_gps_mission_poses_within_tolerance(loop_gps_missions):
+    (jr, ja, _, _), (tr, tb, _), _ = loop_gps_missions
+    dev = np.abs(np.stack([r.pose for r in tb]) - np.stack([r.pose for r in ja]))
+    assert dev.max() < 2e-3, dev.max(axis=0)
+    count = int(tr.state.store.count)
+    assert count == int(jr.state.store.count)
+    np.testing.assert_allclose(n(tr.state.store.poses)[:count],
+                               n(jr.state.store.poses)[:count], atol=2e-3)
+    assert all(r.positioning_mode == a.positioning_mode == 0
+               for r, a in zip(tb, ja))
+    assert not tr.mapping_error
+
+
+def test_fusion_outputs_and_raw_gps_match(loop_gps_missions):
+    """The geodetic outputs and the positioning-mode machine of both runners
+    after the same mission and the same raw-GPS stream."""
+    (jr, _, _, _), (tr, _, _), _ = loop_gps_missions
+    stamp = 1000.0
+    fa, fb = jr.fusion_output(stamp), tr.fusion_output(stamp)
+    assert fb.stamp == fa.stamp and fb.mode == fa.mode
+    for name in ("latitude", "longitude"):
+        assert abs(getattr(fb, name) - getattr(fa, name)) < 1e-7    # ~1 cm
+    assert abs(fb.altitude - fa.altitude) < 2e-3
+    assert abs(fb.heading - fa.heading) < 0.1
+    np.testing.assert_array_equal(tr.gps_intake.datum, jr.gps_intake.datum)
+    # the raw stream runs on while the corrected one has stopped: jammed
+    modes = []
+    for k in range(40):
+        s = 2.2 + 0.1 * k
+        ma = jr.on_raw_gps(s, 48.0, 11.0, 500.0, heading=90.0)
+        mb = tr.on_raw_gps(s, 48.0, 11.0, 500.0, heading=90.0)
+        assert mb == ma
+        modes.append(mb)
+    assert modes[0] == 0 and modes[-1] == 1
+    (oa, sa), (ob, sb) = jr.sensor_fusion_output(stamp), tr.sensor_fusion_output(stamp)
+    assert sb == sa and ob.mode == oa.mode
+    assert abs(ob.latitude - oa.latitude) < 1e-7
+
+
+def test_state_with_loop_and_gps_factors_round_trips(loop_gps_missions):
+    """A JAX state that holds loop and GPS factors goes through `convert`
+    unchanged (values and dtypes), and the full correction of both packages
+    run from that one state agrees within 2e-3 (float32 solves of a graph
+    whose odometry information is 1e6)."""
+    (jr, _, _, _), _, _ = loop_gps_missions
+    st = jax.tree.map(np.array, jr.state)
+    K = st.graph.poses.shape[0]
+    assert st.graph.bt_mask[K - 1:].any() and st.graph.gps_mask.any()
+    back = convert.to_numpy(convert.from_numpy(st))
+    for a, b in zip(jax.tree.leaves(st), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    armed = st._replace(needs_full_solve=np.array(True))
+    ja = jlio.make_full_correction(jr.cfg)(jax.tree.map(jnp.asarray, armed))
+    tb = tlio.make_full_correction(loop_gps_config(port_config), device="cpu")(
+        convert.from_numpy(armed))
+    assert not bool(tb.needs_full_solve) and not bool(ja.needs_full_solve)
+    np.testing.assert_allclose(n(tb.graph.poses), n(ja.graph.poses), atol=2e-3)
+    # the rebuilt maps hold the same points up to those on a cell's border
+    filled = (int(n(tb.map_grid.counts).sum()), int(n(ja.map_grid.counts).sum()))
+    assert filled[0] > 0 and abs(filled[0] - filled[1]) <= 0.01 * filled[1]
+
+
+def test_runner_inject_loop_constraint(loop_gps_missions):
+    (_, _, _, _), (tr, _, _), _ = loop_gps_missions
+    before = int(tr.state.pend_mask.sum())
+    count = int(tr.state.store.count)
+    assert not tr.inject_loop_constraint(0, count + 3, np.zeros(6, np.float32))
+    assert tr.inject_loop_constraint(0, count - 1, np.zeros(6, np.float32))
+    assert int(tr.state.pend_mask.sum()) == before + 1
+    slot = int(np.argmax(n(tr.state.pend_mask)))
+    np.testing.assert_allclose(n(tr.state.pend_info)[slot], 1.0 / 0.3 ** 2)
+    assert tr._full_correct_armed
 
 
 def run_cli(*args):
@@ -181,9 +357,12 @@ def run_cli(*args):
 
 
 def test_cli_help_says_loop_closure_is_off():
+    """Loop closure runs now; what the CLI still turns off is the keyframe
+    archive, and it says so."""
     out = run_cli("--help")
     assert out.returncode == 0, out.stderr
-    assert "Loop closure is not ported" in out.stdout
+    assert "keyframe archive is not ported" in " ".join(out.stdout.split())
+    assert "--loop-every" in out.stdout
 
 
 def test_runner_defaults_to_the_card_and_never_falls_back():

@@ -1,11 +1,19 @@
-"""Record the JAX reference run of chip_smoke.py's mission as a fixture.
+"""Record the JAX reference runs of chip_smoke.py's missions as fixtures.
 
 chip_smoke.py holds the PyTorch port on the GPU to the JAX package's
 trajectory without importing jax.  This script runs the JAX `Runner` on the
-CPU over exactly that mission (the port's `bench_config()`, 40 scans of
-32768 points, seed 0, speed 2 m/s, the synthetic IMU windows) and saves the
-per-scan poses, keyframe flags, GN iteration counts, the keyframe count and
-the IMU front-end state each scan starts from.
+CPU over exactly those missions and saves what the smoke run compares:
+
+- `smoke_mission_jax.npz`: the port's `bench_config()`, 40 scans of 32768
+  points, seed 0, speed 2 m/s, the synthetic IMU windows, loop closure and
+  GPS off: per-scan poses, keyframe flags, GN iteration counts, the
+  keyframe count and the IMU front-end state each scan starts from.
+- `loop_mission_jax.npz`: `loop_mission_config()` (loop closure and GPS
+  on), 125 scans of a closed circle with GPS fixes made from the truth, the
+  loop detector every 10 scans: per-scan poses, keyframe flags, GN
+  iterations, loop and GPS factor counts, the provenance of every detector
+  cycle, the scans at which a full correction ran, the final keyframe
+  poses.
 
 On the CPU the JAX registration takes its unfused path, which finds fresh
 correspondences at every GN iteration whatever `corr_refresh_every` says
@@ -14,9 +22,10 @@ correspondences at every GN iteration whatever `corr_refresh_every` says
 path it takes off the CPU, with the Pallas kernel in interpret mode and the
 candidate block held between refreshes, as the port does.
 
-Run by hand from the repository root (about a minute on a CPU):
+Run by hand from the repository root (`smoke`, `loop`, or both when no
+argument is given):
 
-    python tests/torch_port_make_fixture.py
+    python tests/torch_port_make_fixture.py [smoke|loop]
 
 It is not a test (pytest does not collect it).
 """
@@ -47,8 +56,9 @@ from lio_slam_tpu_torch.pipeline import synthetic_mission as sm  # noqa: E402
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 from torch_port_helpers import to_jax_config  # noqa: E402
 
-OUT = os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
-                   "smoke_mission_jax.npz")
+FIXTURES = os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures")
+OUT = os.path.join(FIXTURES, "smoke_mission_jax.npz")
+LOOP_OUT = os.path.join(FIXTURES, "loop_mission_jax.npz")
 
 
 def fused_interpret(scan, scan_mask, grid, cfg):
@@ -75,14 +85,9 @@ def fused_interpret(scan, scan_mask, grid, cfg):
     return (gather_fn, from_cand_fn, int(cfg.corr_refresh_every))
 
 
-def main():
-    jreg._maybe_fused = fused_interpret
-    cfg = sm.bench_config()
-    seq = synthetic.make_sequence(n_scans=sm.SMOKE_SCANS,
-                                  n_points=sm.SMOKE_POINTS,
-                                  seed=sm.SMOKE_SEED, speed=sm.SMOKE_SPEED)
-    scans, imus = sm.synthetic_inputs(seq, cfg)
-    runner = Runner(to_jax_config(cfg, jax_config))
+def count_iterations(runner):
+    """Wrap `runner.step` so that the returned list collects every scan's GN
+    iteration count."""
     iters = []
     step = runner.step
 
@@ -92,6 +97,77 @@ def main():
         return state, out
 
     runner.step = counting_step
+    return iters
+
+
+def loop_mission():
+    """The JAX `Runner` over the loop mission; writes LOOP_OUT."""
+    cfg = sm.loop_mission_config()
+    seq, scans, imus, fixes = sm.loop_mission_inputs(cfg)
+    runner = Runner(to_jax_config(cfg, jax_config), loop_every=sm.LOOP_EVERY)
+    iters = count_iterations(runner)
+    corrected = []
+    full_correct = runner.full_correct
+
+    def watching_correct(state):
+        if bool(state.needs_full_solve):
+            corrected.append(runner.scan_count)
+        return full_correct(state)
+
+    runner.full_correct = watching_correct
+    cycles = []
+    detector = runner.detector
+
+    def watching_detector(state):
+        state, aux = detector(state)
+        cycles.append({"scan": runner.scan_count - 1,
+                       **{k: np.array(v) for k, v in aux.items()}})
+        return state, aux
+
+    runner.detector = watching_detector
+    t0 = time.time()
+    results, loops, gps = [], [], []
+    for i in range(len(scans)):
+        results.append(runner.process_scan(scans[i], imu=imus[i],
+                                           gps_fixes=fixes[i]))
+        loops.append(int(runner.state.loop_count))
+        gps.append(int(runner.state.gps_count))
+    poses = np.stack([r.pose for r in results]).astype(np.float32)
+    ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
+    n_kf = int(runner.state.store.count)
+    cyc = lambda k: np.stack([c[k] for c in cycles])
+    np.savez(LOOP_OUT, poses=poses,
+             is_keyframe=np.array([r.is_keyframe for r in results]),
+             registration_iters=np.array(iters, np.int32),
+             keyframes=np.int32(n_kf), ate_rmse_m=np.float32(ate),
+             loop_count=np.array(loops, np.int32),
+             gps_count=np.array(gps, np.int32),
+             full_correction_scans=np.array(corrected, np.int32),
+             cycle_scan=np.array([c["scan"] for c in cycles], np.int32),
+             loop_accepted=cyc("loop_accepted"),
+             loop_pair_i=cyc("loop_pair_i"), loop_pair_j=cyc("loop_pair_j"),
+             loop_fitness=cyc("loop_fitness"),
+             keyframe_poses=np.array(runner.state.store.poses[:n_kf]))
+    print(f"wrote {LOOP_OUT}: {len(results)} scans, {n_kf} keyframes, ATE "
+          f"{ate:.5f} m, {sum(iters)} GN iterations of mapping, "
+          f"{loops[-1]} loop factors, {gps[-1]} GPS factors, full "
+          f"corrections at scans {corrected}, {time.time() - t0:.1f} s")
+    for c in cycles:
+        print(f"  detector cycle at scan {c['scan']}: accepted "
+              f"{c['loop_accepted'].tolist()}, pair "
+              f"{c['loop_pair_i'].tolist()} -> {c['loop_pair_j'].tolist()}, "
+              f"fitness {c['loop_fitness'].tolist()}")
+
+
+def smoke_mission():
+    """The JAX `Runner` over the 40-scan smoke mission; writes OUT."""
+    cfg = sm.bench_config()
+    seq = synthetic.make_sequence(n_scans=sm.SMOKE_SCANS,
+                                  n_points=sm.SMOKE_POINTS,
+                                  seed=sm.SMOKE_SEED, speed=sm.SMOKE_SPEED)
+    scans, imus = sm.synthetic_inputs(seq, cfg)
+    runner = Runner(to_jax_config(cfg, jax_config))
+    iters = count_iterations(runner)
     t0 = time.time()
     results, imu_states = [], []
     for i in range(len(scans)):
@@ -115,6 +191,17 @@ def main():
     print(f"wrote {OUT}: {len(results)} scans, "
           f"{int(runner.state.store.count)} keyframes, ATE {ate:.5f} m, "
           f"{sum(iters)} GN iterations, {time.time() - t0:.1f} s")
+
+
+def main():
+    which = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if which not in ("smoke", "loop", "all"):
+        sys.exit(__doc__)
+    jreg._maybe_fused = fused_interpret
+    if which in ("smoke", "all"):
+        smoke_mission()
+    if which in ("loop", "all"):
+        loop_mission()
 
 
 if __name__ == "__main__":

@@ -55,9 +55,32 @@
    keyframe cloud as the scan (the shapes loop verification launches it at).
 8. Solver check: `solve_sparse` against the dense `solve` on the mission's
    final graph, and the time of a 5-iteration solve at K=256 and K=2048.
+9. Archive-mission phase: `Runner(archive_mission_config(), loop_every=10,
+   fetch_every=2, mission_log, auto_checkpoint, checkpoint_every=50)`, the
+   loop mission with a 16-keyframe store and the keyframe archive on,
+   against fixtures/archive_mission_jax.npz: evictions, archived keyframes
+   and archive loops (at least one), loop / GPS / anchor / keyframe counts,
+   the scans of the full corrections, the trajectory within the loop
+   mission's limits, the mission log's `archive` events (as many as the
+   archive loops, query newer than match).  Kernel launches of mapping, of
+   loop verification and of archive verification are counted apart; ms
+   per archive attempt with and without a verification, per checkpoint
+   save and load.  Then the kernel as archive verification launches it (a
+   grid over the archived submap, an archived keyframe as the scan) against
+   its plain version.
+10. Products and relocalization on that final state: local planning map,
+   height map, normals and slope, obstacle SDF and save_map, ms each, the
+   SOR-kept points, occupied height cells and saved map points within
+   0.5 % of the reference's; three first-lap scans relocalized: success,
+   the reference's keyframe, pose within 0.02 m / 0.1 deg of its pose,
+   launches equal to the GN iterations.
+11. Resume phase: the 40-scan mission (loop closure and GPS off) saved at
+   scan 20, `Runner.resume` on the card over scans 20-39: poses within
+   1e-6 of the uninterrupted run's (the same bits are expected).
 
 Prints the card's name and power limit, one JSON line describing the
-kernel, and last `{"ok": true, "device": {...}}`.  Exits non-zero, without
+kernel (its launches on every path driven, apart), and last
+`{"ok": true, "device": {...}}`.  Exits non-zero, without
 that line, if there is no CUDA device or any check fails.
 """
 
@@ -463,7 +486,7 @@ def mission_phase(dev, profile_dir):
         fail(f"{kf} keyframes, JAX reference {kf_ref}")
     if runner.mapping_error:
         fail("IMU front-end reported a mapping error")
-    host = {k: round(v, 3) for k, v in runner.timer.mean_ms().items()}
+    host = {k: round(v["mean_ms"], 3) for k, v in runner.timer.as_dict().items()}
     print(f"mission stages, host ms/scan (unsynchronized): {json.dumps(host)}",
           flush=True)
 
@@ -921,7 +944,7 @@ def loop_mission_phase(profile_dir=None):
     med = lambda xs: sorted(xs)[len(xs) // 2] if xs else float("nan")
     ran = [c["ms"] for c in cycles if c["verifications"]]
     idle = [c["ms"] for c in cycles if not c["verifications"]]
-    host = {k: round(v, 3) for k, v in runner.timer.mean_ms().items()}
+    host = {k: round(v["mean_ms"], 3) for k, v in runner.timer.as_dict().items()}
     print(f"loop mission events, ms on the host's clock with the device "
           f"synchronized: full correction (K={cfg.static.max_keyframes} dense "
           f"solve x5 + map rebuild) median {med(events['full_correction']):.1f}, "
@@ -962,6 +985,401 @@ def loop_mission_phase(profile_dir=None):
     return map_iters, ver_iters, err
 
 
+def run_wrapped(obj, name, wrapper):
+    """Replace `obj.name` by `wrapper(original)`; returns a function that
+    puts the original back."""
+    original = getattr(obj, name)
+    setattr(obj, name, wrapper(original))
+    return lambda: setattr(obj, name, original)
+
+
+def archive_kernel_check(runner, cfg, gid_i, gid_j, dev):
+    """The kernel the way archive verification launches it: the table is a
+    grid built whole over the ARCHIVED submap around keyframe `gid_j` (the
+    evicted match), the scan is the archived cloud of keyframe `gid_i` (the
+    query).  Held to its plain version with the kernel phase's tolerances."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import voxel_grid as vg
+    from lio_slam_tpu_torch.utils import pointcloud as pc
+
+    r, l, s = cfg.registration, cfg.loop, cfg.static
+    a = runner._archive
+    pts = a.submap(gid_j, l.search_num, max_points=s.max_map_points)
+    submap = pc.voxel_downsample(pc.pad_cloud(pts, s.max_map_points, device=dev),
+                                 r.mapping_surf_leaf_size, s.icp_submap_points)
+    grid = vg.build_grid(submap.xyz, submap.mask, r.nn_radius,
+                         r.grid_table_size, r.grid_max_per_cell,
+                         halo=r.grid_halo)
+    k = gid_i - a.base_gid
+    cloud = pc.pad_cloud(a.clouds[k], s.max_keyframe_points, device=dev)
+    pose = torch.from_numpy(np.asarray(a.poses[k], np.float32)).to(dev)
+    kw = dict(halo=r.grid_halo, nn_radius=r.nn_radius,
+              plane_dist_thresh=r.plane_dist_thresh,
+              robust_weight_floor=r.robust_weight_floor)
+    print(f"archive verification kernel check: archived keyframe {gid_i} "
+          f"({int(cloud.mask.sum())} points) against the archived submap around "
+          f"evicted keyframe {gid_j} ({pts.shape[0]} points, "
+          f"{int(submap.mask.sum())} after the downsample, "
+          f"{int(grid.counts.sum())} slots filled)", flush=True)
+    out = fc.fused_normal_equations(grid, cloud.xyz, cloud.mask, pose, **kw)
+    torch.cuda.synchronize()
+    err = check_ne("archive-submap-grid", out, fc.fused_normal_equations_ref(
+        grid, cloud.xyz, cloud.mask, pose, **kw))
+    if int(out[2]) < 100:
+        fail(f"only {int(out[2])} inliers of a keyframe against its archived place")
+    ms = device_ms(lambda: fc.fused_normal_equations(grid, cloud.xyz, cloud.mask,
+                                                     pose, **kw))
+    plain_ms = device_ms(lambda: fc.fused_normal_equations_ref(
+        grid, cloud.xyz, cloud.mask, pose, **kw))
+    print(f"archive verification shapes, bucket ids + sums, device ms per call: "
+          f"kernel route {ms:.4f}, plain version {plain_ms:.4f}", flush=True)
+    return err
+
+
+def within(label, got, ref, rel=0.005):
+    """(message, ok): `got` within `rel` of the reference's `ref`."""
+    ok = abs(got - ref) <= rel * max(abs(ref), 1)
+    return f"{label} {got} (JAX {ref}, {100 * (got - ref) / max(ref, 1):+.2f} %)", ok
+
+
+def products_phase(runner, cfg, seq, fixture, reg_iters, tmp):
+    """The map products and three relocalizations on the archive mission's
+    final state, against the reference's counts and results; returns the
+    relocalizations' kernel launches."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import heightmap
+    from lio_slam_tpu_torch.pipeline import relocalization
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+    from lio_slam_tpu_torch.utils import pointcloud as pc
+
+    dev = runner.device
+    pm, local_ms = synced_ms(runner.local_planning_map)
+    hm, height_ms = synced_ms(runner.height_map)
+    (_, slope), normals_ms = synced_ms(lambda: heightmap.normals_and_slope(hm))
+    z = float(runner.trajectory[-1][5])
+    sdf, sdf_ms = synced_ms(lambda: heightmap.obstacle_sdf(hm, z))
+    saved, save_ms = synced_ms(lambda: runner.save_map(os.path.join(tmp, "maps"),
+                                                       resolution=0.4))
+    counts = {"SOR-kept points": (int(pm.count()), int(fixture["sor_kept"])),
+              "occupied height cells": (int(torch.isfinite(hm.elevation).sum()),
+                                        int(fixture["height_cells"])),
+              "saved map points": (saved.num_points, int(fixture["saved_points"]))}
+    print(f"products on the final state, ms (host clock, device synchronized): "
+          f"local_planning_map {local_ms:.1f}, height_map {height_ms:.1f} (the "
+          f"planning map again + the raster), normals_and_slope {normals_ms:.1f}, "
+          f"obstacle_sdf {sdf_ms:.1f}, save_map {save_ms:.1f} ({len(saved.files)} "
+          f"files); slope cells {int(torch.isfinite(slope).sum())} (JAX "
+          f"{int(fixture['slope_cells'])}), SDF cells inside obstacles "
+          f"{int((sdf < 0).sum())} (JAX {int(fixture['sdf_negative'])})",
+          flush=True)
+    failures = []
+    for label, (got, ref) in counts.items():
+        msg, ok = within(label, got, ref)
+        print(f"products: {msg}", flush=True)
+        if not ok:
+            failures.append(msg)
+
+    reloc = relocalization.make_relocalizer(cfg)
+    launches = 0
+    for k, i in enumerate(sm.RELOC_SCANS):
+        cloud = pc.Cloud(xyz=torch.from_numpy(seq.scans[i]).to(dev),
+                         mask=torch.from_numpy(seq.scan_masks[i]).to(dev))
+        n_reg = len(reg_iters)
+        fc.KERNEL_LAUNCHES = 0
+        r, ms = synced_ms(lambda: reloc(runner.state, cloud))
+        n_launch = fc.KERNEL_LAUNCHES
+        iters = sum(it for _, it in reg_iters[n_reg:])
+        launches += n_launch
+        pose = r.pose.cpu().numpy()
+        ref = fixture["reloc_pose"][k]
+        dm = float(np.abs(pose[3:] - ref[3:]).max())
+        dr = float(np.abs((pose[:3] - ref[:3] + np.pi) % (2 * np.pi) - np.pi).max())
+        print(f"relocalize first-lap scan {i}: success {bool(r.success)} (JAX "
+              f"{bool(fixture['reloc_success'][k])}), keyframe {int(r.matched_kf)} "
+              f"(JAX {int(fixture['reloc_matched_kf'][k])}), SC distance "
+              f"{float(r.sc_distance):.4f}, fitness {float(r.fitness):.4f}, pose "
+              f"{dm:.3e} m / {math.degrees(dr):.3e} deg from the JAX pose, "
+              f"{n_launch} kernel launches for {iters} GN iterations, {ms:.1f} ms",
+              flush=True)
+        if n_launch != iters or n_launch == 0:
+            failures.append(f"relocalization of scan {i}: {n_launch} launches, "
+                            f"{iters} GN iterations")
+        if not (bool(r.success) and int(r.matched_kf)
+                == int(fixture["reloc_matched_kf"][k])):
+            failures.append(f"relocalization of scan {i}: success "
+                            f"{bool(r.success)}, keyframe {int(r.matched_kf)}")
+        if not (dm <= MAX_DEV_M and dr <= MAX_DEV_RAD):
+            failures.append(f"relocalization of scan {i}: {dm} m / {dr} rad "
+                            "from the reference")
+    if failures:
+        fail("; ".join(failures))
+    return launches
+
+
+def archive_mission_phase(profile_dir=None):
+    """The archive mission through `Runner(cfg, fetch_every=2, mission_log,
+    auto_checkpoint)` on the card, against its JAX reference run; then the
+    archive verification's kernel check and the products phase.  Returns
+    the kernel launches by path and the kernel check's largest
+    difference."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import registration
+    from lio_slam_tpu_torch.pipeline import checkpoint
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+    from lio_slam_tpu_torch.pipeline.runner import Runner
+
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "archive_mission_jax.npz"))
+    cfg = sm.archive_mission_config()
+    seq, scans, imus, fixes = sm.loop_mission_inputs(cfg, n_scans=sm.ARCHIVE_SCANS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_archive_")
+    try:
+        log_path, ck = os.path.join(tmp, "mission.jsonl"), os.path.join(tmp, "auto.npz")
+        runner = Runner(cfg, loop_every=sm.LOOP_EVERY, fetch_every=2,
+                        mission_log=log_path, auto_checkpoint=ck,
+                        checkpoint_every=50)
+        dev = runner.device
+        if dev.type != "cuda":
+            fail(f"Runner(cfg) chose {dev}, not the card")
+        # every registration's GN iterations, tagged with the path it ran on
+        reg_iters, path = [], ["mapping"]
+
+        def counting_register(register):
+            def wrapped(*a, **k):
+                r = register(*a, **k)
+                reg_iters.append((path[0], r.iterations))
+                return r
+            return wrapped
+
+        map_iters = []
+
+        def counting_step(step):
+            def wrapped(state, inp):
+                state, out = step(state, inp)
+                map_iters.append(out.registration_iters)
+                return state, out
+            return wrapped
+
+        def tagged(tag, times):
+            def wrap(fn):
+                def wrapped(*a, **k):
+                    path[0] = tag
+                    launches = fc.KERNEL_LAUNCHES
+                    n_reg, loops = len(reg_iters), runner.archive_loops
+                    try:
+                        out, ms = synced_ms(lambda: fn(*a, **k))
+                    finally:
+                        path[0] = "mapping"
+                    times.append({"ms": ms, "scan": runner.scan_count - 1,
+                                  "launches": fc.KERNEL_LAUNCHES - launches,
+                                  "verifications": len(reg_iters) - n_reg,
+                                  "iters": sum(i for _, i in reg_iters[n_reg:]),
+                                  "accepted": runner.archive_loops - loops})
+                    return out
+                return wrapped
+            return wrap
+
+        attempts, cycles, saves = [], [], []
+        restore = [run_wrapped(registration, "register", counting_register),
+                   run_wrapped(runner, "step", counting_step),
+                   run_wrapped(runner, "detector", tagged("detector", cycles)),
+                   run_wrapped(runner, "_attempt_archive_loop",
+                               tagged("archive", attempts)),
+                   run_wrapped(runner, "save_checkpoint", tagged("save", saves))]
+
+        fc.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        for i in range(len(scans)):
+            runner.process_scan(scans[i], imu=imus[i], gps_fixes=fixes[i])
+        runner.drain()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = fc.KERNEL_LAUNCHES
+        h = runner.health()
+        runner.close()           # the last auto-checkpoint; the log is whole
+        for undo in restore[1:]:
+            undo()
+
+        st = runner.state
+        A = cfg.static.max_archive_anchors
+        gmask = st.graph.gps_mask.cpu().numpy()
+        ver_iters = sum(c["iters"] for c in cycles)
+        arch_iters = sum(a["iters"] for a in attempts)
+        arch_launches = sum(a["launches"] for a in attempts)
+        n_ver = sum(a["verifications"] for a in attempts)
+        recs = [json.loads(line) for line in open(log_path)]
+        steps = [r for r in recs if "event" not in r]
+        events = [(r["i"], r["j"]) for r in recs if r.get("source") == "archive"]
+        got = {"evictions": h["keyframe_evictions"],
+               "archived keyframes": h["archived_keyframes"],
+               "archive loops": h["archive_loops"],
+               "loop factors": int(st.loop_count), "GPS factors": int(st.gps_count),
+               "anchors": int(gmask[len(gmask) - A:].sum()),
+               "keyframes": int(st.store.count)}
+        ref = {"evictions": int(fixture["evictions"]),
+               "archived keyframes": int(fixture["archived_keyframes"]),
+               "archive loops": int(fixture["archive_loops"]),
+               "loop factors": int(fixture["loop_count"]),
+               "GPS factors": int(fixture["gps_count"]),
+               "anchors": int(fixture["anchors"]),
+               "keyframes": int(fixture["keyframes"])}
+        print(f"archive mission: {len(scans)} scans in {elapsed:.3f} s = "
+              f"{len(scans) / elapsed:.3f} scans/s (fetch_every 2, mission log, "
+              f"auto-checkpoint every 50; the events' timing synchronizes the "
+              f"device); kernel launches {launches} = {sum(map_iters)} GN "
+              f"iterations of mapping + {ver_iters} of loop verification + "
+              f"{arch_iters} of {n_ver} archive verification(s) (JAX reference: "
+              f"{int(fixture['registration_iters'].sum())} of mapping)", flush=True)
+        print("archive mission counts (port / JAX): " + ", ".join(
+            f"{k} {got[k]} / {ref[k]}" for k in got) + f"; full corrections at "
+            f"scans {runner.full_correction_scans} (JAX "
+            f"{fixture['full_correction_scans'].tolist()}); archive loop events "
+            f"(i, j) {events} (JAX {fixture['archive_events'].tolist()}); "
+            f"{len(steps)} step records", flush=True)
+        failures = [f"{k} {got[k]}, JAX reference {ref[k]}" for k in got
+                    if got[k] != ref[k]]
+        if got["archive loops"] < 1 or got["evictions"] < 1:
+            failures.append("the mission evicted nothing or closed no archive loop")
+        if runner.full_correction_scans != fixture["full_correction_scans"].tolist():
+            failures.append(f"full corrections at {runner.full_correction_scans}")
+        if len(events) != got["archive loops"] or not all(i > j for i, j in events):
+            failures.append(f"archive events {events} for {got['archive loops']} loops")
+        if len(steps) != len(scans) or len(runner.trajectory) != len(scans):
+            failures.append(f"{len(steps)} step records, {len(runner.trajectory)} poses")
+        if launches != sum(map_iters) + ver_iters + arch_iters or arch_iters == 0 \
+                or arch_launches != arch_iters:
+            failures.append(f"kernel launches {launches} != {sum(map_iters)} + "
+                            f"{ver_iters} + {arch_iters} (archive attempts launched "
+                            f"{arch_launches})")
+
+        poses = np.stack(runner.trajectory)
+        d = np.abs(poses - fixture["poses"])
+        first = min(int(fixture["full_correction_scans"][0]),
+                    runner.full_correction_scans[0])
+        first_hit = min([a["scan"] for a in attempts if a["verifications"]],
+                        default=len(scans) - 1)
+        for label, sl, lim_m, lim_rad in (
+                ("before the first full correction", slice(0, first + 1),
+                 MAX_DEV_M, MAX_DEV_RAD),
+                ("up to the archive verification", slice(0, first_hit + 1),
+                 LOOP_GPS_MAX_DEV_M, LOOP_GPS_MAX_DEV_RAD),
+                ("whole mission", slice(None), LOOP_MAX_DEV_M, LOOP_MAX_DEV_RAD)):
+            dm, dr = float(d[sl, 3:].max()), float(d[sl, :3].max())
+            print(f"archive mission, {label} (scans {sl.start or 0}-"
+                  f"{(sl.stop or len(scans)) - 1}): max deviation from the JAX "
+                  f"reference {dm:.3e} m, {math.degrees(dr):.3e} deg (limits "
+                  f"{lim_m} m, {math.degrees(lim_rad):.2f} deg)", flush=True)
+            if not (dm <= lim_m and dr <= lim_rad):
+                failures.append(f"archive mission, {label}: {dm} m / {dr} rad")
+        ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
+        print(f"archive mission: ATE {ate:.5f} m (JAX reference "
+              f"{float(fixture['ate_rmse_m']):.5f} m, limit {LOOP_MAX_ATE_M} m); "
+              f"mapping_error {runner.mapping_error}; live GPS factors "
+              f"{int(gmask[:len(gmask) - A].sum())} (JAX {int(fixture['live_gps'])})",
+              flush=True)
+        if not ate <= LOOP_MAX_ATE_M or runner.mapping_error:
+            failures.append(f"archive mission: ATE {ate} m, mapping_error "
+                            f"{runner.mapping_error}")
+        if failures:
+            fail("; ".join(failures))
+
+        med = lambda xs: sorted(xs)[len(xs) // 2] if xs else float("nan")
+        hit = [a["ms"] for a in attempts if a["verifications"]]
+        miss = [a["ms"] for a in attempts if not a["verifications"]]
+        _, load_ms = synced_ms(lambda: checkpoint.load_checkpoint(ck, cfg, device=dev))
+        host = {k: round(v["mean_ms"], 3) for k, v in runner.timer.as_dict().items()}
+        print(f"archive mission events, ms on the host's clock with the device "
+              f"synchronized: archive attempt with a verification "
+              f"{', '.join(f'{x:.1f}' for x in hit)} (scans "
+              f"{[a['scan'] for a in attempts if a['verifications']]}); without "
+              f"one median {med(miss):.2f}, max {max(miss, default=float('nan')):.2f} "
+              f"over {len(miss)}; checkpoint save {', '.join(f'{s_['ms']:.1f}' for s_ in saves)} "
+              f"(scans {[s_['scan'] for s_ in saves]}), load {load_ms:.1f} "
+              f"({os.path.getsize(ck)} B + sidecar "
+              f"{os.path.getsize(ck + '.archive.npz')} B); detector cycle median "
+              f"{med([c['ms'] for c in cycles]):.2f}; stages, host ms per entry: "
+              f"{json.dumps(host)}", flush=True)
+        gid_i, gid_j = events[0]
+        err = archive_kernel_check(runner, cfg, gid_i, gid_j, dev)
+        reloc_launches = products_phase(runner, cfg, seq, fixture, reg_iters, tmp)
+        restore[0]()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ({"archive_mapping": sum(map_iters), "archive_detector": ver_iters,
+             "archive_verification": arch_iters,
+             "relocalization": reloc_launches}, err)
+
+
+def resume_phase(dev):
+    """The 40-scan mission (loop closure and GPS off) with a checkpoint at
+    scan RESUME_AT, then `Runner.resume` of it on the card over the
+    remaining scans: their poses must equal the uninterrupted run's to
+    1e-6 (the same bits are expected).  Returns the resumed run's kernel
+    launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+    from lio_slam_tpu_torch.pipeline.runner import Runner
+
+    cfg = sm.bench_config()
+    seq = synthetic.make_sequence(n_scans=sm.SMOKE_SCANS, n_points=sm.SMOKE_POINTS,
+                                  seed=sm.SMOKE_SEED, speed=sm.SMOKE_SPEED)
+    scans, imus = sm.synthetic_inputs(seq, cfg)
+    at = sm.RESUME_AT
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        path = os.path.join(tmp, "resume.npz")
+        whole = Runner(cfg, device=dev)
+        ref = []
+        for i in range(len(scans)):
+            if i == at:
+                _, save_ms = synced_ms(lambda: whole.save_checkpoint(path))
+            ref.append(whole.process_scan(scans[i], imu=imus[i]))
+        fc.KERNEL_LAUNCHES = 0
+        resumed, load_ms = synced_ms(lambda: Runner.resume(path, cfg, device=dev))
+        out = [resumed.process_scan(scans[i], imu=imus[i])
+               for i in range(at, len(scans))]
+        launches = fc.KERNEL_LAUNCHES
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a = np.stack([r.pose for r in ref[at:]])
+    b = np.stack([r.pose for r in out])
+    iters = sum(r.registration_iters for r in out)
+    d = np.abs(a - b)
+    print(f"resume: checkpoint at scan {at} of the {len(scans)}-scan mission "
+          f"(K={cfg.static.max_keyframes}, {size} B), save {save_ms:.1f} ms, "
+          f"Runner.resume {load_ms:.1f} ms (host clock, device synchronized); "
+          f"scans {at}-{len(scans) - 1} resumed: max deviation from the "
+          f"uninterrupted run {d[:, 3:].max():.3e} m, {d[:, :3].max():.3e} rad, "
+          f"bit-equal {bool((a == b).all())}; keyframe flags equal "
+          f"{[r.is_keyframe for r in out] == [r.is_keyframe for r in ref[at:]]}; "
+          f"{launches} kernel launches for {iters} GN iterations", flush=True)
+    if not d.max() <= 1e-6:
+        fail(f"the resumed run is {d.max()} from the uninterrupted one")
+    if launches != iters or launches == 0:
+        fail(f"resume: {launches} kernel launches for {iters} GN iterations")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-dir", default=None,
@@ -1000,14 +1418,17 @@ def main():
     k = kernel_phase(dev)
     launches = mission_phase(dev, args.profile_dir)
     loop_map, loop_ver, loop_err = loop_mission_phase(args.profile_dir)
+    arch, arch_err = archive_mission_phase(args.profile_dir)
+    resumed = resume_phase(dev)
+    paths = {"mission": launches, "loop_mapping": loop_map,
+             "loop_verification": loop_ver, **arch, "resume": resumed}
     print(json.dumps({"kernels": [{
         "name": "fused_corr", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/fused_corr.cu",
         "replaces": "lio_slam_tpu/ops/fused_corr.py:124",
-        "launches": launches + loop_map + loop_ver,
-        "launches_mission": launches, "launches_loop_mapping": loop_map,
-        "launches_loop_verification": loop_ver,
-        "max_abs_err": max(k["max_abs_err"], loop_err),
+        "launches": sum(paths.values()),
+        **{f"launches_{p}": v for p, v in paths.items()},
+        "max_abs_err": max(k["max_abs_err"], loop_err, arch_err),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None, "cold_ms": k["cold_ms"],
         "entry_ms": k["entry_ms"], "entry_plain_ms": k["entry_plain_ms"]}]}),

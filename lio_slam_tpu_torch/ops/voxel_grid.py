@@ -1,10 +1,14 @@
 """Spatial hash-grid neighbour search (port of `lio_slam_tpu/ops/voxel_grid.py`).
 
 Points live in a bucket-major (T buckets x C slots x 3) table; empty slots
-hold SENTINEL coordinates so a query needs no occupancy read.  Only the
-halo "z" layout (the default, config.py `grid_halo`) is ported: each point
-is inserted under its own cell and its z±1 cells, and a query scans the 9
-xy-neighbour cells.  The other layouts raise NotImplementedError.
+hold SENTINEL coordinates so a query needs no occupancy read.  Two halo
+layouts are ported: "z" (the registration map's, config.py `grid_halo`:
+each point inserted under its own cell and its z±1 cells, a query scans the
+9 xy-neighbour cells) and "none" (the map products' outlier removal: each
+point inserted once, a query scans the 27 surrounding cells, in the row
+order of the JAX package's `jnp.meshgrid(..., indexing="ij")`, which
+decides the neighbour a tie goes to).  "xy" and "full" raise
+NotImplementedError.
 
 Bucket ids must equal the JAX package's bit for bit: the int32 hash wraps
 on overflow in both (torch's int32 multiply wraps like jnp's), `abs` of
@@ -24,6 +28,11 @@ _VALID_MAX = 1e10        # d2 above this means "sentinel / no neighbour"
 _HASH = (73856093, 19349663, 83492791)
 _OFFSETS_Z3 = ((0, 0, 0), (0, 0, -1), (0, 0, 1))
 _OFFSETS_XY9 = tuple((i, j, 0) for i in (-1, 0, 1) for j in (-1, 0, 1))
+_OFFSETS_27 = tuple((i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                    for k in (-1, 0, 1))
+# insert multiplicity / cells a query scans, per layout
+_INSERT_OFFSETS = {"none": ((0, 0, 0),), "z": _OFFSETS_Z3}
+_QUERY_OFFSETS = {"none": _OFFSETS_27, "z": _OFFSETS_XY9}
 
 
 class HashGrid(NamedTuple):
@@ -41,17 +50,20 @@ class NeighborResult(NamedTuple):
 
 
 def _check_halo(halo: str):
-    if halo != "z":
+    if halo not in _QUERY_OFFSETS:
         raise NotImplementedError(
-            f"grid_halo={halo!r}: the port implements only the 'z' layout")
+            f"grid_halo={halo!r}: the port implements the 'z' and 'none' "
+            "layouts")
 
 
-def insert_offsets(device) -> torch.Tensor:
-    return torch.tensor(_OFFSETS_Z3, dtype=torch.int32, device=device)
+def insert_offsets(device, halo: str = "z") -> torch.Tensor:
+    _check_halo(halo)
+    return torch.tensor(_INSERT_OFFSETS[halo], dtype=torch.int32, device=device)
 
 
-def query_offsets(device) -> torch.Tensor:
-    return torch.tensor(_OFFSETS_XY9, dtype=torch.int32, device=device)
+def query_offsets(device, halo: str = "z") -> torch.Tensor:
+    _check_halo(halo)
+    return torch.tensor(_QUERY_OFFSETS[halo], dtype=torch.int32, device=device)
 
 
 def _cell_hash(coords: torch.Tensor, table_size: int) -> torch.Tensor:
@@ -65,9 +77,8 @@ def bucket_ids(points: torch.Tensor, cell_size: torch.Tensor,
                table_size: int, halo: str = "z") -> torch.Tensor:
     """(O, N) int32 ids of the buckets a query scans, offset-major — the
     `hh` of `fused_corr.gather_planar`."""
-    _check_halo(halo)
     coords = torch.floor(points / cell_size).to(torch.int32)        # (N, 3)
-    cells = coords[None, :, :] + query_offsets(points.device)[:, None, :]
+    cells = coords[None, :, :] + query_offsets(points.device, halo)[:, None, :]
     return _cell_hash(cells, table_size)
 
 
@@ -86,10 +97,9 @@ def _insert_core(table: torch.Tensor, counts: torch.Tensor,
                  cell_size: torch.Tensor, halo: str):
     """Emit K halo rows per point, stable-sort all rows by target bucket,
     rank within runs, scatter into ring slots (the JAX `_insert_core`)."""
-    _check_halo(halo)
     T, C, _ = table.shape
     dev = points.device
-    offsets = insert_offsets(dev)
+    offsets = insert_offsets(dev, halo)
     K = offsets.shape[0]
     M = points.shape[0]
     coords = torch.floor(points / cell_size).to(torch.int32)        # (M, 3)
@@ -148,7 +158,8 @@ def insert_points(grid: HashGrid, points: torch.Tensor, mask: torch.Tensor,
 
 def query_knn(grid: HashGrid, queries: torch.Tensor, query_mask: torch.Tensor,
               k: int = 5, halo: str = "z") -> NeighborResult:
-    """Exact k-NN among the candidates of the 9 cells around each query.
+    """Exact k-NN among the candidates of the cells around each query (the
+    9 xy cells for halo "z", the 27 surrounding ones for "none").
 
     Iterative masked argmin over the R = O*C candidate rows; ties go to the
     lowest row, as `jnp.argmin` breaks them."""

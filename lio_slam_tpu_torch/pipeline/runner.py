@@ -9,24 +9,32 @@ the CUDA device unless the caller passes `device="cpu"`:
     keyframe save with loop and GPS factors) -> full-graph correction and
     map rebuild when a factor landed -> IMU front-end correction -> every
     `loop_every` scans the loop detector (radius search and Scan Context,
-    each verified by a registration against a submap grid)
+    each verified by a registration against a submap grid), then the
+    keyframe archive's retrieval over evicted keyframes
+    (`pipeline/archive.py`, verified the same way)
 
-Results come back synchronously (the JAX runner's fetch_every=1).  The
-keyframe archive, the sharded mesh, batched fetches, bag recording, mission
-logs and checkpoints are not ported yet: asking for any of them raises
-NotImplementedError.
+What the host needs of a scan is queued and copied off the device
+asynchronously (`fetch_every`, `drain`); the archive, the mission log and
+the trajectory are fed from that queue.  Checkpoints (`save_checkpoint`,
+`auto_checkpoint`, `Runner.resume`) use the JAX package's format.  Not
+ported: bag recording (`record_bag`) and the sharded mesh (`mesh`); asking
+for either raises NotImplementedError.
 
 CLI:
     python -m lio_slam_tpu_torch.pipeline.runner --synthetic --scans 20 \
-        --points 8192 [--loop-every 10] [--device cpu]
+        --points 8192 [--loop-every 10] [--device cpu] [--mission-log F] \
+        [--auto-checkpoint F --checkpoint-every N] [--resume-from F] \
+        [--save-map DIR] [--report-timing]
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
+import os
+import sys
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -36,10 +44,13 @@ import torch
 from lio_slam_tpu_torch.config import Config, get_config
 from lio_slam_tpu_torch.io import formats
 from lio_slam_tpu_torch.ops import deskew as deskew_mod
+from lio_slam_tpu_torch.pipeline import archive as arch_mod
+from lio_slam_tpu_torch.pipeline import checkpoint
 from lio_slam_tpu_torch.pipeline import gps_fusion as gf
 from lio_slam_tpu_torch.pipeline import imu_frontend as fe
 from lio_slam_tpu_torch.pipeline import lio
 from lio_slam_tpu_torch.pipeline import loop_closure
+from lio_slam_tpu_torch.pipeline import outputs
 from lio_slam_tpu_torch.utils import pointcloud as pc
 from lio_slam_tpu_torch.utils import profiling
 from lio_slam_tpu_torch.utils import se3
@@ -63,36 +74,46 @@ class Runner:
                  loop_every: int = 10,
                  record_bag: Optional[str] = None,
                  mission_log: Optional[str] = None, fetch_every: int = 1,
-                 auto_checkpoint: Optional[str] = None, mesh=None):
+                 auto_checkpoint: Optional[str] = None,
+                 checkpoint_every: int = 50, mesh=None):
         """`device`: where every tensor of the mission lives; the card by
         default, and never the CPU unless asked (`device="cpu"`).
         `loop_every`: the loop detector runs every that many processed
-        scans (the reference's 0.2-1 Hz thread).  The other arguments
-        mirror the JAX Runner's; the features behind them are not ported
-        yet, so anything but their defaults raises."""
+        scans (the reference's 0.2-1 Hz thread).
+
+        `mission_log`: JSONL path, one record per mapping step (pose,
+        diagnostics, FSM mode, counts, stage times) and one per accepted
+        loop (the rosbag-record equivalent of the reference's topics).
+
+        `fetch_every`: results are read back once every that many scans
+        (1 = every scan).  The device-to-host copies start as each scan is
+        queued; with N > 1 `process_scan` returns the most recently drained
+        result (None until the first batch) and `drain()` flushes the tail.
+
+        `auto_checkpoint`: path of a crash-recovery checkpoint written every
+        `checkpoint_every` processed scans and at `close()` (respawn
+        parity, module_loam.launch:5-8); `Runner.resume(path, cfg)` restarts
+        from it.
+
+        `record_bag` and `mesh` mirror the JAX Runner's; they are not
+        ported, and anything but None raises."""
+        unported = [name for name, v in (("record_bag", record_bag),
+                                          ("mesh", mesh)) if v is not None]
+        if unported:
+            raise NotImplementedError("not ported yet: " + ", ".join(unported))
         self.cfg = cfg or get_config("default")
-        unported = {
-            "cfg.loop.enabled and cfg.loop.archive_enabled (archive)":
-                self.cfg.loop.enabled and self.cfg.loop.archive_enabled,
-            "record_bag": record_bag is not None,
-            "mission_log": mission_log is not None,
-            "fetch_every > 1": int(fetch_every) > 1,
-            "auto_checkpoint": auto_checkpoint is not None,
-            "mesh": mesh is not None,
-        }
-        missing = [k for k, v in unported.items() if v]
-        if missing:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(missing)
-                + " (turn the keyframe archive off with dataclasses.replace("
-                "cfg, loop=dataclasses.replace(cfg.loop, "
-                "archive_enabled=False)))")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"Runner(device={str(device)!r}) needs a CUDA device and torch "
                 'finds none; pass device="cpu" to run on the CPU')
         self.loop_every = int(loop_every)
+        self.fetch_every = max(int(fetch_every), 1)
+        self._auto_checkpoint = auto_checkpoint
+        self._checkpoint_every = max(int(checkpoint_every), 1)
+        # deferred-fetch queue: (epoch stamp, mission t, mode, host copies of
+        # the scan's results, the event their copies complete at)
+        self._pending: list[tuple] = []
         self.step = lio.make_lio_step(self.cfg, device=self.device)
         self._prep = self._make_prep()
         self.full_correct = lio.make_full_correction(self.cfg,
@@ -100,6 +121,7 @@ class Runner:
         self.detector = loop_closure.make_loop_detector(self.cfg)
         self.correct, self.predict_rate, self.transform_fusion = \
             fe.make_frontend(self.cfg.imu)
+        self.local_map_fn, self.height_map_fn = outputs.make_local_map_fn(self.cfg)
         self.state = lio.init_state(self.cfg, device=self.device)
         self.imu_state = fe.init_state(device=self.device)
         self.gps_intake = gf.GpsIntake(self.cfg.gps)
@@ -108,6 +130,8 @@ class Runner:
         self.trajectory: list[np.ndarray] = []
         self.mapping_error = False
         self.keyframe_evictions = 0
+        self._mission_log = open(mission_log, "w") if mission_log else None
+        self._log_counts = (0, 0, 0)
         self._last_pose_dev: Optional[torch.Tensor] = None
         self._imu_ready = False
         self._last_correct_t: Optional[float] = None
@@ -126,11 +150,37 @@ class Runner:
         # last raw vehicle GPS record (lat, lon, alt, heading?, stamp): the
         # "gpsdata" side of the sensor_fusion_output arbitration (:707-724)
         self._last_raw_fix: Optional[tuple] = None
+        # a ScanResult drained by an out-of-band caller (health(),
+        # fusion_output(), a checkpoint) between batch boundaries, handed
+        # back by the next process_scan so that no result is lost
+        self._buffered_result: Optional[ScanResult] = None
+        # the host-spill keyframe archive (pipeline/archive.py): every
+        # keyframe spills to host memory as it is created, and retrieval
+        # covers the evicted history, so cross-lap loops survive device-store
+        # eviction (the reference's unbounded iSAM2 + Scan Context,
+        # mapOptmization.cpp:2097-2134, Scancontext.cpp:253-296)
+        self.archive_enabled = bool(self.cfg.loop.enabled
+                                    and self.cfg.loop.archive_enabled)
+        self._archive = None
+        self._kf_snapshot = None
+        self._archive_verify = None      # built on the first match
+        self.archive_loops = 0           # accepted archive loop constraints
+        self.archive_gaps = 0            # gid discontinuities seen/repaired
+        self._last_archive_attempt_t = -1e18
+        if self.archive_enabled:
+            self._archive = arch_mod.KeyframeArchive(
+                self.cfg.static.sc_num_ring, self.cfg.static.sc_num_sector)
+            self._kf_snapshot = arch_mod.make_kf_snapshot()
         self._last_processed_stamp = -1e18
+        # mission-time origin: epoch stamps (~1.7e9 s) have a float32 ulp of
+        # 128 s, so every time is rebased to seconds since the first message
+        # in float64 on the host, and only the small values reach the device
         self._t0: Optional[float] = None
         self._ext_R = np.asarray(self.cfg.imu.ext_rot, np.float32).reshape(3, 3)
         self._ext_RPY = np.asarray(self.cfg.imu.ext_rpy, np.float32).reshape(3, 3)
         self.timer = profiling.StageTimer()
+        self.scan_rate = profiling.RateMonitor(
+            expected_hz=1.0 / max(self.cfg.mapping_process_interval, 0.1))
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
@@ -310,6 +360,7 @@ class Runner:
         if (t - self._last_processed_stamp) < cfg.mapping_process_interval:
             return None
         self._last_processed_stamp = t
+        self.scan_rate.tick(t)
         acc, gyr, dts, rel_t, imask, have_imu = \
             self._prep_imu_window(imu, scan_stamp=float(scan.stamp))
         # deskew sees the whole window; the correction integrates up to the
@@ -392,29 +443,417 @@ class Runner:
             self._last_correct_t = t
         # loop-closure cadence (the reference's 0.2-1 Hz thread)
         self.scan_count += 1
+        loop_aux = None
+        archive_attempt_due = False
         if cfg.loop.enabled and self.scan_count % self.loop_every == 0:
             with self.timer.stage("loop_closure"):
-                self.state, aux = self.detector(self.state)
+                self.state, loop_aux = self.detector(self.state)
                 self.last_loop_aux = {
                     k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-                    for k, v in aux.items()}
+                    for k, v in loop_aux.items()}
             self._full_correct_armed = True
+            # the archive tier: retrieval over EVICTED keyframes (the device
+            # detector sees only the live store).  It runs after this scan's
+            # snapshot is queued (below), so that the archive is current
+            # through this scan
+            archive_attempt_due = self._archive is not None
 
-        host = lambda x: None if x is None else x.cpu().numpy()
-        result = ScanResult(
-            pose=host(pose_dev), incremental=host(out.incremental),
-            degenerate=bool(out.degenerate), is_keyframe=out.is_keyframe,
-            num_inliers=int(out.num_inliers), positioning_mode=mode,
-            imu_rate_poses=host(rate_poses), fused_rate_poses=host(fused_rate),
-            registration_iters=out.registration_iters)
-        self.trajectory.append(result.pose)
+        # queue what the host needs of this step; the copies start now and
+        # are read once every `fetch_every` scans (drain).  The published
+        # pose is the post-correction one (publishOdometry consumes
+        # transformTobeMapped after correctPoses)
+        fetch = {"pose": pose_dev, "incremental": out.incremental,
+                 "degenerate": out.degenerate, "num_inliers": out.num_inliers,
+                 "evictions": out.evictions}
         if have_imu:
-            self.mapping_error = bool(self.imu_state.failure)
-        self.keyframe_evictions = int(out.evictions)
+            fetch["imu_failure"] = self.imu_state.failure
+        if rate_poses is not None:
+            fetch["rate_poses"] = rate_poses
+        if fused_rate is not None:
+            fetch["fused_rate"] = fused_rate
+        if self._mission_log is not None:
+            fetch.update(kf_count=self.state.store.count,
+                         loop_count=self.state.loop_count,
+                         gps_count=self.state.gps_count)
+        if loop_aux is not None:
+            # loop provenance (the rviz loop markers,
+            # mapOptmization.cpp:1385-1436): mission-log events at drain
+            fetch.update({k: loop_aux[k] for k in (
+                "loop_accepted", "loop_pair_i", "loop_pair_j", "loop_fitness")})
+        if self._kf_snapshot is not None:
+            fetch.update(self._kf_snapshot(self.state))
+        known = {"is_keyframe": out.is_keyframe,
+                 "registration_iters": out.registration_iters}
+        self._pending.append((float(scan.stamp), t, mode, known,
+                              *self._start_fetch(fetch)))
+        if archive_attempt_due:
+            with self.timer.stage("archive_loop"):
+                self._attempt_archive_loop(t)
+        result = None
+        if len(self._pending) >= self.fetch_every:
+            # keep the newest entry queued (double buffering): its copies
+            # were started a moment ago, the older ones have landed
+            result = self.drain(keep_last=1 if self.fetch_every > 1 else 0)
+        if result is None and self._buffered_result is not None:
+            # an out-of-band drain consumed the batch early: hand its result
+            # back now
+            result, self._buffered_result = self._buffered_result, None
+        if (self._auto_checkpoint is not None
+                and self.scan_count % self._checkpoint_every == 0):
+            self.save_checkpoint(self._auto_checkpoint)
         return result
+
+    def _start_fetch(self, fetch: dict):
+        """(host tensors, event): copies of `fetch` on the host.  On CUDA
+        they are asynchronous copies into pinned memory, complete once the
+        event has; on the CPU they are clones (no later write to a state
+        tensor may reach a queued result)."""
+        if self.device.type != "cuda":
+            return {k: v.clone() for k, v in fetch.items()}, None
+        host = {}
+        for k, v in fetch.items():
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def drain(self, keep_last: int = 0) -> Optional[ScanResult]:
+        """Flush the deferred-fetch queue: wait for the pending copies, then
+        emit their ScanResults (trajectory, archive, mission log).  Returns
+        the newest drained result, or None if nothing was pending.
+        `keep_last > 0` leaves the newest entries queued."""
+        if len(self._pending) <= keep_last:
+            return None
+        cut = len(self._pending) - keep_last
+        pending, self._pending = self._pending[:cut], self._pending[cut:]
+        with self.timer.stage("host_fetch"):
+            all_vals = []
+            for (*_, host, done) in pending:
+                if done is not None:
+                    done.synchronize()
+                # copies: a result kept by the caller must not hold on to
+                # a pinned block
+                all_vals.append({k: v.numpy().copy() for k, v in host.items()})
+        result = None
+        for (stamp, t, mode, known, _, _), vals in zip(pending, all_vals):
+            vals.update(known)
+            pose = vals["pose"]
+            self.trajectory.append(pose)
+            if self._archive is not None and "arch_kf_count" in vals:
+                self._feed_archive(vals)
+            if "imu_failure" in vals:
+                self.mapping_error = bool(vals["imu_failure"])
+            self.keyframe_evictions = int(vals["evictions"])
+            result = ScanResult(
+                pose=pose, incremental=vals["incremental"],
+                degenerate=bool(vals["degenerate"]),
+                is_keyframe=bool(vals["is_keyframe"]),
+                num_inliers=int(vals["num_inliers"]), positioning_mode=mode,
+                imu_rate_poses=vals.get("rate_poses"),
+                fused_rate_poses=vals.get("fused_rate"),
+                registration_iters=vals["registration_iters"])
+            if self._mission_log is not None:
+                self._log_counts = (int(vals["kf_count"]),
+                                    int(vals["loop_count"]),
+                                    int(vals["gps_count"]))
+                self._log_step(stamp, t, result)
+                if "loop_accepted" in vals:
+                    ev = self.keyframe_evictions
+                    for k, src in enumerate(("rs", "sc")):
+                        if bool(vals["loop_accepted"][k]):
+                            self._log_loop_event(
+                                t, int(vals["loop_pair_i"][k]) + ev,
+                                int(vals["loop_pair_j"][k]) + ev,
+                                float(vals["loop_fitness"][k]), src)
+        return result
+
+    def _drain_buffered(self):
+        """Drain for an out-of-band reader, buffering the ScanResult so that
+        the next process_scan still returns it."""
+        r = self.drain()
+        if r is not None:
+            self._buffered_result = r
+
+    def _log_loop_event(self, t: float, i: int, j: int, fitness: float,
+                        source: str):
+        """One JSONL event per accepted loop constraint: (i, j, fitness,
+        source in {rs, sc, archive, injected}), the recorded form of the
+        reference's rviz loop markers (mapOptmization.cpp:1385-1436).  i, j
+        are GLOBAL keyframe ids (device slot + evictions at event time), so
+        chords stay meaningful across evictions."""
+        if self._mission_log is None:
+            return
+        self._mission_log.write(json.dumps({
+            "event": "loop", "t": round(float(t), 6), "i": int(i),
+            "j": int(j), "fitness": round(float(fitness), 5),
+            "source": source}) + "\n")
+
+    def _log_step(self, stamp: float, t: float, r: ScanResult):
+        """One JSONL record per mapping step: pose, health, counts, FSM
+        mode, stage times."""
+        rec = {
+            "stamp": float(stamp), "t": round(float(t), 6),
+            "pose": [round(float(v), 6) for v in r.pose],
+            "degenerate": r.degenerate, "keyframe": r.is_keyframe,
+            "inliers": r.num_inliers, "mode": r.positioning_mode,
+            "keyframes": self._log_counts[0],
+            "loops": self._log_counts[1],
+            "gps_factors": self._log_counts[2],
+            "evictions": self.keyframe_evictions,
+            "mapping_error": self.mapping_error,
+            "scan_rate_hz": round(self.scan_rate.hz, 2),
+        }
+        last = self.timer.last()
+        if last:
+            rec["stage_ms"] = {k: round(v * 1e3, 3) for k, v in last.items()}
+        self._mission_log.write(json.dumps(rec) + "\n")
+
+    # -- the keyframe archive ---------------------------------------------
+
+    def _feed_archive(self, vals: dict):
+        """Spill this scan's keyframe (if one was made) into the archive and
+        refresh the live-pose mirror.  Each scan's fetch is a consistent
+        snapshot of the post-step state, so the keyframe flag, the payload
+        and the counters agree."""
+        kf_count = int(vals["arch_kf_count"])
+        evict = int(vals["arch_evict_count"])
+        gid = kf_count + evict - 1          # global id of the newest keyframe
+        a = self._archive
+        if bool(vals["is_keyframe"]):
+            if gid == a.base_gid + len(a):
+                mask = vals["arch_cloud_mask"]
+                a.add(gid, vals["arch_pose"], float(vals["arch_stamp"]),
+                      vals["arch_cloud"][mask], vals["arch_desc"])
+            elif gid > a.base_gid + len(a):
+                # the archive lost step with the device counters (a stale
+                # sidecar that load_checkpoint could not reconcile): count
+                # it and warn once rather than freeze the tier in silence
+                self.archive_gaps += 1
+                if self.archive_gaps == 1:
+                    warnings.warn(
+                        f"keyframe archive gap: expected gid "
+                        f"{a.base_gid + len(a)}, device reports {gid}; "
+                        "archive additions suspended (stale sidecar?)")
+        a.refresh_live_poses(evict, vals["arch_all_poses"], kf_count)
+
+    def _reconcile_archive(self):
+        """Reconcile a loaded archive sidecar with the restored state: a
+        sidecar that lags the checkpoint (a crash between the two saves)
+        would fail `_feed_archive`'s continuity check forever.  Keyframes it
+        lacks are topped up from the live store; history already evicted
+        from the device is gone, so a deeper gap rebuilds from the store
+        with base_gid marking the loss."""
+        a = self._archive
+        evict = int(self.state.evict_count)
+        count = int(self.state.store.count)
+        next_expected = evict + count       # gid the next keyframe will get
+        have_through = a.base_gid + len(a)
+        if have_through >= next_expected:
+            return                           # sidecar current (or ahead)
+        if have_through < evict:
+            self._archive = arch_mod.KeyframeArchive.from_state(self.state)
+            self.archive_gaps += 1
+            return
+        host = lambda x: x.cpu().numpy()
+        st = self.state
+        descs, poses = host(st.sc_db.descriptors), host(st.store.poses)
+        stamps, clouds = host(st.store.stamps), host(st.store.clouds)
+        masks = host(st.store.cloud_masks)
+        for gid in range(have_through, next_expected):
+            i = gid - evict                  # device store slot
+            a.add(gid, poses[i], float(stamps[i]), clouds[i][masks[i]],
+                  descs[i])
+        a.evict_count = max(a.evict_count, evict)
+
+    def _attempt_archive_loop(self, t: float):
+        """Full-history loop retrieval and re-promotion (the archive half of
+        performSCLoopClosure): match the newest keyframe against the evicted
+        descriptors on the host; on a hit, promote the +-search_num archived
+        submap to the device, verify it by registration and queue a factor
+        anchored to the rebased prior frame (keyframe 0)."""
+        l = self.cfg.loop
+        if t - self._last_archive_attempt_t < l.archive_cooldown_s:
+            return
+        self._drain_buffered()       # the archive current through this scan
+        hit = self._archive.match(now=t, time_diff=l.time_diff,
+                                  dist_thresh=l.sc_dist_thresh,
+                                  num_candidates=self.cfg.static.sc_candidates)
+        if hit is None:
+            return
+        gid, yaw, _dist = hit
+        self._last_archive_attempt_t = t
+        cap = self.cfg.static.max_map_points
+        a = self._archive
+        pts = a.submap(gid, l.search_num, max_points=cap)
+        if pts.shape[0] < 500:
+            return
+        xyz = np.zeros((cap, 3), np.float32)
+        xyz[:pts.shape[0]] = pts
+        cand_pose = a.poses[gid - a.base_gid]
+        init = arch_mod.compose_yaw_np(cand_pose, yaw)
+        # wander gate: the spread of the keyframe POSES promoted into the
+        # submap (+ two keyframe spacings and 1 m of slack), capped by the
+        # search radius: a verified match must land inside the geometry it
+        # was verified against
+        lo = max(gid - l.search_num - a.base_gid, 0)
+        hi = min(gid + l.search_num + 1 - a.base_gid, len(a))
+        kf_pos = np.stack([a.poses[k][3:] for k in range(lo, hi)])
+        spread = np.linalg.norm(kf_pos - cand_pose[3:][None, :], axis=1).max()
+        max_wander = float(np.float32(min(
+            spread + 2.0 * self.cfg.keyframe.dist_threshold + 1.0,
+            l.search_radius)))
+        if self._archive_verify is None:
+            self._archive_verify = arch_mod.make_archive_verifier(self.cfg)
+        self.state, added, fit = self._archive_verify(
+            self.state, self._dev(xyz), self._dev(np.arange(cap) < pts.shape[0]),
+            self._dev(init), max_wander)
+        if bool(added):              # one host read at archive-hit rate
+            self.archive_loops += 1
+            self._full_correct_armed = True
+            cur_gid = a.base_gid + len(a) - 1
+            self._log_loop_event(t, cur_gid, gid, float(fit), "archive")
+
+    # -- shutdown, products, checkpoints, health --------------------------
+
+    def close(self):
+        """Shutdown: drain, write the auto-checkpoint, save the global map
+        when cfg.output.save_pcd is set (visualizeGlobalMapThread :981-989
+        saves at exit under savePCD), close the mission log.  Returns the
+        SaveMapResult or None."""
+        self.drain()
+        if self._auto_checkpoint is not None and self.scan_count:
+            # a clean shutdown leaves the freshest state for resume
+            self.save_checkpoint(self._auto_checkpoint)
+        result = None
+        if self.cfg.output.save_pcd and int(self.state.store.count) > 0:
+            result = self.save_map(self.cfg.output.save_directory,
+                                   resolution=self.cfg.output.global_map_leaf_size)
+        if self._mission_log is not None:
+            self._mission_log.close()
+            self._mission_log = None
+        return result
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def _current_pose(self) -> torch.Tensor:
+        if self._last_pose_dev is not None:
+            return self._last_pose_dev
+        return torch.zeros(6, dtype=torch.float32, device=self.device)
+
+    def local_planning_map(self) -> pc.Cloud:
+        """The map_4planning cloud around the last pose."""
+        return self.local_map_fn(self.state.store, self._current_pose())
+
+    def height_map(self):
+        """The planning map rasterized about the last pose."""
+        return self.height_map_fn(self.local_planning_map(), self._current_pose())
+
+    def save_map(self, destination: str, resolution: float = 0.0):
+        return outputs.save_map(self.state.store, destination, resolution)
+
+    def save_checkpoint(self, path: str):
+        """The SLAM state, the IMU front-end state and the host state resume
+        needs (scan count, time origin, last stamps), plus the archive as
+        `path + ".archive.npz"`."""
+        # buffered drain: at an auto-checkpoint inside process_scan a raw
+        # drain() would consume the batch's newest result
+        self._drain_buffered()
+        nan = float("nan")
+        checkpoint.save_checkpoint(
+            path, self.state, self.imu_state,
+            metadata={"scan_count": self.scan_count,
+                      "t0": self._t0 if self._t0 is not None else nan,
+                      "last_stamp": self._last_processed_stamp,
+                      # the staleness gate must survive resume: a resume
+                      # spans real downtime, and correcting across it is the
+                      # velocity runaway the gate prevents
+                      "last_correct_t": (self._last_correct_t
+                                         if self._last_correct_t is not None
+                                         else nan)})
+        if self._archive is not None:
+            self._archive.save(path + ".archive.npz")
+
+    @classmethod
+    def resume(cls, path: str, cfg: Optional[Config] = None, **kwargs):
+        """Resume on crash (respawn parity, module_loam.launch:5-8): a Runner
+        for `cfg` (keyword arguments as the constructor's) with the
+        checkpoint at `path` restored."""
+        runner = cls(cfg, **kwargs)
+        runner.load_checkpoint(path)
+        return runner
+
+    def load_checkpoint(self, path: str) -> dict:
+        """Restore a checkpoint (either package's) onto this Runner's
+        device; returns its metadata.  Not in a checkpoint: the GPS intake
+        and positioning-mode FSM, the loop detector's last cycle and the
+        trajectory before it (rebuilt from the keyframe poses), as in the
+        JAX package."""
+        # queued fetches belong to the discarded state
+        self._pending.clear()
+        self.state, imu_state, meta = checkpoint.load_checkpoint(
+            path, self.cfg, device=self.device)
+        if imu_state is not None:
+            self.imu_state = imu_state
+            self._imu_ready = bool(imu_state.initialized)
+        self.scan_count = int(meta.get("scan_count", 0))
+        self.keyframe_evictions = int(self.state.evict_count)
+        # the restored state may carry queued loops or a raised
+        # needs_full_solve
+        self._full_correct_armed = True
+        t0 = float(meta.get("t0", float("nan")))
+        self._t0 = None if np.isnan(t0) else t0
+        self._last_processed_stamp = float(meta.get("last_stamp", -1e18))
+        # re-arm the staleness gate; a checkpoint without the field treats
+        # the first correction after resume as stale
+        lct = float(meta.get("last_correct_t", float("nan")))
+        if np.isnan(lct):
+            self._last_correct_t = -1e18 if self._imu_ready else None
+        else:
+            self._last_correct_t = lct
+        if self._archive is not None:
+            apath = path + ".archive.npz"
+            if os.path.exists(apath):
+                self._archive = arch_mod.KeyframeArchive.load(apath)
+                self._reconcile_archive()
+            else:
+                # no sidecar: rebuild from the live store (the evicted
+                # history is lost; base_gid marks it)
+                self._archive = arch_mod.KeyframeArchive.from_state(self.state)
+        n = int(self.state.store.count)
+        if n > 0:
+            poses = self.state.store.poses[:n].cpu().numpy()
+            self.trajectory = [poses[i] for i in range(n)]
+            self._last_pose_dev = self.state.store.poses[n - 1].clone()
+        return meta
+
+    def health(self) -> dict:
+        """A `rostopic hz`-style health snapshot (README.md:308-322).  It
+        drains the queue first so the flags reflect the latest scan; the
+        drained result is handed back by the next process_scan."""
+        self._drain_buffered()
+        h = {"scan_rate_hz": round(self.scan_rate.hz, 2),
+             "scan_rate_healthy": self.scan_rate.healthy,
+             "mapping_error": self.mapping_error,
+             "keyframe_evictions": self.keyframe_evictions,
+             # once evictions have removed Scan Context candidates, cross-lap
+             # loops stop unless the archive serves them
+             "loop_memory_exhausted": (self.keyframe_evictions > 0
+                                       and not self.archive_enabled)}
+        if self._archive is not None:
+            h["archived_keyframes"] = len(self._archive)
+            h["archive_loops"] = self.archive_loops
+            h["archive_gaps"] = self.archive_gaps
+        return h
 
     def fusion_output(self, stamp: float) -> gf.FusionOutput:
         """The SLAM pose as a geodetic record (fusionGps :2374-2430)."""
+        self._drain_buffered()   # no-op mid-drain (_pending already popped)
         pose = self.trajectory[-1] if self.trajectory else np.zeros(6)
         return gf.fusion_gps_output(pose.astype(np.float64), stamp,
                                     self.gps_intake.transform, self.fsm.mode)
@@ -452,45 +891,65 @@ class Runner:
             self._dev(np.asarray(meas, np.float32)),
             self._dev(np.asarray(info, np.float32)))
         self._full_correct_armed = True
-        return bool(accepted)
+        ok = bool(accepted)
+        if ok:
+            ev = self.keyframe_evictions
+            self._log_loop_event(
+                self._last_processed_stamp, int(i) + ev, int(j) + ev,
+                float(np.min(1.0 / np.sqrt(np.maximum(np.asarray(info), 1e-12)))),
+                "injected")
+        return ok
 
 
 def _run_synthetic(args):
     from lio_slam_tpu_torch.io import synthetic
     from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
 
-    base = get_config(args.preset)
-    cfg = dataclasses.replace(base, loop=dataclasses.replace(
-        base.loop, archive_enabled=False))
-    runner = Runner(cfg, device=args.device, loop_every=args.loop_every)
+    cfg = get_config(args.preset)
+    runner = Runner(cfg, device=args.device, loop_every=args.loop_every,
+                    mission_log=args.mission_log,
+                    auto_checkpoint=args.auto_checkpoint,
+                    checkpoint_every=args.checkpoint_every)
+    if args.resume_from:
+        runner.load_checkpoint(args.resume_from)
     seq = synthetic.make_sequence(n_scans=args.scans, n_points=args.points,
                                   seed=args.seed)
     scans, imus = sm.synthetic_inputs(seq, cfg)
     t0 = time.perf_counter()
-    for i in range(args.scans):
-        runner.process_scan(scans[i], imu=imus[i])
+    done = {}             # scan index -> pose; a resumed run skips the scans
+    for i in range(args.scans):        # its checkpoint had already processed
+        r = runner.process_scan(scans[i], imu=imus[i])
+        if r is not None:
+            done[i] = r.pose
     if runner.device.type == "cuda":
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    ate = synthetic.ate_rmse(np.stack(runner.trajectory),
-                             sm.relative_truth(seq))
-    print(json.dumps({
+    ate = (synthetic.ate_rmse(np.stack(list(done.values())),
+                              sm.relative_truth(seq)[list(done)])
+           if done else float("nan"))
+    summary = {
         "device": str(runner.device), "scans": args.scans,
+        "processed": len(done),
         "elapsed_s": round(elapsed, 3),
         "scans_per_sec": round(args.scans / elapsed, 3),
-        "ate_rmse_m": round(float(ate), 5),
+        "ate_rmse_m": round(float(ate), 5) if done else None,
         "keyframes": int(runner.state.store.count),
         "loops": int(runner.state.loop_count),
         "full_corrections": len(runner.full_correction_scans),
-        "mapping_error": runner.mapping_error}))
+        "mapping_error": runner.mapping_error}
+    if args.save_map:
+        summary["saved"] = runner.save_map(args.save_map, resolution=0.4).files
+    runner.close()
+    print(json.dumps(summary))
+    if args.report_timing:
+        print(runner.timer.report(), file=sys.stderr)
+        print(f"health: {runner.health()}", file=sys.stderr)
 
 
 def main():
     ap = argparse.ArgumentParser(
-        description="lio_slam_tpu_torch mission runner (PyTorch port). "
-                    "The keyframe archive is not ported yet: the preset's "
-                    "loop.archive_enabled is turned off with "
-                    "dataclasses.replace.")
+        description="lio_slam_tpu_torch mission runner (PyTorch port); the "
+                    "preset runs as it is, keyframe archive included")
     ap.add_argument("--synthetic", action="store_true",
                     help="run the synthetic mission (the only input so far)")
     ap.add_argument("--scans", type=int, default=40)
@@ -501,6 +960,19 @@ def main():
                     help="run the loop detector every N processed scans")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("--save-map", default=None,
+                    help="write the map PCDs to this directory at the end")
+    ap.add_argument("--report-timing", action="store_true",
+                    help="print the per-stage timing report at the end")
+    ap.add_argument("--mission-log", default=None,
+                    help="write a per-step structured JSONL mission log")
+    ap.add_argument("--auto-checkpoint", default=None,
+                    help="periodic crash-recovery checkpoint path "
+                         "(resume with --resume-from)")
+    ap.add_argument("--checkpoint-every", type=int, default=50,
+                    help="scans between auto checkpoints")
+    ap.add_argument("--resume-from", default=None,
+                    help="restore a checkpoint before the mission starts")
     args = ap.parse_args()
     if not args.synthetic:
         ap.error("pass --synthetic; bag replay is not ported yet")

@@ -40,6 +40,14 @@ LOOP_EVERY = 10
 LOOP_GPS_SEED = 7
 LOOP_GPS_NOISE = 0.05      # metres, each axis
 
+# the archive mission: the loop mission's circle with a 16-keyframe store
+ARCHIVE_MAX_KEYFRAMES = 16
+ARCHIVE_SCANS = 125
+# first-lap scans relocalized against the archive mission's final map
+RELOC_SCANS = (5, 75, 95)
+# the checkpoint of the resume check, within the 40-scan mission
+RESUME_AT = 20
+
 
 def bench_config() -> Config:
     """The shapes of `bench.py:bench_config()` (8192 registered points
@@ -73,6 +81,20 @@ def loop_mission_config() -> Config:
         loop=LoopClosureConfig(enabled=True, archive_enabled=False,
                                time_diff=10.0),
         gps=GpsConfig(use_gps=True, pose_cov_threshold=-1.0))
+
+
+def archive_mission_config() -> Config:
+    """`loop_mission_config()` at the same widths with a device store of 16
+    keyframes (256 in `bench_config()`) and the keyframe archive on.  One
+    lap is about 32 keyframes, so by the revisit the first lap's keyframes
+    have left the store: only the archive can close the loop, and its
+    anchors share the unary slots with the live GPS factors."""
+    base = loop_mission_config()
+    return dataclasses.replace(
+        base,
+        static=dataclasses.replace(base.static,
+                                   max_keyframes=ARCHIVE_MAX_KEYFRAMES),
+        loop=dataclasses.replace(base.loop, archive_enabled=True))
 
 
 def synthetic_inputs(seq: SyntheticSequence, cfg: Config):

@@ -36,6 +36,17 @@ class Cloud(NamedTuple):
         return torch.sum(self.mask).to(torch.int32)
 
 
+def pad_cloud(xyz, capacity: int, device=None) -> Cloud:
+    """Pad a concrete (n, 3) array or tensor up to `capacity` with masked
+    slots (points past `capacity` are dropped)."""
+    xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
+    n = min(xyz.shape[0], capacity)
+    out = torch.zeros((capacity, 3), dtype=torch.float32, device=xyz.device)
+    out[:n] = xyz[:n]
+    mask = torch.arange(capacity, device=xyz.device) < n
+    return Cloud(xyz=out, mask=mask)
+
+
 def compact(cloud: Cloud) -> Cloud:
     """Move valid points to the front (stable). Same capacity."""
     order = torch.argsort((~cloud.mask).to(torch.int32), stable=True)

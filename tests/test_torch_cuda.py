@@ -281,3 +281,123 @@ def test_runner_goes_through_the_kernel(cuda):
     poses = np.stack([r.pose for r in results])
     assert np.isfinite(poses).all()
     assert np.abs(poses - sm.relative_truth(seq)).max() < 0.05
+
+
+def circuit_state(dev, n_scans=11):
+    """The port's mapping step over a circuit of 2048-point scans on `dev`
+    (five keyframes): a state whose newest keyframe verifies against the
+    world points of all of them."""
+    from lio_slam_tpu_torch.config import RegistrationConfig, StaticConfig
+    from lio_slam_tpu_torch.pipeline import lio
+    from lio_slam_tpu_torch.utils import pointcloud as pc
+
+    cfg = Config(static=StaticConfig(max_raw_points=2048, max_scan_points=2048,
+                                     max_map_points=8192, max_keyframes=16,
+                                     max_keyframe_points=1024, max_loop_queue=2,
+                                     max_gps_queue=2, window_size=8,
+                                     max_archive_anchors=2),
+                 registration=RegistrationConfig(degeneracy_eig_thresh=10.0),
+                 loop=LoopClosureConfig(search_num=3))
+    seq = synthetic.make_sequence(n_scans=n_scans, n_points=2048, seed=3,
+                                  speed=2.0, yaw_rate=2 * np.pi / 4.5)
+    step = lio.make_lio_step(cfg, device=dev)
+    state = lio.init_state(cfg, device=dev)
+    on = lambda x: t(x).to(dev)
+    for i in range(n_scans):
+        state, _ = step(state, lio.ScanInput(
+            cloud=pc.Cloud(xyz=on(seq.scans[i]), mask=on(seq.scan_masks[i])),
+            stamp=on(np.float32(seq.stamps[i])), init_guess=on(np.zeros(6, np.float32)),
+            guess_valid=on(np.bool_(False)), imu_rpy=on(seq.imu_rpy[i]),
+            imu_available=on(np.bool_(True)), gps_pos=on(np.zeros(3, np.float32)),
+            gps_info=on(np.zeros(3, np.float32)), gps_valid=on(np.bool_(False))))
+    return cfg, seq, state
+
+
+def counted_registrations(monkeypatch):
+    """Wrap `registration.register` to record each call's GN iterations."""
+    from lio_slam_tpu_torch.ops import registration as reg
+
+    iters, real = [], reg.register
+
+    def counting(*a, **k):
+        r = real(*a, **k)
+        iters.append(r.iterations)
+        return r
+
+    monkeypatch.setattr(reg, "register", counting)
+    return iters
+
+
+@pytest.mark.cuda
+def test_archive_verifier_on_the_card(cuda, monkeypatch):
+    """Archive verification through the kernel: one launch a GN iteration,
+    the gate decision, fitness and slots of the same state on the CPU."""
+    from lio_slam_tpu_torch import convert
+    from lio_slam_tpu_torch.pipeline import archive
+    from lio_slam_tpu_torch.pipeline import keyframes as kf
+
+    cfg, _, state = circuit_state(cuda)
+    n_kf = int(state.store.count)
+    assert n_kf == 5
+    world = kf.transform_keyframe_clouds(state.store)[:n_kf][state.store.cloud_masks[:n_kf]]
+    cap = cfg.static.max_map_points
+    xyz = torch.zeros((cap, 3), device=cuda)
+    xyz[:len(world)] = world[:cap]
+    mask = torch.arange(cap, device=cuda) < len(world)
+    init = state.store.poses[n_kf - 1] + torch.tensor(
+        [0, 0, 0.01, 0.1, -0.05, 0], device=cuda)
+    iters = counted_registrations(monkeypatch)
+    verify = archive.make_archive_verifier(cfg)
+    fc.KERNEL_LAUNCHES = 0
+    gpu, added, fit = verify(state, xyz, mask, init, 5.0)
+    assert fc.KERNEL_LAUNCHES == iters[0] > 0
+    cpu_state = convert.from_numpy(convert.to_numpy(state))
+    cpu, added_c, fit_c = verify(cpu_state, xyz.cpu(), mask.cpu(), init.cpu(), 5.0)
+    assert fc.KERNEL_LAUNCHES == iters[0]          # the CPU runs the plain version
+    assert bool(added) and bool(added_c)
+    assert abs(float(fit) - float(fit_c)) < 2e-3 and float(fit) < 0.3
+    for a, b in ((gpu.pend_mask, cpu.pend_mask), (gpu.pend_i, cpu.pend_i),
+                 (gpu.graph.gps_mask, cpu.graph.gps_mask),
+                 (gpu.graph.gps_i, cpu.graph.gps_i)):
+        assert torch.equal(a.cpu(), b)
+    torch.testing.assert_close(gpu.graph.gps_meas.cpu(), cpu.graph.gps_meas,
+                               atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_relocalizer_on_the_card(cuda, monkeypatch):
+    """Relocalization through the kernel: one launch a GN iteration, the
+    match and the pose of the same query on the CPU."""
+    from lio_slam_tpu_torch import convert
+    from lio_slam_tpu_torch.pipeline import relocalization
+    from lio_slam_tpu_torch.utils import pointcloud as pc
+
+    cfg, seq, state = circuit_state(cuda)
+    iters = counted_registrations(monkeypatch)
+    reloc = relocalization.make_relocalizer(cfg)
+    # scan 4 is the place of keyframe 2 (it relocalizes there on the CPU)
+    scan = pc.Cloud(xyz=t(seq.scans[4]).to(cuda), mask=t(seq.scan_masks[4]).to(cuda))
+    fc.KERNEL_LAUNCHES = 0
+    r = reloc(state, scan)
+    assert fc.KERNEL_LAUNCHES == iters[0] > 0
+    rc = reloc(convert.from_numpy(convert.to_numpy(state)),
+               pc.Cloud(xyz=scan.xyz.cpu(), mask=scan.mask.cpu()))
+    assert bool(r.success) and bool(rc.success)
+    assert int(r.matched_kf) == int(rc.matched_kf) == 2
+    torch.testing.assert_close(r.pose.cpu(), rc.pose, atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_batched_fetches_on_the_card(cuda):
+    """`fetch_every=3` on the card (copies into pinned memory, read at the
+    drain) gives the bits of `fetch_every=1`."""
+    cfg = Config(loop=LoopClosureConfig(enabled=False))
+    seq = synthetic.make_sequence(n_scans=7, n_points=4096, seed=0)
+    scans, imus = sm.synthetic_inputs(seq, cfg)
+    one, three = Runner(cfg, device=cuda), Runner(cfg, device=cuda, fetch_every=3)
+    for i in range(7):
+        one.process_scan(scans[i], imu=imus[i])
+        three.process_scan(scans[i], imu=imus[i])
+    assert len(three.trajectory) < 7
+    three.drain()
+    np.testing.assert_array_equal(np.stack(three.trajectory), np.stack(one.trajectory))

@@ -35,28 +35,43 @@ def test_port_imports_without_jax_or_triton():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = (out.stdout.split("\n") + [""])[:2]
-    assert int(count) >= 24
+    assert int(count) >= 30
     assert bad == "", f"the port imported {bad}"
+
+
+def _imports_no_jax(modules):
+    """Import the port's `modules` and chip_smoke.py (not run) in a fresh
+    interpreter; returns the subprocess result, failing if jax, triton or
+    the JAX package came in."""
+    code = ("import sys, "
+            + "".join(f"lio_slam_tpu_torch.{m}, " for m in modules)
+            + "chip_smoke; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'triton', 'lio_slam_tpu')]; "
+            "assert not bad, bad")
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=120)
 
 
 def test_loop_path_modules_and_chip_smoke_import_no_jax():
     """The modules of the loop-closure / GPS / full-correction path by name,
     and chip_smoke.py (imported, not run)."""
-    code = ("import sys, lio_slam_tpu_torch.pipeline.runner, "
-            "lio_slam_tpu_torch.pipeline.loop_closure, "
-            "lio_slam_tpu_torch.graph.sparse, "
-            "lio_slam_tpu_torch.pipeline.gps_fusion, lio_slam_tpu_torch.utils.enu, "
-            "chip_smoke; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'triton', 'lio_slam_tpu')]; "
-            "assert not bad, bad")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         env=dict(os.environ, PYTHONPATH=ROOT),
-                         capture_output=True, text=True, timeout=120)
+    out = _imports_no_jax(("pipeline.runner", "pipeline.loop_closure",
+                           "graph.sparse", "pipeline.gps_fusion", "utils.enu"))
     assert out.returncode == 0, out.stderr
     src = open(os.path.join(ROOT, "chip_smoke.py")).read()
     assert "import jax" not in src and "lio_slam_tpu." not in src.replace(
         "lio_slam_tpu_torch", "")
+
+
+def test_archive_checkpoint_and_product_modules_import_no_jax():
+    """The archive, checkpoint, map-product and relocalization modules by
+    name."""
+    out = _imports_no_jax(("pipeline.archive", "pipeline.checkpoint",
+                           "pipeline.outputs", "pipeline.relocalization",
+                           "ops.heightmap", "io.pcd", "utils.profiling"))
+    assert out.returncode == 0, out.stderr
 
 
 def test_loop_mission_fixture_matches_its_configuration():
@@ -86,9 +101,39 @@ def test_loop_mission_fixture_matches_its_configuration():
                                             d.fitness_score, d.sc_exclude_recent)
 
 
+def test_archive_mission_fixture_matches_its_configuration():
+    """The recorded JAX run of the archive mission: the loop mission at a
+    16-keyframe store with the archive on, evictions and at least one
+    archive loop, the products and the relocalizations chip_smoke.py
+    compares."""
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    f = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                             "archive_mission_jax.npz"))
+    cfg = sm.archive_mission_config()
+    loop = sm.loop_mission_config()
+    assert cfg.static.max_keyframes == sm.ARCHIVE_MAX_KEYFRAMES == 16
+    assert cfg.loop.archive_enabled and cfg.gps.use_gps
+    assert dataclasses.replace(cfg.static, max_keyframes=256) == loop.static
+    assert dataclasses.replace(cfg.loop, archive_enabled=False) == loop.loop
+    assert (cfg.registration, cfg.gps, cfg.keyframe) == (
+        loop.registration, loop.gps, loop.keyframe)
+    assert f["poses"].shape == (sm.ARCHIVE_SCANS, 6)
+    assert int(f["evictions"]) > 0 and int(f["archive_loops"]) >= 1
+    assert int(f["archived_keyframes"]) == int(f["keyframes"]) + int(f["evictions"])
+    assert f["archive_events"].shape == (int(f["archive_loops"]), 2)
+    assert (f["archive_events"][:, 0] > f["archive_events"][:, 1]).all()
+    assert f["reloc_scans"].tolist() == list(sm.RELOC_SCANS)
+    assert f["reloc_success"].all() and (f["reloc_matched_kf"] >= 0).all()
+    assert min(int(f[k]) for k in ("sor_kept", "height_cells", "saved_points")) > 1000
+
+
 def test_port_mirrors_module_paths():
     """Every ported module sits at its JAX counterpart's relative path."""
-    for rel in ("config.py", "io/formats.py", "io/synthetic.py",
+    for rel in ("config.py", "io/formats.py", "io/synthetic.py", "io/pcd.py",
+                "ops/heightmap.py", "pipeline/outputs.py",
+                "pipeline/checkpoint.py", "pipeline/archive.py",
+                "pipeline/relocalization.py", "utils/profiling.py",
                 "utils/se3.py", "utils/smallmat.py", "utils/pointcloud.py",
                 "ops/deskew.py", "ops/voxel_grid.py", "ops/registration.py",
                 "ops/fused_corr.py", "ops/scancontext.py",

@@ -42,6 +42,7 @@ from lio_slam_tpu_torch.pipeline import lio as tlio
 from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
 from lio_slam_tpu_torch.pipeline.runner import Runner
 from lio_slam_tpu_torch.utils import pointcloud as tpc
+from lio_slam_tpu_torch.utils import se3
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_SCANS = 10
@@ -161,28 +162,44 @@ def test_step_from_carried_state():
 
 
 def test_unported_features_refused():
+    """Only bag recording and the sharded mesh are still refused, by name;
+    the keyframe archive, batched fetches, checkpoints and the mission log
+    are ported, so the default config builds as it is."""
     cfg = small_config(port_config)
+    with pytest.raises(NotImplementedError, match="record_bag"):
+        Runner(cfg, device="cpu", record_bag="out.bag")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Runner(cfg, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="record_bag, mesh"):
+        Runner(cfg, device="cpu", record_bag="out.bag", mesh=object())
     # the default loop configuration has the keyframe archive on
-    with pytest.raises(NotImplementedError, match="archive"):
-        Runner(dataclasses.replace(cfg, loop=port_config.LoopClosureConfig()),
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="archive"):
-        Runner(port_config.get_config("default"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Runner(cfg, fetch_every=4)
-    with pytest.raises(NotImplementedError):
-        Runner(cfg, auto_checkpoint="ckpt.npz")
+    archived = Runner(dataclasses.replace(cfg, loop=port_config.LoopClosureConfig()),
+                      device="cpu", fetch_every=4, auto_checkpoint="ckpt.npz",
+                      checkpoint_every=7)
+    assert archived.archive_enabled and archived.fetch_every == 4
+    assert archived._checkpoint_every == 7 and len(archived._archive) == 0
     # loop closure without the archive, and GPS, are ported
     on = dataclasses.replace(
         cfg, loop=port_config.LoopClosureConfig(archive_enabled=False),
         gps=port_config.GpsConfig(use_gps=True))
     runner = Runner(on, device="cpu", loop_every=7)
     assert runner.loop_every == 7 and runner.last_loop_aux is None
+    assert not runner.archive_enabled and runner._archive is None
     # a fix on a mission without GPS is taken and ignored, as in the JAX Runner
     seq = synthetic.make_sequence(n_scans=1, n_points=256, seed=0)
     scans, _ = sm.synthetic_inputs(seq, cfg)
     r = Runner(cfg, device="cpu").process_scan(scans[0], gps_fix=(45.0, 7.0, 200.0))
     assert r.positioning_mode == 0
+
+
+def test_default_config_builds_unmodified():
+    """`Runner(get_config("default"))` needs no change to the preset: the
+    archive is on, as in the JAX Runner."""
+    runner = Runner(port_config.get_config("default"), device="cpu")
+    jr_cfg = jax_config.get_config("default")
+    assert runner.archive_enabled == (jr_cfg.loop.enabled and jr_cfg.loop.archive_enabled)
+    assert runner.archive_enabled and runner._kf_snapshot is not None
+    assert runner.health()["archived_keyframes"] == 0
 
 
 def loop_gps_config(m):
@@ -272,7 +289,7 @@ def test_loop_gps_mission_detector_cycles_match(loop_gps_missions):
         assert isinstance(b["loop_accepted"], np.ndarray)
         assert len(b["loop_iters"]) == int((b["loop_fitness"] > 0).sum())
     assert any(a["loop_accepted"].any() for a in cycles)
-    assert tr.timer.count["loop_closure"] == 3
+    assert tr.timer.stats["loop_closure"].count == 3
 
 
 def test_loop_gps_mission_poses_within_tolerance(loop_gps_missions):
@@ -350,6 +367,242 @@ def test_runner_inject_loop_constraint(loop_gps_missions):
     assert tr._full_correct_armed
 
 
+@pytest.fixture(scope="module")
+def short():
+    """The 8-scan mission of tests/test_runner.py: scans and IMU windows."""
+    seq = synthetic.make_sequence(n_scans=8, n_points=2048, seed=0)
+    scans, imus = sm.synthetic_inputs(seq, small_config(port_config))
+    return seq, scans, imus
+
+
+def test_fetch_every_4_gives_the_trajectory_of_fetch_every_1(short):
+    """Batched fetches change when results are read, not what they are:
+    the same trajectory, the same results in the same order, each handed
+    out once (the JAX Runner's `fetch_every`)."""
+    _, scans, imus = short
+    one = Runner(small_config(port_config), device="cpu")
+    four = Runner(small_config(port_config), device="cpu", fetch_every=4)
+    ra, rb = [], []
+    for i in range(len(scans)):
+        ra.append(one.process_scan(scans[i], imu=imus[i]))
+        rb.append(four.process_scan(scans[i], imu=imus[i]))
+        assert len(four._pending) <= 4
+    # the batch boundary keeps its newest scan queued: results at scans 3, 6
+    assert [r is not None for r in rb] == [False] * 3 + [True] + [False] * 2 \
+        + [True, False]
+    assert four.drain().pose is four.trajectory[-1]
+    assert four.drain() is None
+    np.testing.assert_array_equal(np.stack(four.trajectory), np.stack(one.trajectory))
+    np.testing.assert_array_equal(rb[3].pose, ra[2].pose)
+    for a, b in ((ra[2], rb[3]), (ra[5], rb[6])):
+        assert (b.is_keyframe, b.registration_iters, b.num_inliers, b.degenerate) \
+            == (a.is_keyframe, a.registration_iters, a.num_inliers, a.degenerate)
+        np.testing.assert_array_equal(b.fused_rate_poses, a.fused_rate_poses)
+    assert four.timer.stats["host_fetch"].count == 3     # scans 3, 6, the tail
+
+
+def test_health_drain_buffers_result(short):
+    """A monitor polling health() mid-batch must not swallow the batch's
+    result: the next process_scan hands it back."""
+    _, scans, _ = short
+    runner = Runner(small_config(port_config), device="cpu", fetch_every=4)
+    got = []
+    for i in range(8):
+        r = runner.process_scan(scans[i])
+        if r is not None:
+            got.append(r)
+        if i == 1:                       # a mid-batch poll drains early
+            h = runner.health()
+            assert "loop_memory_exhausted" in h and "archived_keyframes" not in h
+            assert len(runner.trajectory) == 2 and runner._buffered_result is not None
+        if i == 2:
+            assert r is not None and r.pose is runner.trajectory[1]
+    runner.drain()
+    assert len(runner.trajectory) == 8
+    assert len(got) >= 2
+    assert runner.health()["scan_rate_hz"] == pytest.approx(10.0)
+
+
+def test_products_and_checkpoint(tmp_path, short):
+    """The Runner's map products and a checkpoint round trip (the JAX
+    Runner test of the same name)."""
+    _, scans, _ = short
+    cfg = small_config(port_config)
+    runner = Runner(cfg, device="cpu")
+    for i in range(5):
+        runner.process_scan(scans[i])
+    pm = runner.local_planning_map()
+    assert int(pm.count()) > 50
+    hm = runner.height_map()
+    assert int(torch.isfinite(hm.elevation).sum()) > 20
+    res = runner.save_map(str(tmp_path / "maps"), resolution=0.4)
+    assert res.success and res.num_points > 50
+    runner.save_checkpoint(str(tmp_path / "c.npz"))
+    r2 = Runner(cfg, device="cpu")
+    meta = r2.load_checkpoint(str(tmp_path / "c.npz"))
+    assert meta["scan_count"] == 5 and r2.scan_count == 5
+    assert len(r2.trajectory) == int(r2.state.store.count)
+    out = r2.process_scan(scans[5])
+    assert np.isfinite(out.pose).all()
+    # the JAX Runner reads the port's checkpoint
+    jr = JaxRunner(small_config(jax_config), loop_every=100)
+    assert jr.load_checkpoint(str(tmp_path / "c.npz"))["scan_count"] == 5
+    np.testing.assert_array_equal(np.asarray(jr.state.store.poses),
+                                  n(runner.state.store.poses))
+
+
+def test_auto_checkpoint_crash_resume(tmp_path, short):
+    """Respawn parity: a mission with auto-checkpoints every 3 scans dies
+    at scan 5; `Runner.resume` restores scan 3's checkpoint and the resumed
+    scans 3-7 give the uninterrupted run's poses (the same bits)."""
+    _, scans, imus = short
+    cfg = small_config(port_config)
+    ckpt = str(tmp_path / "auto.npz")
+    ref = Runner(cfg, device="cpu")
+    ref_out = [ref.process_scan(scans[i], imu=imus[i]) for i in range(8)]
+    r1 = Runner(cfg, device="cpu", auto_checkpoint=ckpt, checkpoint_every=3)
+    for i in range(5):
+        r1.process_scan(scans[i], imu=imus[i])
+    del r1                               # a crash: no close(), no last save
+    r2 = Runner.resume(ckpt, cfg, device="cpu")
+    assert r2.scan_count == 3 and r2._imu_ready
+    out = [r2.process_scan(scans[i], imu=imus[i]) for i in range(3, 8)]
+    for a, b in zip(ref_out[3:], out):
+        np.testing.assert_array_equal(b.pose, a.pose)
+    assert not r2.mapping_error
+
+
+def test_resume_restores_staleness_gate(tmp_path, short, monkeypatch):
+    """A resume across real downtime treats the first correction after it
+    as stale (re-anchor, not a correction across the gap)."""
+    from lio_slam_tpu_torch.pipeline import imu_frontend
+
+    _, scans, imus = short
+    cfg = small_config(port_config)
+    path = str(tmp_path / "ck.npz")
+    runner = Runner(cfg, device="cpu")
+    for i in range(4):
+        runner.process_scan(scans[i], imu=imus[i])
+    runner.save_checkpoint(path)
+    assert runner._last_correct_t is not None
+    r2 = Runner.resume(path, cfg, device="cpu")
+    assert r2._last_correct_t == pytest.approx(runner._last_correct_t)
+    reanchored = []
+    real = imu_frontend.reinitialize
+    monkeypatch.setattr(imu_frontend, "reinitialize",
+                        lambda *a: reanchored.append(1) or real(*a))
+    gap = cfg.imu.max_correction_age + 5.0
+    late = dataclasses.replace(scans[5], stamp=float(scans[5].stamp) + gap)
+    imu = {**imus[5], "stamps": np.asarray(imus[5]["stamps"]) + gap}
+    out = r2.process_scan(late, imu=imu)
+    assert reanchored == [1]
+    assert out is not None and np.isfinite(out.pose).all()
+    assert not r2.mapping_error
+
+
+def test_mission_log_records(tmp_path, short):
+    """One record a step with the JAX Runner's keys, then loop events with
+    global ids (an injected constraint here); the JAX log parser reads it."""
+    _, scans, imus = short
+    cfg = dataclasses.replace(small_config(port_config),
+                              keyframe=port_config.KeyframeConfig(dist_threshold=0.15))
+    log_path, jlog_path = str(tmp_path / "mission.jsonl"), str(tmp_path / "jax.jsonl")
+    runner = Runner(cfg, device="cpu", mission_log=log_path, fetch_every=2)
+    jr = JaxRunner(dataclasses.replace(small_config(jax_config),
+                                       keyframe=jax_config.KeyframeConfig(
+                                           dist_threshold=0.15)),
+                   loop_every=100, mission_log=jlog_path)
+    for i in range(4):
+        runner.process_scan(scans[i], imu=imus[i])
+        jr.process_scan(scans[i], imu=imus[i])
+    n_kf = int(runner.state.store.count)
+    assert n_kf >= 2 and n_kf == int(jr.state.store.count)
+    meas = se3.pose6_between(runner.state.store.poses[n_kf - 1],
+                             runner.state.store.poses[0]).numpy()
+    assert runner.inject_loop_constraint(n_kf - 1, 0, meas)
+    assert jr.inject_loop_constraint(n_kf - 1, 0, meas)
+    runner.close()
+    jr.close()
+    recs = [json.loads(line) for line in open(log_path)]
+    jrecs = [json.loads(line) for line in open(jlog_path)]
+    steps = [r for r in recs if "event" not in r]
+    jsteps = [r for r in jrecs if "event" not in r]
+    assert len(steps) == len(jsteps) == 4
+    for a, b in zip(jsteps, steps):
+        assert set(b) == set(a)
+        assert set(b["stage_ms"]) >= {"mapping_step", "deskew"}
+        for k in ("keyframe", "keyframes", "loops", "gps_factors", "evictions",
+                  "mode", "degenerate", "mapping_error"):
+            assert b[k] == a[k], k
+        np.testing.assert_allclose(b["pose"], a["pose"], atol=1e-4)
+    assert steps[-1]["keyframes"] >= 1 and steps[-1]["stage_ms"]["mapping_step"] > 0
+    events = [r for r in recs if "event" in r]
+    assert events == [r for r in jrecs if "event" in r]
+    assert events[0]["source"] == "injected" and events[0]["i"] == n_kf - 1
+
+
+def test_close_autosaves_when_save_pcd(tmp_path, short):
+    """savePCD parity: close() (here through the context manager) exports
+    the global map."""
+    _, scans, _ = short
+    cfg = dataclasses.replace(small_config(port_config),
+                              output=port_config.OutputConfig(
+                                  save_pcd=True, save_directory=str(tmp_path / "auto")))
+    with Runner(cfg, device="cpu") as runner:
+        for i in range(3):
+            runner.process_scan(scans[i])
+    assert os.path.exists(str(tmp_path / "auto" / "GlobalMap.pcd"))
+    assert runner._mission_log is None
+
+
+def test_cli_mission_log_checkpoint_and_map(tmp_path):
+    """The CLI's new flags on the CPU: a mission log, an auto-checkpoint,
+    a resumed run from it, a saved map and the timing report."""
+    log, ck, maps = (str(tmp_path / x) for x in ("m.jsonl", "ck.npz", "maps"))
+    base = ("--synthetic", "--scans", "3", "--points", "512", "--device", "cpu",
+            "--preset", "default")
+    out = run_cli(*base, "--mission-log", log, "--auto-checkpoint", ck,
+                  "--checkpoint-every", "2", "--save-map", maps,
+                  "--report-timing")
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.splitlines()[-1])
+    assert summary["scans"] == 3 and len(summary["saved"]) == 4
+    assert len([line for line in open(log)]) == 3
+    assert os.path.exists(ck) and os.path.exists(ck + ".archive.npz")
+    assert "mapping_step" in out.stderr and "health:" in out.stderr
+    again = run_cli(*base, "--resume-from", ck)
+    assert again.returncode == 0, again.stderr
+    # the checkpoint written at close covers every scan; the throttle
+    # (mappingProcessInterval 0 s) lets the scan at its last stamp through
+    assert json.loads(again.stdout.splitlines()[-1])["processed"] == 1
+
+
+def test_stage_timer_and_rate_monitor_match_jax():
+    """`utils/profiling`: the same statistics as the JAX package's on the
+    same recorded durations and stamps."""
+    from lio_slam_tpu.utils import profiling as jprof
+    from lio_slam_tpu_torch.utils import profiling as tprof
+
+    ta, tb = jprof.StageTimer(), tprof.StageTimer()
+    for name, dt in (("a", 0.01), ("b", 0.5), ("a", 0.03), ("a", 0.02)):
+        ta.record(name, dt)
+        tb.record(name, dt)
+    with tb.stage("c"):
+        pass
+    for k in ("a", "b"):
+        assert dataclasses.asdict(tb.stats[k]) == dataclasses.asdict(ta.stats[k])
+    assert {k: v for k, v in tb.as_dict().items() if k != "c"} == ta.as_dict()
+    assert tb.last()["a"] == 0.02 and tb.stats["c"].count == 1
+    assert tb.report().splitlines()[:2] == ta.report().splitlines()
+    ra, rb = jprof.RateMonitor(expected_hz=10.0), tprof.RateMonitor(expected_hz=10.0)
+    for k in range(60):
+        stamp = 0.1 * k + (0.05 if k > 40 else 0.0)
+        ra.tick(stamp)
+        rb.tick(stamp)
+        assert (rb.hz, rb.healthy) == (ra.hz, ra.healthy)
+    assert len(rb._stamps) == rb.window and rb.healthy
+
+
 def run_cli(*args):
     return subprocess.run([sys.executable, "-m", "lio_slam_tpu_torch.pipeline.runner",
                            *args], cwd=ROOT, capture_output=True, text=True,
@@ -357,12 +610,21 @@ def run_cli(*args):
 
 
 def test_cli_help_says_loop_closure_is_off():
-    """Loop closure runs now; what the CLI still turns off is the keyframe
-    archive, and it says so."""
+    """The CLI runs the preset as it is (the keyframe archive no longer
+    switched off) and offers the mission-log, checkpoint, map and timing
+    flags of the JAX CLI; bag replay is still refused."""
     out = run_cli("--help")
     assert out.returncode == 0, out.stderr
-    assert "keyframe archive is not ported" in " ".join(out.stdout.split())
-    assert "--loop-every" in out.stdout
+    text = " ".join(out.stdout.split())
+    assert "keyframe archive included" in text
+    assert "not ported" not in text
+    for flag in ("--loop-every", "--mission-log", "--auto-checkpoint",
+                 "--checkpoint-every", "--resume-from", "--save-map",
+                 "--report-timing"):
+        assert flag in out.stdout, flag
+    assert "--record-bag" not in out.stdout and "--bag" not in out.stdout
+    refused = run_cli("--scans", "1", "--device", "cpu")
+    assert refused.returncode != 0 and "bag replay is not ported" in refused.stderr
 
 
 def test_runner_defaults_to_the_card_and_never_falls_back():

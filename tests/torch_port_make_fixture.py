@@ -14,6 +14,14 @@ CPU over exactly those missions and saves what the smoke run compares:
   iterations, loop and GPS factor counts, the provenance of every detector
   cycle, the scans at which a full correction ran, the final keyframe
   poses.
+- `archive_mission_jax.npz`: `archive_mission_config()` (the loop mission
+  with a 16-keyframe store and the keyframe archive on), 125 scans, with
+  `fetch_every=2`, a mission log and auto-checkpoints every 50 scans:
+  per-scan poses, keyframe flags, GN iterations, evictions, archived
+  keyframes, archive loops and their (i, j) events, loop / GPS / anchor
+  counts, the scans of the full corrections; then on the final state the
+  map products' counts (SOR-kept points, occupied height cells, saved map
+  points at 0.4 m) and the relocalization of three first-lap scans.
 
 On the CPU the JAX registration takes its unfused path, which finds fresh
 correspondences at every GN iteration whatever `corr_refresh_every` says
@@ -22,10 +30,10 @@ correspondences at every GN iteration whatever `corr_refresh_every` says
 path it takes off the CPU, with the Pallas kernel in interpret mode and the
 candidate block held between refreshes, as the port does.
 
-Run by hand from the repository root (`smoke`, `loop`, or both when no
-argument is given):
+Run by hand from the repository root (`smoke`, `loop`, `archive`, or all
+three when no argument is given):
 
-    python tests/torch_port_make_fixture.py [smoke|loop]
+    python tests/torch_port_make_fixture.py [smoke|loop|archive]
 
 It is not a test (pytest does not collect it).
 """
@@ -59,6 +67,7 @@ from torch_port_helpers import to_jax_config  # noqa: E402
 FIXTURES = os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures")
 OUT = os.path.join(FIXTURES, "smoke_mission_jax.npz")
 LOOP_OUT = os.path.join(FIXTURES, "loop_mission_jax.npz")
+ARCHIVE_OUT = os.path.join(FIXTURES, "archive_mission_jax.npz")
 
 
 def fused_interpret(scan, scan_mask, grid, cfg):
@@ -159,6 +168,104 @@ def loop_mission():
               f"fitness {c['loop_fitness'].tolist()}")
 
 
+def archive_mission():
+    """The JAX `Runner` over the archive mission with the arguments
+    chip_smoke.py gives the port's, then the map products and three
+    relocalizations on its final state; writes ARCHIVE_OUT."""
+    import json
+    import shutil
+    import tempfile
+
+    from lio_slam_tpu.ops import heightmap as jhm
+    from lio_slam_tpu.pipeline import relocalization as jreloc
+    from lio_slam_tpu.utils import pointcloud as jpc
+
+    cfg = sm.archive_mission_config()
+    jcfg = to_jax_config(cfg, jax_config)
+    seq, scans, imus, fixes = sm.loop_mission_inputs(cfg, n_scans=sm.ARCHIVE_SCANS)
+    tmp = tempfile.mkdtemp()
+    log_path = os.path.join(tmp, "mission.jsonl")
+    runner = Runner(jcfg, loop_every=sm.LOOP_EVERY, fetch_every=2,
+                    mission_log=log_path,
+                    auto_checkpoint=os.path.join(tmp, "auto.npz"),
+                    checkpoint_every=50)
+    iters = count_iterations(runner)
+    corrected = []
+    full_correct = runner.full_correct
+
+    def watching_correct(state):
+        if bool(state.needs_full_solve):
+            corrected.append(runner.scan_count)
+        return full_correct(state)
+
+    runner.full_correct = watching_correct
+    t0 = time.time()
+    for i in range(len(scans)):
+        runner.process_scan(scans[i], imu=imus[i], gps_fixes=fixes[i])
+    runner.drain()
+    health = runner.health()
+    st = runner.state
+    A = cfg.static.max_archive_anchors
+    gmask = np.array(st.graph.gps_mask)
+    n_kf = int(st.store.count)
+
+    # the map products on the final state (resolution 0.4 for save_map)
+    pm = runner.local_planning_map()
+    hmap = runner.height_map()
+    saved = runner.save_map(os.path.join(tmp, "maps"), resolution=0.4)
+    normals, slope = jhm.normals_and_slope(hmap)
+    sdf = jhm.obstacle_sdf(hmap, float(np.asarray(runner.trajectory[-1])[5]))
+    reloc = jreloc.make_relocalizer(jcfg)
+    rel = {"success": [], "matched_kf": [], "pose": []}
+    for i in sm.RELOC_SCANS:
+        r = reloc(st, jpc.Cloud(xyz=seq.scans[i], mask=seq.scan_masks[i]))
+        rel["success"].append(bool(r.success))
+        rel["matched_kf"].append(int(r.matched_kf))
+        rel["pose"].append(np.array(r.pose))
+    runner.close()
+    recs = [json.loads(line) for line in open(log_path)]
+    shutil.rmtree(tmp)
+    steps = [r for r in recs if "event" not in r]
+    events = [r for r in recs if r.get("source") == "archive"]
+    poses = np.stack(runner.trajectory).astype(np.float32)
+    ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
+    np.savez(ARCHIVE_OUT, poses=poses,
+             is_keyframe=np.array([r["keyframe"] for r in steps]),
+             registration_iters=np.array(iters, np.int32),
+             keyframes=np.int32(n_kf), ate_rmse_m=np.float32(ate),
+             loop_count=np.int32(int(st.loop_count)),
+             gps_count=np.int32(int(st.gps_count)),
+             anchors=np.int32(gmask[len(gmask) - A:].sum()),
+             live_gps=np.int32(gmask[:len(gmask) - A].sum()),
+             evictions=np.int32(health["keyframe_evictions"]),
+             archived_keyframes=np.int32(health["archived_keyframes"]),
+             archive_loops=np.int32(health["archive_loops"]),
+             archive_events=np.array([[e["i"], e["j"]] for e in events],
+                                     np.int32).reshape(-1, 2),
+             full_correction_scans=np.array(corrected, np.int32),
+             keyframe_poses=np.array(st.store.poses[:n_kf]),
+             sor_kept=np.int32(int(pm.count())),
+             height_cells=np.int32(int(np.isfinite(np.array(hmap.elevation)).sum())),
+             saved_points=np.int32(saved.num_points),
+             slope_cells=np.int32(int(np.isfinite(np.array(slope)).sum())),
+             sdf_negative=np.int32(int((np.array(sdf) < 0).sum())),
+             reloc_scans=np.array(sm.RELOC_SCANS, np.int32),
+             reloc_success=np.array(rel["success"]),
+             reloc_matched_kf=np.array(rel["matched_kf"], np.int32),
+             reloc_pose=np.stack(rel["pose"]).astype(np.float32))
+    print(f"wrote {ARCHIVE_OUT}: {len(poses)} scans, {n_kf} keyframes, "
+          f"{health['keyframe_evictions']} evictions, "
+          f"{health['archived_keyframes']} archived, "
+          f"{health['archive_loops']} archive loops {[(e['i'], e['j']) for e in events]}, "
+          f"{int(st.loop_count)} loop factors, {int(st.gps_count)} GPS factors, "
+          f"anchors {int(gmask[len(gmask) - A:].sum())}, ATE {ate:.5f} m, full "
+          f"corrections at scans {corrected}; products: SOR kept "
+          f"{int(pm.count())}, height cells "
+          f"{int(np.isfinite(np.array(hmap.elevation)).sum())}, saved "
+          f"{saved.num_points}; relocalization {rel['success']} "
+          f"{rel['matched_kf']}; {time.time() - t0:.1f} s")
+
+
 def smoke_mission():
     """The JAX `Runner` over the 40-scan smoke mission; writes OUT."""
     cfg = sm.bench_config()
@@ -195,13 +302,15 @@ def smoke_mission():
 
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("smoke", "loop", "all"):
+    if which not in ("smoke", "loop", "archive", "all"):
         sys.exit(__doc__)
     jreg._maybe_fused = fused_interpret
     if which in ("smoke", "all"):
         smoke_mission()
     if which in ("loop", "all"):
         loop_mission()
+    if which in ("archive", "all"):
+        archive_mission()
 
 
 if __name__ == "__main__":

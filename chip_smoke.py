@@ -77,6 +77,34 @@
 11. Resume phase: the 40-scan mission (loop closure and GPS off) saved at
    scan 20, `Runner.resume` on the card over scans 20-39: poses within
    1e-6 of the uninterrupted run's (the same bits are expected).
+12. Bag mission: the port's `write_synthetic_bag` writes the 125-scan bag
+   of `synthetic_mission.bag_mission_bag_kwargs()` (the loop mission's
+   circle as a 10 Hz lidar of 32768 points sees it: epoch stamps, in-sweep
+   skew, 100 Hz 9-axis IMU, NavSatFix with covariances, the raw
+   GpswithHeading stream); its sha256 must be the one the JAX reference run
+   replayed (lio_slam_tpu_torch/fixtures/bag_mission_jax.npz).  `replay_bag`
+   feeds it through the native sample queues (`use_native=True`: a host
+   runtime that does not build fails the run) into `Runner(
+   loop_mission_config(), loop_every=10, record_bag=...)` on the card.
+   Fails unless every scan yields a result, the keyframe, loop and GPS
+   factor counts and the scans of the full corrections equal the
+   reference's, the trajectory keeps within the loop mission's limits, the
+   ATE against the rebased truth is under its limit, the kernel's launches
+   equal the GN iterations of mapping plus loop verification (counted
+   apart), and the recorded bag holds one odometry record a scan at the
+   trajectory's positions and the reference's gpsdata /
+   sensor_fusion_output records.  Prints scans/s over the replay and host
+   ms a scan in the cloud decode, the feed's windowing and process_scan,
+   and holds the kernel to its plain version on the arguments of one of
+   its launches there.
+13. Hostile bag: 40 scans of `hostile_bag_kwargs()` (bz2 chunks, the
+   Robosense layout, write-order jitter, duplicated IMU messages, an IMU
+   dropout, GPS at 100 Hz) through `Runner(hostile_bag_config())`, held to
+   the fixture's second run: scan count, keyframe flags, GPS factors, the
+   trajectory within the mapping limits before the first GPS factor and
+   the loop mission's after it, launches equal to the GN iterations, the
+   kernel against its plain version on one of its launches.
+Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line describing the
 kernel (its launches on every path driven, apart), and last
@@ -118,6 +146,10 @@ LOOP_GPS_MAX_DEV_RAD = math.radians(0.25)
 LOOP_MAX_DEV_M = 0.5
 LOOP_MAX_DEV_RAD = math.radians(2.0)
 LOOP_MAX_ATE_M = 1.0
+SMI = "card not read"       # nvidia-smi's name and power limit, set by main
+# the kernel launch of each bag path whose arguments the kernel check reuses
+BAG_CAPTURE_AT = 700
+HOSTILE_CAPTURE_AT = 60
 
 
 def fail(msg: str):
@@ -916,14 +948,7 @@ def loop_mission_phase(profile_dir=None):
                  loop_count=np.array(loops), gps_count=np.array(gps),
                  full_correction_scans=np.array(corrected),
                  keyframe_poses=runner.state.store.poses.cpu().numpy())
-    for label, sl, lim_m, lim_rad in spans:
-        dm, dr = float(d[sl, 3:].max()), float(d[sl, :3].max())
-        print(f"loop mission, {label} (scans {sl.start or 0}-"
-              f"{(sl.stop or len(scans)) - 1}): max deviation from the JAX "
-              f"reference {dm:.3e} m, {math.degrees(dr):.3e} deg (limits "
-              f"{lim_m} m, {math.degrees(lim_rad):.2f} deg)", flush=True)
-        if not (dm <= lim_m and dr <= lim_rad):
-            failures.append(f"loop mission, {label}: deviation {dm} m / {dr} rad")
+    failures += deviation_spans("loop mission", poses, fixture["poses"], spans)
     n_kf = int(runner.state.store.count)
     if n_kf == int(fixture["keyframes"]):
         dk = np.abs(runner.state.store.poses[:n_kf].cpu().numpy()
@@ -991,6 +1016,24 @@ def run_wrapped(obj, name, wrapper):
     original = getattr(obj, name)
     setattr(obj, name, wrapper(original))
     return lambda: setattr(obj, name, original)
+
+
+def deviation_spans(label, poses, ref, spans):
+    """Print the largest deviation from the reference in each span; returns
+    the spans over their limits."""
+    import numpy as np
+
+    d = np.abs(poses - ref)
+    failures = []
+    for name, sl, lim_m, lim_rad in spans:
+        dm, dr = float(d[sl, 3:].max()), float(d[sl, :3].max())
+        print(f"{label}, {name} (scans {sl.start or 0}-{(sl.stop or len(poses)) - 1})"
+              f": max deviation from the JAX reference {dm:.3e} m, "
+              f"{math.degrees(dr):.3e} deg (limits {lim_m} m, "
+              f"{math.degrees(lim_rad):.2f} deg)", flush=True)
+        if not (dm <= lim_m and dr <= lim_rad):
+            failures.append(f"{label}, {name}: {dm} m / {dr} rad")
+    return failures
 
 
 def archive_kernel_check(runner, cfg, gid_i, gid_j, dev):
@@ -1266,24 +1309,16 @@ def archive_mission_phase(profile_dir=None):
                             f"{arch_launches})")
 
         poses = np.stack(runner.trajectory)
-        d = np.abs(poses - fixture["poses"])
         first = min(int(fixture["full_correction_scans"][0]),
                     runner.full_correction_scans[0])
         first_hit = min([a["scan"] for a in attempts if a["verifications"]],
                         default=len(scans) - 1)
-        for label, sl, lim_m, lim_rad in (
-                ("before the first full correction", slice(0, first + 1),
-                 MAX_DEV_M, MAX_DEV_RAD),
-                ("up to the archive verification", slice(0, first_hit + 1),
-                 LOOP_GPS_MAX_DEV_M, LOOP_GPS_MAX_DEV_RAD),
-                ("whole mission", slice(None), LOOP_MAX_DEV_M, LOOP_MAX_DEV_RAD)):
-            dm, dr = float(d[sl, 3:].max()), float(d[sl, :3].max())
-            print(f"archive mission, {label} (scans {sl.start or 0}-"
-                  f"{(sl.stop or len(scans)) - 1}): max deviation from the JAX "
-                  f"reference {dm:.3e} m, {math.degrees(dr):.3e} deg (limits "
-                  f"{lim_m} m, {math.degrees(lim_rad):.2f} deg)", flush=True)
-            if not (dm <= lim_m and dr <= lim_rad):
-                failures.append(f"archive mission, {label}: {dm} m / {dr} rad")
+        failures += deviation_spans("archive mission", poses, fixture["poses"], (
+            ("before the first full correction", slice(0, first + 1),
+             MAX_DEV_M, MAX_DEV_RAD),
+            ("up to the archive verification", slice(0, first_hit + 1),
+             LOOP_GPS_MAX_DEV_M, LOOP_GPS_MAX_DEV_RAD),
+            ("whole mission", slice(None), LOOP_MAX_DEV_M, LOOP_MAX_DEV_RAD)))
         ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
         print(f"archive mission: ATE {ate:.5f} m (JAX reference "
               f"{float(fixture['ate_rmse_m']):.5f} m, limit {LOOP_MAX_ATE_M} m); "
@@ -1380,6 +1415,356 @@ def resume_phase(dev):
     return launches
 
 
+def timed(store):
+    """A `run_wrapped` wrapper that appends each call's host seconds to
+    `store`."""
+    def wrap(fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                store.append(time.perf_counter() - t0)
+        return wrapped
+    return wrap
+
+
+def write_bag(path, kwargs, fixture, key):
+    """The bag through the port's `write_synthetic_bag`; fails unless its
+    sha256 is the one the fixture's reference run replayed.  Returns (truth,
+    seconds)."""
+    import hashlib
+
+    from lio_slam_tpu_torch.io.synthetic_bag import write_synthetic_bag
+
+    t0 = time.perf_counter()
+    truth = write_synthetic_bag(path, **kwargs)
+    seconds = time.perf_counter() - t0
+    digest = hashlib.sha256(open(path, "rb").read()).hexdigest()
+    ref = str(fixture[key + "bag_sha256"])
+    print(f"{key or 'mission '}bag: {os.path.getsize(path)} B written in "
+          f"{seconds:.2f} s (host), sha256 {digest} (the reference replayed "
+          f"{ref})", flush=True)
+    if digest != ref:
+        fail(f"the {key or 'mission '}bag differs from the one the reference "
+             "replayed")
+    return truth, seconds
+
+
+def replay_on_card(runner, path, topics, capture_at):
+    """`replay_bag(runner, path, BagTopics(**topics), use_native=True)` with
+    host timers around the cloud decode, the feed's IMU windowing and
+    `process_scan`, and the arguments of kernel launch number `capture_at`
+    cloned for the kernel check.  Returns (results, loop and GPS factor
+    counts after each scan, seconds, the LiveFeed, timers, captured
+    arguments, launches)."""
+    import torch
+
+    from lio_slam_tpu_torch.io import bag_replay
+    from lio_slam_tpu_torch.io import rosbag as rb
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import live
+
+    timers = {k: [] for k in ("decode", "adapt", "window", "process_scan")}
+    feeds, captured = [], []
+
+    def capturing_feed(cls):
+        def make(*a, **k):
+            feeds.append(cls(*a, **k))
+            return feeds[-1]
+        return make
+
+    def capturing_kernel(kernel):
+        def wrapped(*a, **k):
+            if fc.KERNEL_LAUNCHES == capture_at:
+                captured.append(([x.clone() if isinstance(x, torch.Tensor)
+                                  else x for x in a], dict(k)))
+            return kernel(*a, **k)
+        return wrapped
+
+    restore = [run_wrapped(bag_replay, "LiveFeed", capturing_feed),
+               run_wrapped(rb, "decode_pointcloud2", timed(timers["decode"])),
+               run_wrapped(rb, "scan_from_pointcloud2", timed(timers["adapt"])),
+               run_wrapped(live.LiveFeed, "_window_for", timed(timers["window"])),
+               run_wrapped(runner, "process_scan", timed(timers["process_scan"])),
+               run_wrapped(fc, "fused_ne_from_bucket_ids", capturing_kernel)]
+    results, loops, gps = [], [], []
+    try:
+        fc.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        for r in bag_replay.replay_bag(runner, path,
+                                       bag_replay.BagTopics(**topics),
+                                       use_native=True):
+            results.append(r)
+            loops.append(int(runner.state.loop_count))
+            gps.append(int(runner.state.gps_count))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = fc.KERNEL_LAUNCHES
+    finally:
+        for undo in restore:
+            undo()
+    if len(feeds) != 1 or not feeds[0].native_active:
+        fail("the replay did not run on the native sample queue")
+    if not captured:
+        fail(f"kernel launch {capture_at} never came")
+    return results, loops, gps, seconds, feeds[0], timers, captured[0], launches
+
+
+def print_intake_times(label, n, seconds, timers, write_s, read_s):
+    ms = lambda k: 1e3 * sum(timers[k]) / max(len(timers[k]), 1)
+    print(f"{label} times, host clock ({SMI}): {n} scans in {seconds:.3f} s = "
+          f"{n / seconds:.3f} scans/s over the replay (bag read, decode, feed "
+          f"and process_scan); ms a scan: decode_pointcloud2 {ms('decode'):.3f}, "
+          f"scan_from_pointcloud2 {ms('adapt'):.3f}, the feed's IMU windowing "
+          f"{ms('window'):.3f}, process_scan {ms('process_scan'):.3f}; reading "
+          f"every record of the bag {1e3 * read_s:.1f} ms; bag write "
+          f"{write_s:.2f} s", flush=True)
+
+
+def bag_kernel_check(name, captured):
+    """The kernel on the arguments it was launched with on a bag path, held
+    to its plain version: inliers exact, the sums within rtol 1e-4, and
+    each AtA / Atb entry within rtol 2e-4 / atol 2e-3 of the plain version
+    or, where the entry is a sum that cancels (the bag scenes are close to
+    planar, and a cross term of 1e1 sums terms of 1e4), no farther from the
+    plain version evaluated in float64 than 2e-3 + 2e-4 |entry| plus four
+    times the largest rounding of the plain float32 version itself on the
+    same inputs; that float64 evaluation must then select the same inliers.
+    Returns the largest |AtA, Atb| difference from the plain float32
+    version."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+
+    args, kw = captured
+    out = fc.fused_ne_from_bucket_ids(*args, **kw)
+    ref = fc.fused_ne_from_bucket_ids_ref(*args, **kw)
+    ref64 = fc.fused_ne_from_bucket_ids_ref(
+        *[x.double() if torch.is_tensor(x) and x.dtype == torch.float32 else x
+          for x in args], **kw)
+    g, r, r64 = ([x.detach().double().cpu().numpy() for x in o]
+                 for o in (out, ref, ref64))
+    if int(g[2]) != int(r[2]) or int(g[2]) < 100:
+        fail(f"{name}: inliers {int(g[2])}, plain {int(r[2])}")
+    for i, label in ((3, "sum s"), (4, "sum s|pd2|")):
+        if not np.isclose(g[i], r[i], rtol=1e-4, atol=1e-4):
+            fail(f"{name}: {label} {g[i]} != plain {r[i]}")
+    errs = []
+    for i, label in ((0, "AtA"), (1, "Atb")):
+        band = 2e-3 + 2e-4 * np.abs(r[i])
+        outside = int((np.abs(g[i] - r[i]) > band).sum())
+        rounding = float(np.abs(r[i] - r64[i]).max())
+        far = np.abs(g[i] - r64[i]) - (2e-3 + 2e-4 * np.abs(r64[i]) + 4 * rounding)
+        print(f"kernel check {name} {label}: max |kernel - plain| "
+              f"{np.abs(g[i] - r[i]).max():.3e} ({outside} entries outside rtol "
+              f"2e-4 / atol 2e-3); against the plain version in float64: kernel "
+              f"{np.abs(g[i] - r64[i]).max():.3e}, plain float32 {rounding:.3e}",
+              flush=True)
+        if outside and (int(r64[2]) != int(r[2]) or (far > 0).any()):
+            fail(f"{name}: {label} entries beyond the float32 rounding of the "
+                 f"plain version by up to {far.max()} (float64 inliers "
+                 f"{int(r64[2])})")
+        errs.append(float(np.abs(g[i] - r[i]).max()))
+    print(f"kernel check {name}: inliers {int(g[2])} = plain (float64: "
+          f"{int(r64[2])})", flush=True)
+    return max(errs)
+
+
+def bag_read_seconds(path):
+    from lio_slam_tpu_torch.io import rosbag as rb
+
+    t0 = time.perf_counter()
+    for _ in rb.BagReader(path).read_messages():
+        pass
+    return time.perf_counter() - t0
+
+
+def bag_mission_phase():
+    """Phase 12: the bag mission.  The port writes the 125-scan bag (its
+    sha256 must be the one the reference replayed), replays it through
+    `replay_bag` on the native queues into `Runner(loop_mission_config(),
+    loop_every=10, record_bag=...)` on the card, and holds counts,
+    trajectory, launches and the recorded bag to the JAX reference run.
+    Returns (launches of mapping, of loop verification, the kernel check's
+    largest difference)."""
+    import collections
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.io import rosbag as rb
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+    from lio_slam_tpu_torch.pipeline.runner import Runner
+    from lio_slam_tpu_torch.utils import se3
+
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "bag_mission_jax.npz"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bag_")
+    try:
+        path, rec = os.path.join(tmp, "mission.bag"), os.path.join(tmp, "out.bag")
+        truth, write_s = write_bag(path, sm.bag_mission_bag_kwargs(), fixture, "")
+        cfg = sm.loop_mission_config()
+        runner = Runner(cfg, loop_every=sm.LOOP_EVERY, record_bag=rec)
+        if runner.device.type != "cuda":
+            fail(f"Runner(cfg) chose {runner.device}, not the card")
+        cycles = []
+
+        def counting_detector(detector):
+            def wrapped(state):
+                launches = fc.KERNEL_LAUNCHES
+                state, aux = detector(state)
+                cycles.append({"scan": runner.scan_count - 1,
+                               "iters": sum(aux["loop_iters"]),
+                               "launches": fc.KERNEL_LAUNCHES - launches,
+                               "accepted": aux["loop_accepted"].cpu().numpy()})
+                return state, aux
+            return wrapped
+
+        undo = run_wrapped(runner, "detector", counting_detector)
+        results, loops, gps, seconds, feed, timers, captured, launches = \
+            replay_on_card(runner, path, sm.BAG_TOPICS, BAG_CAPTURE_AT)
+        undo()
+        runner.close()                          # writes the output bag
+        read_s = bag_read_seconds(path)
+        recorded = collections.Counter()
+        odometry = []
+        for m in rb.BagReader(rec).read_messages():
+            recorded[m.topic] += 1
+            if m.topic == "/liorf/mapping/odometry":
+                odometry.append(m.decode().position)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    n = len(results)
+    poses = np.stack([r.pose for r in results])
+    map_iters = sum(r.registration_iters for r in results)
+    ver_iters = sum(c["iters"] for c in cycles)
+    corrected = runner.full_correction_scans
+    got = {"scans": n, "keyframes": int(runner.state.store.count),
+           "loop factors": loops[-1], "GPS factors": gps[-1]}
+    ref = {"scans": len(fixture["poses"]), "keyframes": int(fixture["keyframes"]),
+           "loop factors": int(fixture["loop_count"][-1]),
+           "GPS factors": int(fixture["gps_count"][-1])}
+    ref_rec = dict(zip(fixture["recorded_topics"].tolist(),
+                       fixture["recorded_counts"].tolist()))
+    print(f"bag mission: replayed on the native queues ({feed.native_active}); "
+          "counts (port / JAX): " + ", ".join(f"{k} {got[k]} / {ref[k]}" for k in got)
+          + f"; full corrections at scans {corrected} (JAX "
+          f"{fixture['full_correction_scans'].tolist()}); kernel launches "
+          f"{launches} = {map_iters} GN iterations of mapping + {ver_iters} of "
+          f"loop verification in {sum(1 for c in cycles if c['iters'])} cycle(s) "
+          f"(JAX: {int(fixture['registration_iters'].sum())} of mapping); "
+          f"recorded bag {dict(recorded)} (JAX {ref_rec})", flush=True)
+    failures = [f"{k} {got[k]}, JAX reference {ref[k]}" for k in got
+                if got[k] != ref[k]]
+    if corrected != fixture["full_correction_scans"].tolist():
+        failures.append(f"full corrections at {corrected}")
+    if not np.isfinite(poses).all():
+        failures.append("non-finite poses")
+    if map_iters == 0 or ver_iters == 0 or launches != map_iters + ver_iters \
+            or any(c["launches"] != c["iters"] for c in cycles):
+        failures.append(f"kernel launches {launches} != {map_iters} (mapping) "
+                        f"+ {ver_iters} (verification)")
+    if dict(recorded) != ref_rec or len(odometry) != n:
+        failures.append(f"recorded bag {dict(recorded)}, JAX {ref_rec}")
+    elif not np.abs(np.stack(odometry) - np.stack(runner.trajectory)[:, 3:]).max() <= 1e-6:
+        failures.append("the recorded odometry is not the trajectory")
+    if failures:
+        fail("; ".join(failures))
+
+    first = min(fixture["full_correction_scans"].tolist() + corrected,
+                default=n - 1)
+    first_loop = min([c["scan"] for c in cycles if c["iters"]]
+                     + [int(s) for s, a in zip(fixture["cycle_scan"],
+                                               fixture["loop_accepted"]) if a.any()],
+                     default=n - 1)
+    failures = deviation_spans("bag mission", poses, fixture["poses"], (
+        ("before the first full correction", slice(0, first + 1), MAX_DEV_M,
+         MAX_DEV_RAD),
+        ("up to the first loop verification", slice(0, first_loop + 1),
+         LOOP_GPS_MAX_DEV_M, LOOP_GPS_MAX_DEV_RAD),
+        ("whole mission", slice(None), LOOP_MAX_DEV_M, LOOP_MAX_DEV_RAD)))
+    p0 = torch.from_numpy(truth.poses[0])
+    rel = np.stack([se3.pose6_between(p0, torch.from_numpy(p)).numpy()
+                    for p in truth.poses])
+    ate = synthetic.ate_rmse(poses, rel)
+    print(f"bag mission: ATE {ate:.5f} m against the rebased truth (JAX "
+          f"reference {float(fixture['ate_rmse_m']):.5f} m, limit "
+          f"{LOOP_MAX_ATE_M} m); mapping_error {runner.mapping_error}", flush=True)
+    if not ate <= LOOP_MAX_ATE_M:
+        failures.append(f"bag mission: ATE {ate} m")
+    if failures:
+        fail("; ".join(failures))
+    print_intake_times("bag mission", n, seconds, timers, write_s, read_s)
+    err = bag_kernel_check(f"bag-mission launch {BAG_CAPTURE_AT}", captured)
+    return map_iters, ver_iters, err
+
+
+def hostile_bag_phase():
+    """Phase 13: the hostile bag (bz2 chunks, the Robosense layout, write
+    jitter, duplicated IMU messages, an IMU dropout, GPS at 100 Hz), 40
+    scans at full width through `replay_bag` into
+    `Runner(hostile_bag_config())` on the card, held to the JAX reference
+    run.  Returns (kernel launches, the kernel check's largest
+    difference)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+    from lio_slam_tpu_torch.pipeline.runner import Runner
+
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "bag_mission_jax.npz"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hostile_")
+    try:
+        path = os.path.join(tmp, "hostile.bag")
+        _, write_s = write_bag(path, sm.hostile_bag_kwargs(), fixture, "hostile_")
+        runner = Runner(sm.hostile_bag_config())
+        results, _, gps, seconds, feed, timers, captured, launches = \
+            replay_on_card(runner, path, sm.HOSTILE_TOPICS,
+                           HOSTILE_CAPTURE_AT)
+        read_s = bag_read_seconds(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = len(results)
+    iters = sum(r.registration_iters for r in results)
+    is_kf = np.array([r.is_keyframe for r in results])
+    ref_kf = fixture["hostile_is_keyframe"]
+    print(f"hostile bag: {n} scans (JAX {len(ref_kf)}) on the native queues "
+          f"({feed.native_active}); keyframe flags differ at scans "
+          f"{np.nonzero(is_kf != ref_kf)[0].tolist() if len(is_kf) == len(ref_kf) else 'all'}; "
+          f"GPS factors {gps[-1]} (JAX {int(fixture['hostile_gps_count'][-1])}); "
+          f"kernel launches {launches} == GN iterations {iters} (JAX "
+          f"{int(fixture['hostile_registration_iters'].sum())})", flush=True)
+    poses = np.stack([r.pose for r in results])
+    if n != len(ref_kf) or not np.isfinite(poses).all():
+        fail(f"hostile bag: {n} scans, finite {bool(np.isfinite(poses).all())}")
+    failures = []
+    if (is_kf != ref_kf).any() or gps[-1] != int(fixture["hostile_gps_count"][-1]):
+        failures.append("hostile bag: keyframe flags or GPS factors differ")
+    if launches != iters or launches == 0:
+        failures.append(f"hostile bag: {launches} launches, {iters} GN iterations")
+    first_gps = min(int(np.argmax(np.asarray(gps) > 0)),
+                    int(np.argmax(fixture["hostile_gps_count"] > 0)))
+    failures += deviation_spans("hostile bag", poses, fixture["hostile_poses"], (
+        ("before the first GPS factor", slice(0, max(first_gps, 1)), MAX_DEV_M,
+         MAX_DEV_RAD),
+        ("whole mission", slice(None), LOOP_GPS_MAX_DEV_M, LOOP_GPS_MAX_DEV_RAD)))
+    if failures:
+        fail("; ".join(failures))
+    print_intake_times("hostile bag", n, seconds, timers, write_s, read_s)
+    err = bag_kernel_check(f"hostile-bag launch {HOSTILE_CAPTURE_AT}", captured)
+    return launches, err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-dir", default=None,
@@ -1394,41 +1779,69 @@ def main():
     sys.path.insert(0, ROOT)
     from lio_slam_tpu_torch.ops import _build
 
+    global SMI
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
+    SMI = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+           else f"nvidia-smi: {smi.stderr.strip()}")
+    print(SMI, flush=True)
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} on {name}",
           flush=True)
 
+    # both libraries build at once: nvcc the kernel, g++ the host runtime
+    # of the bag phases (a runtime that does not build fails the run)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lio_slam_tpu_torch.io import native
+
     t0 = time.perf_counter()
-    _build.load_fused_corr()
+    with ThreadPoolExecutor(2) as pool:
+        host = pool.submit(lambda: (native.load(), time.perf_counter() - t0))
+        _build.load_fused_corr()
+        kernel_s = time.perf_counter() - t0
+        host_s = host.result()[1]
     built = ("an existing build" if _build.BUILD_SECONDS is None
              else f"nvcc {_build.BUILD_SECONDS:.2f} s")
-    print(f"kernel library ready in {time.perf_counter() - t0:.2f} s ({built})",
-          flush=True)
+    print(f"kernel library ready in {kernel_s:.2f} s ({built}); host runtime "
+          f"(g++, io/csrc/liorf_runtime.cpp) ready in {host_s:.2f} s, built "
+          "alongside", flush=True)
     for line in _build.BUILD_LOG.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
+    def phase(label, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"{label}: {time.perf_counter() - t0:.1f} s wall", flush=True)
+        return out
+
     warm_profiler(dev)
-    k = kernel_phase(dev)
-    launches = mission_phase(dev, args.profile_dir)
-    loop_map, loop_ver, loop_err = loop_mission_phase(args.profile_dir)
-    arch, arch_err = archive_mission_phase(args.profile_dir)
-    resumed = resume_phase(dev)
+    k = phase("phase 2 (kernel)", kernel_phase, dev)
+    launches = phase("phases 3-5 (mission, carried, profiled)", mission_phase,
+                     dev, args.profile_dir)
+    loop_map, loop_ver, loop_err = phase("phases 6-8 (loop mission, kernel "
+                                         "check, solvers)", loop_mission_phase,
+                                         args.profile_dir)
+    arch, arch_err = phase("phases 9-10 (archive mission, products)",
+                           archive_mission_phase, args.profile_dir)
+    resumed = phase("phase 11 (resume)", resume_phase, dev)
+    bag_map, bag_ver, bag_err = phase("phase 12 (bag mission)", bag_mission_phase)
+    hostile, hostile_err = phase("phase 13 (hostile bag)", hostile_bag_phase)
     paths = {"mission": launches, "loop_mapping": loop_map,
-             "loop_verification": loop_ver, **arch, "resume": resumed}
+             "loop_verification": loop_ver, **arch, "resume": resumed,
+             "bag_mapping": bag_map, "bag_loop_verification": bag_ver,
+             "hostile_bag": hostile}
     print(json.dumps({"kernels": [{
         "name": "fused_corr", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/fused_corr.cu",
         "replaces": "lio_slam_tpu/ops/fused_corr.py:124",
         "launches": sum(paths.values()),
         **{f"launches_{p}": v for p, v in paths.items()},
-        "max_abs_err": max(k["max_abs_err"], loop_err, arch_err),
+        "max_abs_err": max(k["max_abs_err"], loop_err, arch_err, bag_err,
+                           hostile_err),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None, "cold_ms": k["cold_ms"],
         "entry_ms": k["entry_ms"], "entry_plain_ms": k["entry_plain_ms"]}]}),

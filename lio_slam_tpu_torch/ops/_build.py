@@ -1,9 +1,14 @@
-"""Build the port's CUDA kernels with nvcc and bind them through ctypes.
+"""Build the port's native libraries and bind them through ctypes.
 
-The shared library is compiled on first use from `ops/csrc/*.cu` into
-`build/lio_slam_tpu_torch/` at the repository root (listed in .gitignore),
-named by a hash of the sources and flags, so an edited source rebuilds.
-Nothing here runs at import time: the CPU-only tests import every module.
+- The CUDA kernel library, compiled with nvcc from `ops/csrc/*.cu`.
+- The host runtime (SPSC queues, the PCD fast path, a host voxel
+  downsample), compiled with g++ from `io/csrc/liorf_runtime.cpp`; it needs
+  no CUDA and builds on any machine with a C++17 compiler.
+
+Each is compiled on first use into `build/lio_slam_tpu_torch/` at the
+repository root (listed in .gitignore), named by a hash of its sources and
+flags, so an edited source rebuilds.  Nothing here runs at import time: the
+CPU-only tests import every module.
 """
 
 from __future__ import annotations
@@ -18,12 +23,15 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 _SOURCES = (_PKG / "csrc" / "fused_corr.cu",)
+_HOST_SOURCES = (_PKG.parent / "io" / "csrc" / "liorf_runtime.cpp",)
 BUILD_DIR = _PKG.parents[1] / "build" / "lio_slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _lib = None
+_host_lib = None
 BUILD_SECONDS = None      # wall time of this process's compile (None if cached)
 BUILD_LOG = ""            # nvcc's output (ptxas register / spill report)
 
@@ -40,11 +48,28 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _SOURCES:
+def _digest(flags, sources) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _compile(compiler: str, flags, sources, so: Path) -> tuple:
+    """Compile `sources` into `so` (through a temporary name, which keeps
+    concurrent builders apart); returns (seconds, compiler output)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [compiler, *flags, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"{os.path.basename(compiler)} failed "
+                           f"({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, so)
+    return seconds, log
 
 
 def load_fused_corr() -> ctypes.CDLL:
@@ -53,19 +78,9 @@ def load_fused_corr() -> ctypes.CDLL:
     global _lib, BUILD_SECONDS, BUILD_LOG
     if _lib is not None:
         return _lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"liblio_kernels_{_digest()}.so"
+    so = BUILD_DIR / f"liblio_kernels_{_digest(NVCC_FLAGS, _SOURCES)}.so"
     if not so.exists():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{BUILD_LOG}")
-        os.replace(tmp, so)
+        BUILD_SECONDS, BUILD_LOG = _compile(_nvcc(), NVCC_FLAGS, _SOURCES, so)
     lib = ctypes.CDLL(str(so))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # table, T, C, hh, O, scan, mask, N, pose6, three thresholds, then
@@ -77,3 +92,22 @@ def load_fused_corr() -> ctypes.CDLL:
     lib.lio_fused_corr_scratch_floats.restype = ci
     _lib = lib
     return lib
+
+
+def load_host_runtime() -> ctypes.CDLL:
+    """Return the host runtime library (`io/csrc/liorf_runtime.cpp`),
+    compiling it with g++ (or $CXX) if this source has no build; raises
+    RuntimeError when the compiler is missing or fails.  `io/native.py`
+    declares its functions."""
+    global _host_lib
+    if _host_lib is not None:
+        return _host_lib
+    so = BUILD_DIR / f"libliorf_runtime_{_digest(HOST_FLAGS, _HOST_SOURCES)}.so"
+    if not so.exists():
+        cxx = os.environ.get("CXX") or shutil.which("g++")
+        if not cxx:
+            raise RuntimeError("g++ not found: the host runtime needs a C++17 "
+                               "compiler (set CXX or put g++ on PATH)")
+        _compile(cxx, HOST_FLAGS, _HOST_SOURCES, so)
+    _host_lib = ctypes.CDLL(str(so))
+    return _host_lib

@@ -15,16 +15,20 @@ the CUDA device unless the caller passes `device="cpu"`:
 
 What the host needs of a scan is queued and copied off the device
 asynchronously (`fetch_every`, `drain`); the archive, the mission log and
-the trajectory are fed from that queue.  Checkpoints (`save_checkpoint`,
-`auto_checkpoint`, `Runner.resume`) use the JAX package's format.  Not
-ported: bag recording (`record_bag`) and the sharded mesh (`mesh`); asking
-for either raises NotImplementedError.
+the trajectory are fed from that queue, and so is the output bag
+(`record_bag`: odometry, gpsdata and sensor_fusion_output records).
+Checkpoints (`save_checkpoint`, `auto_checkpoint`, `Runner.resume`) use the
+JAX package's format.  Not ported: the sharded mesh (`mesh`, which needs
+more than one card); asking for it raises NotImplementedError.
 
-CLI:
+CLI (a ROS1 bag through `io/bag_replay.py`, or the synthetic mission):
+    python -m lio_slam_tpu_torch.pipeline.runner --bag X.bag \
+        [--lidar-topic T] [--imu-topic T] [--gps-topic T] [--sensor S] \
+        [--record-bag out.bag] [--device cpu] [...]
     python -m lio_slam_tpu_torch.pipeline.runner --synthetic --scans 20 \
         --points 8192 [--loop-every 10] [--device cpu] [--mission-log F] \
         [--auto-checkpoint F --checkpoint-every N] [--resume-from F] \
-        [--save-map DIR] [--report-timing]
+        [--save-map DIR] [--record-bag out.bag] [--report-timing]
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch
 
 from lio_slam_tpu_torch.config import Config, get_config
 from lio_slam_tpu_torch.io import formats
+from lio_slam_tpu_torch.io import rosbag as rb
 from lio_slam_tpu_torch.ops import deskew as deskew_mod
 from lio_slam_tpu_torch.pipeline import archive as arch_mod
 from lio_slam_tpu_torch.pipeline import checkpoint
@@ -95,12 +100,15 @@ class Runner:
         parity, module_loam.launch:5-8); `Runner.resume(path, cfg)` restarts
         from it.
 
-        `record_bag` and `mesh` mirror the JAX Runner's; they are not
-        ported, and anything but None raises."""
-        unported = [name for name, v in (("record_bag", record_bag),
-                                          ("mesh", mesh)) if v is not None]
-        if unported:
-            raise NotImplementedError("not ported yet: " + ", ".join(unported))
+        `record_bag`: write the odometry / gpsdata outputs to a ROS1 bag at
+        that path, one set of records per drained scan (the reference's
+        saveBagFlag, mapOptmization.cpp:243-246); written at `close()`.
+
+        `mesh` mirrors the JAX Runner's sharded mission; it is not ported
+        (it needs more than one card), and anything but None raises."""
+        if mesh is not None:
+            raise NotImplementedError("not ported yet: mesh (the sharded "
+                                      "mission)")
         self.cfg = cfg or get_config("default")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -131,6 +139,7 @@ class Runner:
         self.mapping_error = False
         self.keyframe_evictions = 0
         self._mission_log = open(mission_log, "w") if mission_log else None
+        self._bag = rb.BagWriter(record_bag) if record_bag else None
         self._log_counts = (0, 0, 0)
         self._last_pose_dev: Optional[torch.Tensor] = None
         self._imu_ready = False
@@ -557,6 +566,9 @@ class Runner:
                 self._log_counts = (int(vals["kf_count"]),
                                     int(vals["loop_count"]),
                                     int(vals["gps_count"]))
+            if self._bag is not None:
+                self._record_outputs(stamp, result)
+            if self._mission_log is not None:
                 self._log_step(stamp, t, result)
                 if "loop_accepted" in vals:
                     ev = self.keyframe_evictions
@@ -608,6 +620,41 @@ class Runner:
         if last:
             rec["stage_ms"] = {k: round(v * 1e3, 3) for k, v in last.items()}
         self._mission_log.write(json.dumps(rec) + "\n")
+
+    def _record_outputs(self, stamp: float, r: ScanResult):
+        """saveBagFlag parity: per mapping step, write the global odometry
+        (and gpsdata once an ENU datum exists) to the output bag, carrying the
+        degenerate flag in covariance[0] (publishOdometry :2309-2312)."""
+        q = se3.matrix_to_quat(se3.rpy_to_matrix(
+            torch.from_numpy(r.pose[:3]))).numpy().astype(np.float64)  # wxyz
+        quat_xyzw = np.array([q[1], q[2], q[3], q[0]])
+        cov = np.zeros(36)
+        cov[0] = 1.0 if r.degenerate else 0.0
+        self._bag.write(
+            "/liorf/mapping/odometry", "nav_msgs/Odometry",
+            rb.encode_odometry(stamp, r.pose[3:6].astype(np.float64),
+                               quat_xyzw, pose_covariance=cov,
+                               frame_id="odom", child="base_link"), stamp)
+        if self.gps_intake.datum is not None:
+            fo = self.fusion_output(stamp)
+            self._bag.write(
+                "/liorf/gpsdata", "sensor_driver_msgs/GpswithHeading",
+                rb.encode_gps_with_heading(
+                    stamp, fo.latitude, fo.longitude, fo.altitude,
+                    fo.heading, fo.pitch, fo.roll, mode=fo.mode), stamp)
+            # the FSM-arbitrated record (gpsDataHandler :707-724)
+            so, _src = self.sensor_fusion_output(stamp)
+            self._bag.write(
+                "/sensor_fusion_output", "sensor_driver_msgs/GpswithHeading",
+                rb.encode_gps_with_heading(
+                    stamp, so.latitude, so.longitude, so.altitude,
+                    so.heading, so.pitch, so.roll, mode=so.mode), stamp)
+
+    def close_bag(self):
+        """Write the output bag (its records are held until now)."""
+        if self._bag is not None:
+            self._bag.close()
+            self._bag = None
 
     # -- the keyframe archive ---------------------------------------------
 
@@ -719,8 +766,8 @@ class Runner:
     def close(self):
         """Shutdown: drain, write the auto-checkpoint, save the global map
         when cfg.output.save_pcd is set (visualizeGlobalMapThread :981-989
-        saves at exit under savePCD), close the mission log.  Returns the
-        SaveMapResult or None."""
+        saves at exit under savePCD), write the output bag, close the
+        mission log.  Returns the SaveMapResult or None."""
         self.drain()
         if self._auto_checkpoint is not None and self.scan_count:
             # a clean shutdown leaves the freshest state for resume
@@ -729,6 +776,7 @@ class Runner:
         if self.cfg.output.save_pcd and int(self.state.store.count) > 0:
             result = self.save_map(self.cfg.output.save_directory,
                                    resolution=self.cfg.output.global_map_leaf_size)
+        self.close_bag()
         if self._mission_log is not None:
             self._mission_log.close()
             self._mission_log = None
@@ -906,12 +954,7 @@ def _run_synthetic(args):
     from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
 
     cfg = get_config(args.preset)
-    runner = Runner(cfg, device=args.device, loop_every=args.loop_every,
-                    mission_log=args.mission_log,
-                    auto_checkpoint=args.auto_checkpoint,
-                    checkpoint_every=args.checkpoint_every)
-    if args.resume_from:
-        runner.load_checkpoint(args.resume_from)
+    runner = _cli_runner(args, cfg)
     seq = synthetic.make_sequence(n_scans=args.scans, n_points=args.points,
                                   seed=args.seed)
     scans, imus = sm.synthetic_inputs(seq, cfg)
@@ -937,13 +980,61 @@ def _run_synthetic(args):
         "loops": int(runner.state.loop_count),
         "full_corrections": len(runner.full_correction_scans),
         "mapping_error": runner.mapping_error}
+    _finish(args, runner, summary)
+
+
+def _cli_runner(args, cfg: Config) -> Runner:
+    runner = Runner(cfg, device=args.device, loop_every=args.loop_every,
+                    record_bag=args.record_bag, mission_log=args.mission_log,
+                    auto_checkpoint=args.auto_checkpoint,
+                    checkpoint_every=args.checkpoint_every)
+    if args.resume_from:
+        runner.load_checkpoint(args.resume_from)
+    return runner
+
+
+def _finish(args, runner: Runner, summary: dict):
+    """The CLI's end of a mission: the saved map, the output bag, the
+    summary line and the timing report."""
     if args.save_map:
         summary["saved"] = runner.save_map(args.save_map, resolution=0.4).files
     runner.close()
+    if args.record_bag:
+        summary["recorded_bag"] = args.record_bag
     print(json.dumps(summary))
     if args.report_timing:
         print(runner.timer.report(), file=sys.stderr)
         print(f"health: {runner.health()}", file=sys.stderr)
+
+
+def _run_bag(args):
+    """rosbag replay: the reference's `rosbag play` + launch workflow
+    (src/liorf/README.md:137-158) in one process."""
+    from lio_slam_tpu_torch.io.bag_replay import BagTopics, replay_bag
+
+    runner = _cli_runner(args, get_config(args.preset))
+    topics = BagTopics(lidar=args.lidar_topic, imu=args.imu_topic,
+                       gps=args.gps_topic, sensor=args.sensor)
+    t0 = time.perf_counter()
+    n = 0
+    last = None
+    for r in replay_bag(runner, args.bag, topics,
+                        max_scans=args.scans or None):
+        n += 1
+        last = r
+    if runner.device.type == "cuda":
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    summary = {
+        "device": str(runner.device), "bag": args.bag, "scans": n,
+        "elapsed_s": round(elapsed, 3),
+        "scans_per_sec": round(n / max(elapsed, 1e-9), 3),
+        "keyframes": int(runner.state.store.count),
+        "loops": int(runner.state.loop_count),
+        "final_pose": None if last is None else
+            [round(float(v), 4) for v in last.pose],
+        "mapping_error": runner.mapping_error}
+    _finish(args, runner, summary)
 
 
 def main():
@@ -951,8 +1042,17 @@ def main():
         description="lio_slam_tpu_torch mission runner (PyTorch port); the "
                     "preset runs as it is, keyframe archive included")
     ap.add_argument("--synthetic", action="store_true",
-                    help="run the synthetic mission (the only input so far)")
-    ap.add_argument("--scans", type=int, default=40)
+                    help="run the synthetic mission")
+    ap.add_argument("--bag", default=None, help="replay a ROS1 .bag file")
+    ap.add_argument("--lidar-topic", default="/velodyne_points")
+    ap.add_argument("--imu-topic", default="/imu/data")
+    ap.add_argument("--gps-topic", default=None)
+    ap.add_argument("--sensor", default="velodyne",
+                    choices=["velodyne", "ouster", "robosense", "mulran",
+                             "livox", "rs_xyzi"])
+    ap.add_argument("--scans", type=int, default=40,
+                    help="scans of the synthetic mission; the most a bag "
+                         "replay processes (0: all)")
     ap.add_argument("--points", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--preset", default="default")
@@ -962,6 +1062,9 @@ def main():
                     help="cuda (the default) or cpu")
     ap.add_argument("--save-map", default=None,
                     help="write the map PCDs to this directory at the end")
+    ap.add_argument("--record-bag", default=None,
+                    help="write odometry/gpsdata outputs to a .bag "
+                         "(reference saveBagFlag)")
     ap.add_argument("--report-timing", action="store_true",
                     help="print the per-stage timing report at the end")
     ap.add_argument("--mission-log", default=None,
@@ -974,9 +1077,13 @@ def main():
     ap.add_argument("--resume-from", default=None,
                     help="restore a checkpoint before the mission starts")
     args = ap.parse_args()
-    if not args.synthetic:
-        ap.error("pass --synthetic; bag replay is not ported yet")
-    _run_synthetic(args)
+    if args.bag:
+        _run_bag(args)
+    elif args.synthetic:
+        _run_synthetic(args)
+    else:
+        ap.error("pass --synthetic or --bag <file>; "
+                 "use the Runner API for live feeds")
 
 
 if __name__ == "__main__":

@@ -48,6 +48,40 @@ RELOC_SCANS = (5, 75, 95)
 # the checkpoint of the resume check, within the 40-scan mission
 RESUME_AT = 20
 
+# the bag missions: ROS1 bags written by io/synthetic_bag.py, replayed by
+# io/bag_replay.py
+BAG_SCANS = 125
+HOSTILE_SCANS = 40
+BAG_TOPICS = {"gps": "/gps/fix", "raw_gps": "/gpsdata"}
+HOSTILE_TOPICS = {"gps": "/gps/fix", "sensor": "robosense"}
+
+
+def bag_mission_bag_kwargs() -> dict:
+    """`write_synthetic_bag` arguments of the bag mission: the loop
+    mission's circle (2 m/s, 0.6 rad/s, a 60 m world) as a 10 Hz lidar of
+    32768 points sees it, at epoch stamps, with 100 Hz 9-axis IMU, a
+    NavSatFix a scan (covariance 0.25 m^2) and the raw GpswithHeading
+    stream.  Replayed through `loop_mission_config()`."""
+    return dict(n_scans=BAG_SCANS, n_points=SMOKE_POINTS, seed=SMOKE_SEED,
+                epoch=1.7e9, scan_period=0.1, sweep_time=0.1, imu_rate=100.0,
+                speed=LOOP_SPEED, yaw_rate=LOOP_YAW_RATE,
+                world_extent=LOOP_EXTENT, gps=True, gps_cov=0.25,
+                raw_gps_topic=BAG_TOPICS["raw_gps"])
+
+
+def hostile_bag_kwargs() -> dict:
+    """`write_synthetic_bag` arguments of the hostile bag: the options of
+    tests/test_hostile_bag.py (bz2 chunks, the Robosense layout with f64
+    absolute point stamps, write-order jitter, every 7th IMU message
+    duplicated, an IMU dropout, GPS at ten times the scan rate) on a 10 Hz
+    lidar of 32768 points, 40 scans of a straight line.  Replayed through
+    `hostile_bag_config()`."""
+    return dict(n_scans=HOSTILE_SCANS, n_points=SMOKE_POINTS, seed=5,
+                epoch=1.7e9, scan_period=0.1, speed=2.0, yaw_rate=0.0,
+                gps=True, gps_cov=0.25, gps_rate_hz=100.0, compression="bz2",
+                sensor_layout="robosense", shuffle_window=0.005, dup_every=7,
+                drop_imu_spans=((1.5, 1.8),))
+
 
 def bench_config() -> Config:
     """The shapes of `bench.py:bench_config()` (8192 registered points
@@ -95,6 +129,17 @@ def archive_mission_config() -> Config:
         static=dataclasses.replace(base.static,
                                    max_keyframes=ARCHIVE_MAX_KEYFRAMES),
         loop=dataclasses.replace(base.loop, archive_enabled=True))
+
+
+def hostile_bag_config() -> Config:
+    """`bench_config()` with the GPS settings of tests/test_hostile_bag.py:
+    the covariance gate at 2 m^2, no pose-covariance gate, a factor every
+    2 m once 3 m from the start."""
+    return dataclasses.replace(
+        bench_config(),
+        gps=GpsConfig(use_gps=True, gps_cov_threshold=2.0,
+                      pose_cov_threshold=0.0, min_travel_before_gps=3.0,
+                      gps_distance_frequency=2.0))
 
 
 def synthetic_inputs(seq: SyntheticSequence, cfg: Config):

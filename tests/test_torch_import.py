@@ -74,6 +74,59 @@ def test_archive_checkpoint_and_product_modules_import_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_bag_io_modules_import_no_jax():
+    """The bag entry point's modules by name; the host runtime they load is
+    built from the port's own C++ copy."""
+    out = _imports_no_jax(("io.formats", "io.rosbag", "io.native",
+                           "io.bag_replay", "io.synthetic_bag", "pipeline.live"))
+    assert out.returncode == 0, out.stderr
+    for rel in ("io/native.py", "ops/_build.py"):
+        src = open(os.path.join(ROOT, "lio_slam_tpu_torch", rel)).read()
+        assert "native/" not in src.replace("io/native", ""), rel
+
+
+def test_bag_mission_fixture_matches_its_configuration():
+    """The recorded JAX replays of the two bags: the bag mission's length,
+    its loop and GPS factors, full corrections and recorded topics; the
+    hostile bag's length and GPS factors; and the parameter sets of
+    `synthetic_mission` that chip_smoke.py writes the bags with."""
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    f = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                             "bag_mission_jax.npz"))
+    kw, hk = sm.bag_mission_bag_kwargs(), sm.hostile_bag_kwargs()
+    assert (kw["n_scans"], kw["n_points"], kw["seed"], kw["epoch"]) == \
+        (sm.BAG_SCANS, 32768, 0, 1.7e9)
+    assert (kw["scan_period"], kw["sweep_time"], kw["imu_rate"], kw["speed"],
+            kw["yaw_rate"], kw["world_extent"]) == (0.1, 0.1, 100.0, 2.0, 0.6, 60.0)
+    assert kw["gps"] and kw["gps_cov"] == 0.25 and kw["raw_gps_topic"] == "/gpsdata"
+    assert (hk["n_scans"], hk["n_points"], hk["seed"], hk["yaw_rate"]) == \
+        (sm.HOSTILE_SCANS, 32768, 5, 0.0)
+    assert (hk["compression"], hk["sensor_layout"], hk["shuffle_window"],
+            hk["dup_every"], hk["drop_imu_spans"], hk["gps_rate_hz"]) == \
+        ("bz2", "robosense", 0.005, 7, ((1.5, 1.8),), 100.0)
+    assert sm.BAG_TOPICS == {"gps": "/gps/fix", "raw_gps": "/gpsdata"}
+    assert sm.HOSTILE_TOPICS == {"gps": "/gps/fix", "sensor": "robosense"}
+    g = sm.hostile_bag_config().gps
+    assert (g.use_gps, g.gps_cov_threshold, g.pose_cov_threshold,
+            g.min_travel_before_gps, g.gps_distance_frequency) == \
+        (True, 2.0, 0.0, 3.0, 2.0)
+    assert sm.hostile_bag_config().static == sm.bench_config().static
+
+    assert f["poses"].shape == (sm.BAG_SCANS, 6)
+    assert f["hostile_poses"].shape == (sm.HOSTILE_SCANS, 6)
+    assert len(str(f["bag_sha256"])) == len(str(f["hostile_bag_sha256"])) == 64
+    assert int(f["loop_count"][-1]) >= 1 and int(f["gps_count"][-1]) >= 1
+    assert int(f["hostile_gps_count"][-1]) >= 1
+    assert len(f["full_correction_scans"]) >= 2
+    assert f["cycle_scan"].tolist() == list(range(sm.LOOP_EVERY - 1, sm.BAG_SCANS,
+                                                  sm.LOOP_EVERY))
+    counts = dict(zip(f["recorded_topics"].tolist(), f["recorded_counts"].tolist()))
+    assert counts["/liorf/mapping/odometry"] == sm.BAG_SCANS
+    assert counts["/liorf/gpsdata"] == counts["/sensor_fusion_output"] >= 1
+    assert float(f["ate_rmse_m"]) < 1.0 and float(f["hostile_ate_rmse_m"]) < 1.0
+
+
 def test_loop_mission_fixture_matches_its_configuration():
     """The recorded JAX run of the loop mission has the mission's length and
     holds what chip_smoke.py compares: at least one loop and one GPS factor
@@ -141,11 +194,14 @@ def test_port_mirrors_module_paths():
                 "graph/sparse.py", "utils/enu.py", "pipeline/gps_fusion.py",
                 "pipeline/loop_closure.py", "pipeline/keyframes.py",
                 "pipeline/lio.py", "pipeline/imu_frontend.py",
-                "pipeline/runner.py"):
+                "pipeline/runner.py", "io/rosbag.py", "io/native.py",
+                "io/bag_replay.py", "io/synthetic_bag.py", "pipeline/live.py"):
         assert os.path.exists(os.path.join(ROOT, "lio_slam_tpu", rel)), rel
         assert os.path.exists(os.path.join(ROOT, "lio_slam_tpu_torch", rel)), rel
     assert os.path.exists(os.path.join(ROOT, "lio_slam_tpu_torch", "ops",
                                        "csrc", "fused_corr.cu"))
+    assert os.path.exists(os.path.join(ROOT, "lio_slam_tpu_torch", "io",
+                                       "csrc", "liorf_runtime.cpp"))
 
 
 @pytest.mark.parametrize("preset", sorted(jax_config.PRESETS))

@@ -161,17 +161,20 @@ def test_step_from_carried_state():
     assert int(tb.store.count) == int(ja.store.count) == 2
 
 
-def test_unported_features_refused():
-    """Only bag recording and the sharded mesh are still refused, by name;
-    the keyframe archive, batched fetches, checkpoints and the mission log
-    are ported, so the default config builds as it is."""
+def test_unported_features_refused(tmp_path):
+    """Only the sharded mesh is still refused, by name; bag recording, the
+    keyframe archive, batched fetches, checkpoints and the mission log are
+    ported, so the default config builds as it is."""
     cfg = small_config(port_config)
-    with pytest.raises(NotImplementedError, match="record_bag"):
-        Runner(cfg, device="cpu", record_bag="out.bag")
+    recording = Runner(cfg, device="cpu", record_bag=str(tmp_path / "out.bag"))
+    assert recording._bag is not None
+    recording.close()
+    assert os.path.exists(tmp_path / "out.bag") and recording._bag is None
     with pytest.raises(NotImplementedError, match="mesh"):
         Runner(cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="record_bag, mesh"):
-        Runner(cfg, device="cpu", record_bag="out.bag", mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Runner(cfg, device="cpu", record_bag=str(tmp_path / "b.bag"),
+               mesh=object())
     # the default loop configuration has the keyframe archive on
     archived = Runner(dataclasses.replace(cfg, loop=port_config.LoopClosureConfig()),
                       device="cpu", fetch_every=4, auto_checkpoint="ckpt.npz",
@@ -611,8 +614,8 @@ def run_cli(*args):
 
 def test_cli_help_says_loop_closure_is_off():
     """The CLI runs the preset as it is (the keyframe archive no longer
-    switched off) and offers the mission-log, checkpoint, map and timing
-    flags of the JAX CLI; bag replay is still refused."""
+    switched off) and offers every flag of the JAX CLI, bag replay and
+    recording included; without an input it asks for one."""
     out = run_cli("--help")
     assert out.returncode == 0, out.stderr
     text = " ".join(out.stdout.split())
@@ -620,11 +623,12 @@ def test_cli_help_says_loop_closure_is_off():
     assert "not ported" not in text
     for flag in ("--loop-every", "--mission-log", "--auto-checkpoint",
                  "--checkpoint-every", "--resume-from", "--save-map",
-                 "--report-timing"):
+                 "--report-timing", "--bag", "--lidar-topic", "--imu-topic",
+                 "--gps-topic", "--sensor", "--record-bag"):
         assert flag in out.stdout, flag
-    assert "--record-bag" not in out.stdout and "--bag" not in out.stdout
     refused = run_cli("--scans", "1", "--device", "cpu")
-    assert refused.returncode != 0 and "bag replay is not ported" in refused.stderr
+    assert refused.returncode != 0
+    assert "pass --synthetic or --bag" in refused.stderr
 
 
 def test_runner_defaults_to_the_card_and_never_falls_back():

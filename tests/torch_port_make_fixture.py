@@ -22,6 +22,17 @@ CPU over exactly those missions and saves what the smoke run compares:
   counts, the scans of the full corrections; then on the final state the
   map products' counts (SOR-kept points, occupied height cells, saved map
   points at 0.4 m) and the relocalization of three first-lap scans.
+- `bag_mission_jax.npz`: the two bags of `synthetic_mission`
+  (`bag_mission_bag_kwargs()`, `hostile_bag_kwargs()`), written by the
+  port's `write_synthetic_bag` and replayed through the JAX `replay_bag` +
+  `Runner`: the bags' sha256 and sizes; for the bag mission
+  (`loop_mission_config()`, the loop detector every 10 scans, an output
+  bag recorded) per-scan poses, keyframe flags, GN iterations, loop and
+  GPS factor counts, the detector cycles, the scans of the full
+  corrections, the ATE against the rebased truth and the output bag's
+  records per topic; for the hostile bag (`hostile_bag_config()`) per-scan
+  poses, keyframe flags, GN iterations and GPS factor counts (keys with
+  the prefix `hostile_`).
 
 On the CPU the JAX registration takes its unfused path, which finds fresh
 correspondences at every GN iteration whatever `corr_refresh_every` says
@@ -30,10 +41,10 @@ correspondences at every GN iteration whatever `corr_refresh_every` says
 path it takes off the CPU, with the Pallas kernel in interpret mode and the
 candidate block held between refreshes, as the port does.
 
-Run by hand from the repository root (`smoke`, `loop`, `archive`, or all
-three when no argument is given):
+Run by hand from the repository root (`smoke`, `loop`, `archive`, `bag`,
+or all four when no argument is given):
 
-    python tests/torch_port_make_fixture.py [smoke|loop|archive]
+    python tests/torch_port_make_fixture.py [smoke|loop|archive|bag]
 
 It is not a test (pytest does not collect it).
 """
@@ -68,6 +79,7 @@ FIXTURES = os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures")
 OUT = os.path.join(FIXTURES, "smoke_mission_jax.npz")
 LOOP_OUT = os.path.join(FIXTURES, "loop_mission_jax.npz")
 ARCHIVE_OUT = os.path.join(FIXTURES, "archive_mission_jax.npz")
+BAG_OUT = os.path.join(FIXTURES, "bag_mission_jax.npz")
 
 
 def fused_interpret(scan, scan_mask, grid, cfg):
@@ -266,6 +278,108 @@ def archive_mission():
           f"{rel['matched_kf']}; {time.time() - t0:.1f} s")
 
 
+def replay_jax_bag(cfg, path, topics, **runner_kw):
+    """The JAX `replay_bag` + `Runner` over the bag at `path`: (runner,
+    results, GN iterations a scan, loop and GPS factor counts after each
+    scan, detector cycles, scans of the full corrections)."""
+    from lio_slam_tpu.io.bag_replay import BagTopics, replay_bag
+
+    runner = Runner(to_jax_config(cfg, jax_config), **runner_kw)
+    iters = count_iterations(runner)
+    corrected, cycles = [], []
+    full_correct, detector = runner.full_correct, runner.detector
+
+    def watching_correct(state):
+        if bool(state.needs_full_solve):
+            corrected.append(runner.scan_count)
+        return full_correct(state)
+
+    def watching_detector(state):
+        state, aux = detector(state)
+        cycles.append({"scan": runner.scan_count - 1,
+                       **{k: np.array(v) for k, v in aux.items()}})
+        return state, aux
+
+    runner.full_correct, runner.detector = watching_correct, watching_detector
+    results, loops, gps = [], [], []
+    for r in replay_bag(runner, path, BagTopics(**topics)):
+        results.append(r)
+        loops.append(int(runner.state.loop_count))
+        gps.append(int(runner.state.gps_count))
+    return runner, results, iters, loops, gps, cycles, corrected
+
+
+def bag_missions():
+    """Both bags written by the port's writer, replayed by the JAX package;
+    writes BAG_OUT."""
+    import collections
+    import hashlib
+    import shutil
+    import tempfile
+
+    from lio_slam_tpu.io import rosbag as jrb
+    from lio_slam_tpu_torch.io.synthetic_bag import write_synthetic_bag
+
+    tmp = tempfile.mkdtemp()
+    out = {}
+    try:
+        for key, kw in (("", sm.bag_mission_bag_kwargs()),
+                        ("hostile_", sm.hostile_bag_kwargs())):
+            path = os.path.join(tmp, f"{key or 'mission_'}in.bag")
+            truth = write_synthetic_bag(path, **kw)
+            out[key + "bag_sha256"] = np.array(
+                hashlib.sha256(open(path, "rb").read()).hexdigest())
+            out[key + "bag_bytes"] = np.int64(os.path.getsize(path))
+            t0 = time.time()
+            if key:
+                runner, results, iters, loops, gps, cycles, corrected = \
+                    replay_jax_bag(sm.hostile_bag_config(), path,
+                                   sm.HOSTILE_TOPICS)
+            else:
+                rec = os.path.join(tmp, "recorded.bag")
+                runner, results, iters, loops, gps, cycles, corrected = \
+                    replay_jax_bag(sm.loop_mission_config(), path,
+                                   sm.BAG_TOPICS, loop_every=sm.LOOP_EVERY,
+                                   record_bag=rec)
+                runner.close()
+                topics = collections.Counter(
+                    m.topic for m in jrb.BagReader(rec).read_messages())
+                out["recorded_topics"] = np.array(sorted(topics))
+                out["recorded_counts"] = np.array(
+                    [topics[k] for k in sorted(topics)], np.int32)
+                cyc = lambda k: np.stack([c[k] for c in cycles])
+                out.update(cycle_scan=np.array([c["scan"] for c in cycles],
+                                               np.int32),
+                           loop_accepted=cyc("loop_accepted"),
+                           loop_pair_j=cyc("loop_pair_j"),
+                           loop_count=np.array(loops, np.int32),
+                           full_correction_scans=np.array(corrected, np.int32),
+                           keyframes=np.int32(int(runner.state.store.count)))
+            poses = np.stack([r.pose for r in results]).astype(np.float32)
+            rel = np.stack([np.asarray(jse3.pose6_between(truth.poses[0], p))
+                            for p in truth.poses])
+            ate = synthetic.ate_rmse(poses, rel)
+            out.update({key + "poses": poses,
+                        key + "is_keyframe": np.array([r.is_keyframe
+                                                       for r in results]),
+                        key + "registration_iters": np.array(iters, np.int32),
+                        key + "gps_count": np.array(gps, np.int32),
+                        key + "ate_rmse_m": np.float32(ate)})
+            print(f"{key or 'mission_'}bag: {len(results)} scans, "
+                  f"{sum(r.is_keyframe for r in results)} keyframes, "
+                  f"{sum(iters)} GN iterations of mapping, {loops[-1]} loop "
+                  f"factors, {gps[-1]} GPS factors, full corrections at "
+                  f"{corrected}, ATE {ate:.5f} m, {time.time() - t0:.1f} s; "
+                  f"bag {out[key + 'bag_bytes']} B sha256 "
+                  f"{out[key + 'bag_sha256']}")
+        print("recorded bag:", dict(zip(out["recorded_topics"].tolist(),
+                                         out["recorded_counts"].tolist())))
+    finally:
+        shutil.rmtree(tmp)
+    np.savez(BAG_OUT, **out)
+    print(f"wrote {BAG_OUT}")
+
+
 def smoke_mission():
     """The JAX `Runner` over the 40-scan smoke mission; writes OUT."""
     cfg = sm.bench_config()
@@ -302,7 +416,7 @@ def smoke_mission():
 
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("smoke", "loop", "archive", "all"):
+    if which not in ("smoke", "loop", "archive", "bag", "all"):
         sys.exit(__doc__)
     jreg._maybe_fused = fused_interpret
     if which in ("smoke", "all"):
@@ -311,6 +425,8 @@ def main():
         loop_mission()
     if which in ("archive", "all"):
         archive_mission()
+    if which in ("bag", "all"):
+        bag_missions()
 
 
 if __name__ == "__main__":

@@ -104,6 +104,24 @@
    trajectory within the mapping limits before the first GPS factor and
    the loop mission's after it, launches equal to the GN iterations, the
    kernel against its plain version on one of its launches.
+14. Corner mission: `Runner(corner_mission_config())` on the card, the LOAM
+   corner term on the incremental map at bench.py's widths (2048 corners a
+   scan and a keyframe, a 16384-point corner map), over 60 scans of
+   `make_sweep_sequence` through `rig_sensor_for(cfg)` (16 beams, 1800
+   azimuth bins, 32768 points, rings and point times) with IMU windows
+   covering each sweep.  Held to lio_slam_tpu_torch/fixtures/
+   corner_mission_jax.npz (the JAX Runner over the same scans, their
+   sha256 checked first): the trajectory within the mapping limits, the
+   keyframe count, the corners stored per keyframe within 1 %, launches
+   equal to the GN iterations, one captured launch against the plain
+   version (the bag paths' rule).  Prints scans/s, the ATE beside the
+   reference's, and host and device ms a scan of the corner extraction and
+   the corner term (device time from a profiled pass over scans 20-24).
+15. Rebuild mission: the same scans, 40 of them, with
+   `local_map_mode="rebuild"`: the local and corner maps assembled from the
+   nearby keyframes and a grid built every scan, `register_loam`; held to
+   fixtures/rebuild_mission_jax.npz the same way, with the map assembly's
+   and the grid build's times.
 Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line describing the
@@ -147,9 +165,11 @@ LOOP_MAX_DEV_M = 0.5
 LOOP_MAX_DEV_RAD = math.radians(2.0)
 LOOP_MAX_ATE_M = 1.0
 SMI = "card not read"       # nvidia-smi's name and power limit, set by main
-# the kernel launch of each bag path whose arguments the kernel check reuses
-BAG_CAPTURE_AT = 700
+# the kernel launch of each bag and corner path whose arguments the kernel
+# check reuses
+BAG_CAPTURE_AT = 200
 HOSTILE_CAPTURE_AT = 60
+CORNER_CAPTURE_AT = {"incremental": 80, "rebuild": 70}
 
 
 def fail(msg: str):
@@ -1474,20 +1494,13 @@ def replay_on_card(runner, path, topics, capture_at):
             return feeds[-1]
         return make
 
-    def capturing_kernel(kernel):
-        def wrapped(*a, **k):
-            if fc.KERNEL_LAUNCHES == capture_at:
-                captured.append(([x.clone() if isinstance(x, torch.Tensor)
-                                  else x for x in a], dict(k)))
-            return kernel(*a, **k)
-        return wrapped
-
     restore = [run_wrapped(bag_replay, "LiveFeed", capturing_feed),
                run_wrapped(rb, "decode_pointcloud2", timed(timers["decode"])),
                run_wrapped(rb, "scan_from_pointcloud2", timed(timers["adapt"])),
                run_wrapped(live.LiveFeed, "_window_for", timed(timers["window"])),
                run_wrapped(runner, "process_scan", timed(timers["process_scan"])),
-               run_wrapped(fc, "fused_ne_from_bucket_ids", capturing_kernel)]
+               run_wrapped(fc, "fused_ne_from_bucket_ids",
+                           capturing(capture_at, captured))]
     results, loops, gps = [], [], []
     try:
         fc.KERNEL_LAUNCHES = 0
@@ -1765,6 +1778,169 @@ def hostile_bag_phase():
     return launches, err
 
 
+def spanned(name, store):
+    """A `run_wrapped` wrapper: `timed(store)` around each call inside a
+    record_function range `name` (the call's device time in a profiled
+    pass)."""
+    import torch
+
+    def wrap(fn):
+        def ranged(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return timed(store)(ranged)
+    return wrap
+
+
+def capturing(capture_at, captured):
+    """A `run_wrapped` wrapper for the kernel's wrapper: the arguments of
+    launch number `capture_at`, cloned, appended to `captured`."""
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+
+    def wrap(kernel):
+        def wrapped(*a, **k):
+            if fc.KERNEL_LAUNCHES == capture_at:
+                captured.append(([x.clone() if isinstance(x, torch.Tensor)
+                                  else x for x in a], dict(k)))
+            return kernel(*a, **k)
+        return wrapped
+    return wrap
+
+
+def corner_mission_phase(mode):
+    """Phase 14 (`mode` "incremental") or 15 ("rebuild"): the corner
+    mission at full width through `Runner(corner_mission_config(mode))` on
+    the card, held to the JAX reference run of the same scans: the scans'
+    sha256, the trajectory within the mapping limits, the keyframe count,
+    the corners stored per keyframe within 1 %, launches equal to the GN
+    iterations, one captured launch against the plain version (the bag
+    paths' rule).  Prints scans/s (scans 5-19), the ATE beside the
+    reference's, and host and device ms a scan of the corner extraction,
+    the corner term and, on the rebuild map, the map assembly and the grid
+    build (device time from a profiled pass over scans 20-24).  Returns
+    (kernel launches, the kernel check's largest difference)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import registration as reg
+    from lio_slam_tpu_torch.ops import voxel_grid as vg
+    from lio_slam_tpu_torch.pipeline import keyframes as kf
+    from lio_slam_tpu_torch.pipeline import runner as runner_mod
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    rebuild = mode == "rebuild"
+    label = "rebuild mission" if rebuild else "corner mission"
+    name = "rebuild_mission_jax.npz" if rebuild else "corner_mission_jax.npz"
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures", name))
+    n = sm.REBUILD_SCANS if rebuild else sm.CORNER_SCANS
+    cfg = sm.corner_mission_config(mode)
+    t0 = time.perf_counter()
+    seq, scans, imus = sm.corner_mission_inputs(cfg, n_scans=n)
+    digest = sm.scans_sha256(scans)
+    print(f"{label}: {n} sweep scans of {sm.SMOKE_POINTS} points (16 beams, "
+          f"1800 azimuth bins) made in {time.perf_counter() - t0:.1f} s on the "
+          f"host, sha256 {digest} (the reference replayed "
+          f"{fixture['scans_sha256']})", flush=True)
+    if digest != str(fixture["scans_sha256"]):
+        fail(f"{label}: the scans differ from those the reference replayed")
+    runner = runner_mod.Runner(cfg)
+    if runner.device.type != "cuda":
+        fail(f"Runner(cfg) chose {runner.device}, not the card")
+
+    capture_at = CORNER_CAPTURE_AT[mode]
+    captured, host = [], {}
+
+    # the corner term is its line correspondences (the k-NN among the map's
+    # corners and the line fits); the rebuild map adds the two assemblies
+    # and the grid build of `register_loam`
+    spans = [(runner_mod, "extract_corners"), (reg, "find_line_correspondences"),
+             (kf, "assemble_corner_map")]
+    if rebuild:
+        spans += [(kf, "assemble_local_map"), (vg, "build_grid")]
+    restore = [run_wrapped(obj, attr, spanned(attr, host.setdefault(attr, [])))
+               for obj, attr in spans]
+    restore.append(run_wrapped(fc, "fused_ne_from_bucket_ids",
+                               capturing(capture_at, captured)))
+    results, stamps = [], []
+    try:
+        fc.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        for i in range(20):
+            results.append(runner.process_scan(scans[i], imu=imus[i]))
+            stamps.append(time.perf_counter())
+        torch.cuda.synchronize()
+        steady = 15 / (time.perf_counter() - stamps[4])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            p0 = time.perf_counter()
+            for i in range(20, 25):
+                results.append(runner.process_scan(scans[i], imu=imus[i]))
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - p0)
+        for i in range(25, n):
+            results.append(runner.process_scan(scans[i], imu=imus[i]))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = fc.KERNEL_LAUNCHES
+    finally:
+        for undo in restore:
+            undo()
+
+    poses = np.stack([r.pose for r in results])
+    iters = [r.registration_iters for r in results]
+    k = int(runner.state.store.count)
+    k_ref = int(fixture["keyframes"])
+    corners = runner.state.store.corner_masks[:k].sum(1).cpu().numpy()
+    ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
+    print(f"{label}: {n} scans in {elapsed:.3f} s with a profiled pass "
+          f"({SMI}); scans 5-19 {steady:.3f} scans/s; keyframes {k} (JAX {k_ref}), "
+          f"corners a keyframe {corners.tolist()} (JAX "
+          f"{fixture['corners'].tolist()}); kernel launches {launches} == GN "
+          f"iterations {sum(iters)} (JAX {int(fixture['registration_iters'].sum())}, "
+          f"differing at scans "
+          f"{np.nonzero(np.array(iters) - fixture['registration_iters'])[0].tolist()}); "
+          f"ATE {ate:.5f} m (JAX reference {float(fixture['ate_rmse_m']):.5f} m)",
+          flush=True)
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_ms = {e.key: 1e-3 * e.device_time_total / 5
+              for e in prof.key_averages()
+              if e.key in host and e.device_type != cuda}
+    per_scan = {span: {"host_ms": round(1e3 * sum(v) / n, 3),
+                       "calls": len(v),
+                       "device_ms_scans_20_24": round(dev_ms.get(span, 0.0), 3)}
+                for span, v in host.items()}
+    print(f"{label} times a scan ({SMI}; host: every call of the {n} scans, "
+          f"not synchronized, the profiled pass included; device: kernels "
+          f"inside the range over the profiled scans 20-24, {prof_ms:.1f} ms "
+          f"of wall time): {json.dumps(per_scan)}", flush=True)
+    failures = []
+    if len(results) != n or not np.isfinite(poses).all():
+        failures.append(f"{label}: {len(results)} results, finite "
+                        f"{bool(np.isfinite(poses).all())}")
+    if k != k_ref:
+        failures.append(f"{label}: {k} keyframes, JAX {k_ref}")
+    elif not (np.abs(corners - fixture["corners"]) <= 0.01 * fixture["corners"]).all():
+        failures.append(f"{label}: corners a keyframe {corners.tolist()}, JAX "
+                        f"{fixture['corners'].tolist()} (limit 1 %)")
+    if launches != sum(iters) or launches == 0:
+        failures.append(f"{label}: {launches} launches, {sum(iters)} GN iterations")
+    if not captured:
+        failures.append(f"{label}: kernel launch {capture_at} never came")
+    failures += deviation_spans(label, poses, fixture["poses"], (
+        ("whole mission", slice(None), MAX_DEV_M, MAX_DEV_RAD),))
+    if not ate <= 0.2:
+        failures.append(f"{label}: ATE {ate} m")
+    if failures:
+        fail("; ".join(failures))
+    err = bag_kernel_check(f"{label} launch {capture_at}", captured[0])
+    return launches, err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-dir", default=None,
@@ -1830,10 +2006,15 @@ def main():
     resumed = phase("phase 11 (resume)", resume_phase, dev)
     bag_map, bag_ver, bag_err = phase("phase 12 (bag mission)", bag_mission_phase)
     hostile, hostile_err = phase("phase 13 (hostile bag)", hostile_bag_phase)
+    corner, corner_err = phase("phase 14 (corner mission, incremental map)",
+                               corner_mission_phase, "incremental")
+    rebuilt, rebuild_err = phase("phase 15 (corner mission, rebuild-mode map)",
+                                 corner_mission_phase, "rebuild")
     paths = {"mission": launches, "loop_mapping": loop_map,
              "loop_verification": loop_ver, **arch, "resume": resumed,
              "bag_mapping": bag_map, "bag_loop_verification": bag_ver,
-             "hostile_bag": hostile}
+             "hostile_bag": hostile, "corner_mapping": corner,
+             "rebuild_mapping": rebuilt}
     print(json.dumps({"kernels": [{
         "name": "fused_corr", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/fused_corr.cu",
@@ -1841,7 +2022,7 @@ def main():
         "launches": sum(paths.values()),
         **{f"launches_{p}": v for p, v in paths.items()},
         "max_abs_err": max(k["max_abs_err"], loop_err, arch_err, bag_err,
-                           hostile_err),
+                           hostile_err, corner_err, rebuild_err),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None, "cold_ms": k["cold_ms"],
         "entry_ms": k["entry_ms"], "entry_plain_ms": k["entry_plain_ms"]}]}),

@@ -11,8 +11,12 @@ The JAX package's `lax.cond`s (eviction at capacity, keyframe save, the GPS
 covariance gate, the correction itself) are host branches on a device bool
 here: one device-to-host read each.
 
-Not ported yet: LOAM corners and the rebuild-mode local map;
-`make_lio_step` refuses configs that need them.
+`local_map_mode="incremental"` registers against the persistent voxel map;
+"rebuild" assembles the local map from the nearby keyframes every scan
+(extractNearby / extractCloud) and builds its grid.  With
+`use_corner_features` the scan's LOAM corners (`ScanInput.corner`) add a
+point-to-line term against a corner map assembled the same way, and each
+keyframe stores its downsampled corners.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ class ScanInput(NamedTuple):
     gps_pos: torch.Tensor          # (3,)
     gps_info: torch.Tensor         # (3,)
     gps_valid: torch.Tensor        # () bool
+    # LOAM corner features (None unless cfg.registration.use_corner_features)
+    corner: pc.Cloud = None
 
 
 class StepOutput(NamedTuple):
@@ -135,11 +141,14 @@ def init_state(cfg: Config, device=None) -> LioState:
     B = K - 1 + s.max_loop_queue * 8
     G = s.max_gps_queue * 8 + s.max_archive_anchors
     Q = s.max_loop_queue
+    corner_pts = (s.max_corner_points
+                  if cfg.registration.use_corner_features else 1)
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     b = dict(dtype=torch.bool, device=device)
     return LioState(
-        store=kf.empty_store(K, s.max_keyframe_points, device=device),
+        store=kf.empty_store(K, s.max_keyframe_points,
+                             corner_points_per_kf=corner_pts, device=device),
         graph=F.empty_graph(K, B, G, device=device),
         map_grid=default_map_ops(cfg, device).empty_grid(),
         sc_db=sc_mod.empty_db(K, s.sc_num_ring, s.sc_num_sector, device=device),
@@ -335,8 +344,11 @@ def _evict_oldest(state: LioState) -> LioState:
 
 def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
                    scan_ds: pc.Cloud, cfg: Config,
+                   corner_ds: pc.Cloud = None,
                    ops: MapOps = None) -> LioState:
-    """saveKeyFramesAndFactor (:2064-2171) + window-scope correctPoses."""
+    """saveKeyFramesAndFactor (:2064-2171) + window-scope correctPoses.  The
+    keyframe's cloud goes into the incremental voxel map; the rebuild-mode
+    map is assembled from the store instead."""
     if ops is None:
         ops = default_map_ops(cfg, pose.device)
     K = state.store.poses.shape[0]
@@ -369,7 +381,8 @@ def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
     g = g._replace(bt_i=bt_i, bt_j=bt_j, bt_meas=bt_meas, bt_info=bt_info,
                    bt_mask=bt_mask)
 
-    store = kf.add_keyframe(state.store, pose, inp.stamp, scan_ds)
+    store = kf.add_keyframe(state.store, pose, inp.stamp, scan_ds,
+                            corner=corner_ds)
     ni = new_idx.to(torch.int64)
     poses, pose_mask = g.poses.clone(), g.pose_mask.clone()
     poses[ni] = pose
@@ -390,10 +403,11 @@ def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
     store = store._replace(poses=torch.where(g.pose_mask[:, None], g.poses,
                                              store.poses))
     new_pose = g.poses[ni]
-    Rn, tn = se3.pose6_to_Rt(new_pose)
-    world_pts = se3.transform_points(Rn, tn, scan_ds.xyz)
-    state = state._replace(map_grid=ops.insert(state.map_grid, world_pts,
-                                               scan_ds.mask))
+    if cfg.registration.local_map_mode == "incremental":
+        Rn, tn = se3.pose6_to_Rt(new_pose)
+        world_pts = se3.transform_points(Rn, tn, scan_ds.xyz)
+        state = state._replace(map_grid=ops.insert(state.map_grid, world_pts,
+                                                   scan_ds.mask))
     return state._replace(store=store, graph=g, pose=new_pose,
                           needs_full_solve=state.needs_full_solve | state.loop_closed,
                           loop_closed=torch.zeros_like(state.loop_closed))
@@ -459,20 +473,20 @@ def make_full_correction(cfg: Config, ops: MapOps = None, device=None):
 
 
 def make_lio_step(cfg: Config, ops: MapOps = None, device=None):
-    """The per-scan step for `cfg`: `step(state, inp) -> (state, out)`."""
+    """The per-scan step for `cfg`: `step(state, inp) -> (state, out)`.  A
+    custom `ops` serves the surface-only incremental-map path only."""
     s = cfg.static
     r = cfg.registration
-    if r.use_corner_features:
-        raise NotImplementedError("the LOAM corner path is not ported yet "
-                                  "(registration.use_corner_features)")
-    if r.local_map_mode != "incremental":
-        raise NotImplementedError(f"local_map_mode={r.local_map_mode!r}: only "
-                                  "the incremental map is ported")
     if r.scan_downsample not in ("packed", "voxel"):
         raise NotImplementedError(f"scan_downsample={r.scan_downsample!r} is "
                                   "not ported")
     if ops is None:
         ops = default_map_ops(cfg, device)
+    elif r.use_corner_features or r.local_map_mode != "incremental":
+        raise ValueError("a custom MapOps backend requires the surf-only "
+                         "incremental-map mission path")
+    nearby = dict(radius=r.surrounding_radius, recent_sec=r.recent_window_sec,
+                  max_selected=cfg.output.local_map_keyframes)
 
     def lio_step(state: LioState, inp: ScanInput):
         pose_guess = _update_initial_guess(state, inp)
@@ -482,9 +496,41 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None):
         else:
             scan_ds = pc.voxel_downsample(inp.cloud, r.mapping_surf_leaf_size,
                                           s.max_scan_points)
+        use_corner = r.use_corner_features and inp.corner is not None
+        corner_ds = None
+        if use_corner:
+            corner_ds = pc.voxel_downsample(inp.corner,
+                                            r.mapping_corner_leaf_size,
+                                            s.max_corner_points)
+            corner_map = kf.assemble_corner_map(
+                state.store, pose_guess[3:], inp.stamp,
+                leaf_size=r.mapping_corner_leaf_size,
+                map_capacity=s.max_corner_map_points, **nearby)
         has_map = state.store.count > 0
-        res = ops.register(scan_ds.xyz, scan_ds.mask & has_map,
-                           state.map_grid, pose_guess)
+        if r.local_map_mode == "incremental":
+            if use_corner:
+                res = reg.register_loam_with_grid(
+                    scan_ds.xyz, scan_ds.mask & has_map, state.map_grid,
+                    corner_ds.xyz, corner_ds.mask & has_map,
+                    corner_map.xyz, corner_map.mask, pose_guess, r)
+            else:
+                res = ops.register(scan_ds.xyz, scan_ds.mask & has_map,
+                                   state.map_grid, pose_guess)
+        else:
+            local_map = kf.assemble_local_map(
+                state.store, pose_guess[3:], inp.stamp,
+                leaf_size=r.mapping_surf_leaf_size,
+                map_capacity=s.max_map_points, **nearby)
+            if use_corner:
+                res = reg.register_loam(
+                    scan_ds.xyz, scan_ds.mask & has_map,
+                    local_map.xyz, local_map.mask,
+                    corner_ds.xyz, corner_ds.mask & has_map,
+                    corner_map.xyz, corner_map.mask, pose_guess, r)
+            else:
+                res = reg.register(scan_ds.xyz, scan_ds.mask & has_map,
+                                   local_map.xyz, local_map.mask,
+                                   pose_guess, r)
         pose = torch.where(has_map, res.pose, pose_guess)
         pose = reg.transform_update(pose, inp.imu_rpy, inp.imu_available,
                                     cfg.imu.imu_rpy_weight,
@@ -494,7 +540,8 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None):
                                             cfg.keyframe.dist_threshold))
         state = state._replace(pose=pose, degenerate=res.degenerate)
         if is_kf:                              # host branch (JAX lax.cond)
-            state = _save_keyframe(state, inp, pose, scan_ds, cfg, ops=ops)
+            state = _save_keyframe(state, inp, pose, scan_ds, cfg,
+                                   corner_ds=corner_ds, ops=ops)
         incremental = se3.pose6_between(state.last_incre_pose, state.pose)
         out = StepOutput(pose=state.pose, incremental=incremental,
                          degenerate=res.degenerate, is_keyframe=is_kf,

@@ -12,8 +12,17 @@ Semantics mirrored from ImageProjection:
 - 2-scan delay buffer (cachePointCloud :214-219): a scan is processed only
   when the next one arrives, so the IMU stream covers the full sweep.
 - stale-pop + bracketing window (imuDeskewInfo :359-418): per scan the IMU
-  window spans (previous scan stamp, sweep end]; older samples are dropped
-  permanently inside the queue.
+  window spans the samples after those the previous scan's correction
+  took, up to the sweep end; older samples are dropped permanently inside
+  the queue.
+
+Departure from the JAX feed: it starts a window 1e-9 s after the previous
+scan stamp, which at epoch stamps (one float64 ulp is 2.4e-7 s) adds
+nothing, while the Runner's correction takes samples up to
+`CORRECTION_MARGIN` past the stamp; a sample in between was integrated by
+two consecutive corrections.  Here the window starts after the samples the
+previous correction took, by the correction's own rule
+(`correction_takes`), so no sample is integrated twice.
 
 A pure-python queue with identical behavior backs environments without the
 native library (`use_native=False`, or `None` where it does not build).
@@ -28,6 +37,19 @@ import numpy as np
 
 from lio_slam_tpu_torch.io import formats
 from lio_slam_tpu_torch.io import native
+
+# the Runner's IMU correction integrates the samples of a scan's window up
+# to this far past the scan stamp (float32 offsets from it; the deskew
+# table sees the whole window)
+CORRECTION_MARGIN = 1e-6
+
+
+def correction_takes(stamps, scan_stamp: float) -> np.ndarray:
+    """Which of the (float64) sample `stamps` the correction of the scan at
+    `scan_stamp` integrates: the Runner's rule, offsets rounded to float32
+    as `Runner._prep_imu_window` rounds them."""
+    rel = (np.asarray(stamps, np.float64) - scan_stamp).astype(np.float32)
+    return rel <= CORRECTION_MARGIN
 
 
 class _PySampleQueue:
@@ -164,14 +186,17 @@ class LiveFeed:
         sweep_end = float(scan.stamp) + (float(scan.time.max())
                                          if scan.time is not None
                                          and len(scan.time) else 0.0)
-        # window start = last processed scan stamp (the front-end integrates
-        # from the previous correction); margin 0 = drop older permanently
-        # strictly-after the previous stamp (the previous correction consumed
-        # the boundary sample — imuQueOpt pop semantics)
-        t0 = (self._last_scan_stamp + 1e-9
-              if self._last_scan_stamp is not None else -1e18)
+        # the window starts after the samples the previous scan's correction
+        # took (imuQueOpt pop semantics): those before its stamp leave the
+        # queue for good (margin 0), those up to CORRECTION_MARGIN past it
+        # are skipped here and leave at the next window
+        last = self._last_scan_stamp
         ts, vals = self.imu_queue.window(
-            t0, sweep_end + self.deskew_tail_margin, margin=0.0, max_n=4096)
+            last if last is not None else -1e18,
+            sweep_end + self.deskew_tail_margin, margin=0.0, max_n=4096)
+        if last is not None and len(ts):
+            fresh = ~correction_takes(ts, last)
+            ts, vals = ts[fresh], vals[fresh]
         if len(ts) == 0:
             return None
         quat = vals[:, 6:10]

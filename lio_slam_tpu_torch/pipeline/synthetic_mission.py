@@ -7,6 +7,7 @@ of a comparison sees the same numbers.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -54,6 +55,12 @@ BAG_SCANS = 125
 HOSTILE_SCANS = 40
 BAG_TOPICS = {"gps": "/gps/fix", "raw_gps": "/gpsdata"}
 HOSTILE_TOPICS = {"gps": "/gps/fix", "sensor": "robosense"}
+
+# the corner missions: `make_sweep_sequence` through the sweep sensor of
+# `bench_config()`'s lidar (16 beams, 1800 azimuth bins), LOAM corners on,
+# on the incremental map and on the rebuild-mode map
+CORNER_SCANS = 60
+REBUILD_SCANS = 40
 
 
 def bag_mission_bag_kwargs() -> dict:
@@ -140,6 +147,67 @@ def hostile_bag_config() -> Config:
         gps=GpsConfig(use_gps=True, gps_cov_threshold=2.0,
                       pose_cov_threshold=0.0, min_travel_before_gps=3.0,
                       gps_distance_frequency=2.0))
+
+
+def corner_mission_config(local_map_mode: str = "incremental") -> Config:
+    """`bench_config()` with the LOAM corner term on at the default corner
+    capacities (2048 corners a scan and a keyframe, a 16384-point corner
+    map), on the incremental map or the rebuild-mode map."""
+    base = bench_config()
+    return dataclasses.replace(
+        base, registration=dataclasses.replace(
+            base.registration, use_corner_features=True,
+            local_map_mode=local_map_mode))
+
+
+def sweep_inputs(seq: SyntheticSequence, windows):
+    """Per-scan `StandardScan`s (rings and point times of the sweep) and
+    IMU windows from `synthetic.make_imu_windows` output, as
+    `Runner.process_scan` takes them: each window's samples at the scan
+    stamp plus their offsets (float64 seconds); scan 0 has none."""
+    _, _, _, rel_t, imask = windows
+    acc, gyr = windows[0], windows[1]
+    scans, imus = [], []
+    for i in range(len(seq.stamps)):
+        m = seq.scan_masks[i]
+        n = int(m.sum())
+        scans.append(formats.StandardScan(
+            xyz=seq.scans[i][m], intensity=np.zeros(n, np.float32),
+            ring=seq.rings[i][m].astype(np.uint16), time=seq.ptimes[i][m],
+            stamp=float(seq.stamps[i])))
+        w = imask[i]
+        imus.append(None if not w.any() else {
+            "acc": acc[i][w], "gyr": gyr[i][w],
+            "stamps": float(seq.stamps[i]) + rel_t[i][w].astype(np.float64)})
+    return scans, imus
+
+
+def corner_mission_inputs(cfg: Config, n_scans: int = CORNER_SCANS,
+                          n_points: int = SMOKE_POINTS):
+    """(sequence, scans, IMU windows) of the corner missions: a sweep
+    mission of `n_scans` scans of `n_points` through
+    `rig_sensor_for(cfg)`, seed 0, with IMU windows that cover each sweep
+    (`make_imu_windows(sweep_cover=sweep_time)`)."""
+    sensor = synthetic.rig_sensor_for(cfg)
+    seq = synthetic.make_sweep_sequence(n_scans=n_scans, n_points=n_points,
+                                        seed=SMOKE_SEED, sensor=sensor)
+    windows = synthetic.make_imu_windows(
+        seq, cfg.static.max_imu_window,
+        samples_per_scan=sensor.samples_per_scan, gravity=cfg.imu.gravity,
+        sweep_cover=sensor.sweep_time)
+    scans, imus = sweep_inputs(seq, windows)
+    return seq, scans, imus
+
+
+def scans_sha256(scans) -> str:
+    """sha256 of a mission's `StandardScan`s (points, rings, point times,
+    stamps): a run checks with it that it replays the scans its reference
+    replayed."""
+    h = hashlib.sha256()
+    for s in scans:
+        for a in (s.xyz, s.ring, s.time, np.float64(s.stamp)):
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
 
 
 def synthetic_inputs(seq: SyntheticSequence, cfg: Config):

@@ -12,10 +12,11 @@
   30 m world, with GPS and the raw GpswithHeading stream) and a hostile
   variant (bz2, the Robosense layout, duplicated and reordered IMU, an IMU
   dropout, GPS at 100 Hz), each written once by the port and replayed by
-  both packages: the same scans and keyframe flags, poses within 1e-4 m /
-  rad (measured: 8.9e-7 and 2.2e-6), and output bags whose odometry
-  records agree to the same tolerance with the same stamps, degenerate
-  flags and record counts.
+  both packages (the JAX feed with the port's repaired IMU window start,
+  `torch_port_helpers.repaired_jax_feed`): the same scans and keyframe
+  flags, poses within 1e-4 m / rad (measured: 8.9e-7 and 2.2e-6), and
+  output bags whose odometry records agree to the same tolerance with the
+  same stamps, degenerate flags and record counts.
 - The CLI's `--bag ... --record-bag` on the CPU.
 """
 
@@ -198,7 +199,9 @@ def replay_both(path, topics, record_dir):
                             record_bag=os.path.join(record_dir, "port.bag")))):
         replay = jbag_replay.replay_bag if name == "jax" else replay_bag
         tcls = jbag_replay.BagTopics if name == "jax" else BagTopics
-        results = list(replay(runner, path, tcls(**topics), use_native=None))
+        with H.repaired_jax_feed():
+            results = list(replay(runner, path, tcls(**topics),
+                                  use_native=None))
         runner.close()
         out[name] = (runner, results)
     return out

@@ -450,3 +450,79 @@ def test_bag_replay_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert gps == cpu_gps and rec == cpu_rec
     np.testing.assert_allclose(np.stack([r.pose for r in card]),
                                np.stack([r.pose for r in cpu]), atol=1e-3)
+
+
+def assert_ne_close_or_cancelling(out, args, kw):
+    """The bag paths' kernel rule (chip_smoke.py `bag_kernel_check`): the
+    inliers exact, the sums within rtol 1e-4, each AtA / Atb entry within
+    rtol 2e-4 / atol 2e-3 of the plain version or, on entries that are
+    sums that cancel, no farther from the plain version in float64 than
+    that band plus four times the plain float32 version's own rounding
+    there, the float64 version selecting the same inliers."""
+    ref = fc.fused_ne_from_bucket_ids_ref(*args, **kw)
+    ref64 = fc.fused_ne_from_bucket_ids_ref(
+        *[x.double() if torch.is_tensor(x) and x.dtype == torch.float32 else x
+          for x in args], **kw)
+    g, r, r64 = ([x.detach().double().cpu().numpy() for x in o]
+                 for o in (out, ref, ref64))
+    assert int(g[2]) == int(r[2])
+    for i in (3, 4):
+        assert np.isclose(g[i], r[i], rtol=1e-4, atol=1e-4)
+    for i in (0, 1):
+        outside = np.abs(g[i] - r[i]) > 2e-3 + 2e-4 * np.abs(r[i])
+        if outside.any():
+            rounding = np.abs(r[i] - r64[i]).max()
+            assert int(r64[2]) == int(r[2])
+            assert (np.abs(g[i] - r64[i])
+                    <= 2e-3 + 2e-4 * np.abs(r64[i]) + 4 * rounding).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["incremental", "rebuild"])
+def test_corner_paths_on_the_card(cuda, mode, monkeypatch):
+    """The LOAM corner path on the incremental and on the rebuild-mode map:
+    a 6-scan sweep mission on the card goes through `fused_normal_equations`
+    once a GN iteration, each launch agrees with the plain version on its
+    own arguments (the bag paths' rule: the plain version in float64
+    decides on entries that cancel), and the trajectory is the CPU run's."""
+    from lio_slam_tpu_torch.config import (ImuConfig, RegistrationConfig,
+                                           StaticConfig)
+
+    cfg = Config(static=StaticConfig(max_raw_points=4096, max_scan_points=2048,
+                                     max_map_points=16384, max_keyframes=16,
+                                     max_keyframe_points=2048, max_loop_queue=2,
+                                     max_gps_queue=2, window_size=8,
+                                     max_imu_window=32, max_corner_points=512,
+                                     max_corner_map_points=4096),
+                 imu=ImuConfig(imu_rate=100.0),
+                 registration=RegistrationConfig(use_corner_features=True,
+                                                 local_map_mode=mode,
+                                                 grid_table_size=8192),
+                 loop=LoopClosureConfig(enabled=False))
+    _, scans, imus = sm.corner_mission_inputs(cfg, n_scans=6, n_points=4096)
+    calls = []
+    entry, kernel = fc.fused_normal_equations, fc.fused_ne_from_bucket_ids
+
+    def counted(*a, **k):
+        calls.append(a[1].is_cuda)
+        return entry(*a, **k)
+
+    def checked(*a, **k):
+        out = kernel(*a, **k)
+        if a[0].is_cuda:
+            assert_ne_close_or_cancelling(out, a, k)
+        return out
+
+    monkeypatch.setattr(fc, "fused_normal_equations", counted)
+    monkeypatch.setattr(fc, "fused_ne_from_bucket_ids", checked)
+    runner = Runner(cfg, device=cuda)
+    fc.KERNEL_LAUNCHES = 0
+    res = [runner.process_scan(scans[i], imu=imus[i]) for i in range(6)]
+    launches = fc.KERNEL_LAUNCHES
+    assert launches == len(calls) == sum(r.registration_iters for r in res) > 0
+    assert all(calls)
+    assert int(runner.state.store.corner_masks.sum()) > 0
+    cpu = Runner(cfg, device="cpu")
+    ref = [cpu.process_scan(scans[i], imu=imus[i]) for i in range(6)]
+    dev = np.abs(np.stack([r.pose for r in res]) - np.stack([r.pose for r in ref]))
+    assert dev.max() < 1e-3, dev.max(axis=0)

@@ -85,6 +85,46 @@ def test_bag_io_modules_import_no_jax():
         assert "native/" not in src.replace("io/native", ""), rel
 
 
+def test_corner_path_modules_import_no_jax():
+    """The modules of the LOAM corner path, the rebuild-mode map and the
+    sweep sensor by name."""
+    out = _imports_no_jax(("ops.knn", "ops.features", "ops.registration",
+                           "pipeline.keyframes", "pipeline.lio",
+                           "io.synthetic", "pipeline.synthetic_mission"))
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("name,mode,scans", [
+    ("corner_mission_jax.npz", "incremental", "CORNER_SCANS"),
+    ("rebuild_mission_jax.npz", "rebuild", "REBUILD_SCANS")])
+def test_corner_mission_fixtures_match_their_configuration(name, mode, scans):
+    """The recorded JAX runs of the corner missions: the mission's length,
+    keyframes that store corners, and the configuration chip_smoke.py
+    drives (bench_config's widths, corners on at the default capacities,
+    the sweep sensor of its lidar)."""
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    f = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures", name))
+    cfg = sm.corner_mission_config(mode)
+    base = sm.bench_config()
+    assert cfg.static == base.static and cfg.lidar == base.lidar
+    assert dataclasses.replace(cfg.registration, use_corner_features=False,
+                               local_map_mode="incremental") == base.registration
+    d = port_config.StaticConfig()
+    assert (cfg.static.max_corner_points, cfg.static.max_corner_map_points) == \
+        (d.max_corner_points, d.max_corner_map_points) == (2048, 16384)
+    sensor = synthetic.rig_sensor_for(cfg)
+    assert (sensor.n_scan, cfg.lidar.horizon_scan, sensor.samples_per_scan) == \
+        (16, 1800, 10)
+    assert f["poses"].shape == (getattr(sm, scans), 6)
+    assert len(str(f["scans_sha256"])) == 64
+    k = int(f["keyframes"])
+    assert k >= 3 and f["corners"].shape == (k,) and (f["corners"] > 50).all()
+    assert int(f["is_keyframe"].sum()) == k
+    assert float(f["ate_rmse_m"]) < 0.2
+
+
 def test_bag_mission_fixture_matches_its_configuration():
     """The recorded JAX replays of the two bags: the bag mission's length,
     its loop and GPS factors, full corrections and recorded topics; the
@@ -195,7 +235,8 @@ def test_port_mirrors_module_paths():
                 "pipeline/loop_closure.py", "pipeline/keyframes.py",
                 "pipeline/lio.py", "pipeline/imu_frontend.py",
                 "pipeline/runner.py", "io/rosbag.py", "io/native.py",
-                "io/bag_replay.py", "io/synthetic_bag.py", "pipeline/live.py"):
+                "io/bag_replay.py", "io/synthetic_bag.py", "pipeline/live.py",
+                "ops/knn.py", "ops/features.py"):
         assert os.path.exists(os.path.join(ROOT, "lio_slam_tpu", rel)), rel
         assert os.path.exists(os.path.join(ROOT, "lio_slam_tpu_torch", rel)), rel
     assert os.path.exists(os.path.join(ROOT, "lio_slam_tpu_torch", "ops",

@@ -1,8 +1,10 @@
 """The port's live sensor feed (`lio_slam_tpu_torch/pipeline/live.py`): the
 cases of tests/test_live_feed.py on `Runner(device="cpu")`, one stream
 through the JAX and the port `LiveFeed` into a recording stub Runner (the
-same IMU windows and GPS pairings, exactly), and the native-queue choice
-(`use_native`)."""
+same IMU windows and GPS pairings, exactly, the JAX feed with the port's
+repaired window start), the repair itself (the unpatched JAX feed hands an
+IMU sample to two consecutive corrections, the port's never), and the
+native-queue choice (`use_native`)."""
 
 import dataclasses
 
@@ -16,7 +18,8 @@ from lio_slam_tpu_torch import config as port_config
 from lio_slam_tpu_torch.io import formats, native, synthetic
 from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.pipeline import gps_fusion as gf
-from lio_slam_tpu_torch.pipeline.live import LiveFeed, _PySampleQueue
+from lio_slam_tpu_torch.pipeline.live import (LiveFeed, _PySampleQueue,
+                                              correction_takes)
 from lio_slam_tpu_torch.pipeline.runner import Runner
 from lio_slam_tpu_torch.utils import se3
 
@@ -222,7 +225,8 @@ def feed_stream(feed, seed=0, n_scans=12):
 
 def test_live_feed_hands_the_runner_what_the_jax_feed_does():
     ja, tb = RecordingRunner(), RecordingRunner()
-    out_j = feed_stream(jlive.LiveFeed(ja, use_native=False))
+    with H.repaired_jax_feed():
+        out_j = feed_stream(jlive.LiveFeed(ja, use_native=False))
     out_t = feed_stream(LiveFeed(tb, use_native=True))
     assert out_t == out_j and len(tb.calls) == 12
     assert tb.raw == ja.raw and tb.gps_marks == ja.gps_marks
@@ -241,6 +245,49 @@ def test_live_feed_hands_the_runner_what_the_jax_feed_does():
             assert fa[:5] == fb[:5]
             np.testing.assert_array_equal(fa[5], fb[5])
     assert any(c[1] is not None and c[1]["quat"] is None for c in tb.calls)
+
+
+def taken_twice(calls):
+    """IMU stamps that two consecutive corrections both integrate: those
+    of each window that `correction_takes` at its scan's stamp, shared
+    with the next scan's."""
+    taken = [set() if imu is None else
+             set(imu["stamps"][correction_takes(imu["stamps"], stamp)])
+             for stamp, imu, _ in calls]
+    return [sorted(a & b) for a, b in zip(taken, taken[1:]) if a & b]
+
+
+@pytest.mark.parametrize("use_native", [False, True])
+def test_boundary_sample_reaches_one_correction_only(use_native):
+    """At epoch stamps the bag writer's IMU sample lands one float64 ulp
+    (2.4e-7 s) after a scan stamp.  The unpatched JAX feed starts the next
+    window 1e-9 s after the stamp, which adds nothing there, while the
+    correction takes samples up to 1e-6 s past it: the sample reaches two
+    corrections.  The port's window starts after what the correction took
+    (a stated departure, `live.py`'s docstring)."""
+    def stream(feed):
+        t0 = 1.7e9
+        for i in range(8):
+            ts = t0 + 0.1 * i
+            for k in range(10):
+                t = np.nextafter(ts, np.inf) if k == 0 else ts + 0.01 * k
+                feed.push_imu(t, np.zeros(3), np.zeros(3))
+            feed.push_scan(formats.StandardScan(
+                np.ones((4, 3), np.float32), np.zeros(4, np.float32),
+                np.zeros(4, np.uint16), np.full(4, 0.05, np.float32), ts))
+        feed.flush()
+
+    ja, tb = RecordingRunner(), RecordingRunner()
+    stream(jlive.LiveFeed(ja, use_native=False))
+    stream(LiveFeed(tb, use_native=use_native))
+    assert len(tb.calls) == len(ja.calls) == 8
+    assert len(taken_twice(ja.calls)) == 7
+    assert taken_twice(tb.calls) == []
+    # nothing else is lost: every sample reaches exactly one correction
+    # (all but the last scan's tail)
+    taken = np.concatenate([c[1]["stamps"][correction_takes(c[1]["stamps"], c[0])]
+                            for c in tb.calls if c[1] is not None])
+    assert len(taken) == len(np.unique(taken)) == 7 * 10 + 1
 
 
 def test_use_native_true_raises_where_the_runtime_does_not_build(monkeypatch):

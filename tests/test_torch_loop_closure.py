@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import n, planar_scene, t, to_jax_config
-from torch_port_make_fixture import fused_interpret
+from torch_port_helpers import (jax_fused_interpret, n, planar_scene, t,
+                                to_jax_config)
 from lio_slam_tpu import config as jax_config
 from lio_slam_tpu.io import synthetic as jsynthetic
 from lio_slam_tpu.ops import registration as jreg
@@ -145,7 +145,7 @@ def test_register_matches(monkeypatch, refresh, n_scan):
     off the CPU; it takes scans of a multiple of 128 points), the port
     through the fused pass's plain version.  The scan sizes are this test's
     own, so no other test's compiled `register` is reused."""
-    monkeypatch.setattr(jreg, "_maybe_fused", fused_interpret)
+    monkeypatch.setattr(jreg, "_maybe_fused", jax_fused_interpret)
     map_pts, scan = planar_scene(5, n_map=4096, n_scan=n_scan)
     mmask = np.ones(len(map_pts), bool)
     mmask[::9] = False
@@ -181,9 +181,21 @@ def test_register_gates_and_refusals():
     r = treg.register(t(scan), t(np.ones(200, bool)), t(map_pts), t(few_map),
                       init, cfg)
     assert r.iterations == 0 and torch.equal(r.pose, init)
-    with pytest.raises(NotImplementedError, match="grid"):
-        treg.register(t(scan), t(few), t(map_pts), t(few_map), init,
-                      dataclasses.replace(cfg, knn_backend="brute"))
+    # the brute-force backend: the exact k-NN over the map cloud, as JAX's
+    brute = dataclasses.replace(cfg, knn_backend="brute",
+                                degeneracy_eig_thresh=10.0)
+    mask = np.ones(200, bool)
+    rj = jreg.register(jnp.asarray(scan), jnp.asarray(mask),
+                       jnp.asarray(map_pts), jnp.ones(1024, bool),
+                       jnp.asarray(n(init)),
+                       jax_config.RegistrationConfig(
+                           knn_backend="brute", grid_table_size=1024,
+                           degeneracy_eig_thresh=10.0))
+    rp = treg.register(t(scan), t(mask), t(map_pts), t(np.ones(1024, bool)),
+                       init, brute)
+    assert rp.iterations == int(rj.iterations) > 1
+    assert int(rp.num_inliers) == int(rj.num_inliers)
+    np.testing.assert_allclose(n(rp.pose), np.asarray(rj.pose), atol=1e-4)
     with pytest.raises(NotImplementedError, match="sort_scan_by_cell"):
         treg.register(t(scan), t(few), t(map_pts), t(few_map), init,
                       dataclasses.replace(cfg, sort_scan_by_cell=True))

@@ -163,9 +163,19 @@ def test_step_from_carried_state():
 
 def test_unported_features_refused(tmp_path):
     """Only the sharded mesh is still refused, by name; bag recording, the
-    keyframe archive, batched fetches, checkpoints and the mission log are
-    ported, so the default config builds as it is."""
+    keyframe archive, batched fetches, checkpoints, the mission log, the
+    LOAM corner path, the rebuild-mode local map and the brute-force k-NN
+    are ported, so their configs build as they are."""
     cfg = small_config(port_config)
+    reg = port_config.RegistrationConfig
+    for kw in (dict(use_corner_features=True),
+               dict(use_corner_features=True, local_map_mode="rebuild"),
+               dict(local_map_mode="rebuild"), dict(knn_backend="brute")):
+        built = Runner(dataclasses.replace(cfg, registration=reg(**kw)),
+                       device="cpu")
+        assert built.cfg.registration == reg(**kw)
+        assert built.state.store.corner_clouds.shape[1] == (
+            cfg.static.max_corner_points if kw.get("use_corner_features") else 1)
     recording = Runner(cfg, device="cpu", record_bag=str(tmp_path / "out.bag"))
     assert recording._bag is not None
     recording.close()

@@ -8,6 +8,7 @@ several pytest-xdist workers at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -67,3 +68,73 @@ def planar_scene(seed=0, n_map=4096, n_scan=512):
     sel = rs.permutation(n_map)[:n_scan]
     scan = (map_pts[sel] + rs.randn(n_scan, 3) * 0.02).astype(np.float32)
     return map_pts, scan
+
+
+def repaired_jax_window_for(self, scan):
+    """The JAX `LiveFeed._window_for` with the port's window start: after
+    the samples the previous scan's correction took
+    (`lio_slam_tpu_torch.pipeline.live.correction_takes`), not 1e-9 s after
+    its stamp, which at epoch stamps hands the sample one float64 ulp after
+    the stamp to two corrections.  The JAX package stays as it is; its
+    replays are compared with the port's under this patch."""
+    from lio_slam_tpu_torch.pipeline.live import correction_takes
+
+    sweep_end = float(scan.stamp) + (float(scan.time.max())
+                                     if scan.time is not None
+                                     and len(scan.time) else 0.0)
+    last = self._last_scan_stamp
+    ts, vals = self.imu_queue.window(
+        last if last is not None else -1e18,
+        sweep_end + self.deskew_tail_margin, margin=0.0, max_n=4096)
+    if last is not None and len(ts):
+        fresh = ~correction_takes(ts, last)
+        ts, vals = ts[fresh], vals[fresh]
+    if len(ts) == 0:
+        return None
+    quat = vals[:, 6:10]
+    return {"stamps": ts, "acc": vals[:, 0:3].copy(),
+            "gyr": vals[:, 3:6].copy(),
+            "quat": None if np.isnan(quat).all() else quat.copy()}
+
+
+@contextlib.contextmanager
+def repaired_jax_feed():
+    """The JAX `LiveFeed` with `repaired_jax_window_for` inside the block."""
+    from lio_slam_tpu.pipeline import live as jlive
+
+    original = jlive.LiveFeed._window_for
+    jlive.LiveFeed._window_for = repaired_jax_window_for
+    try:
+        yield
+    finally:
+        jlive.LiveFeed._window_for = original
+
+
+def jax_fused_interpret(scan, scan_mask, grid, cfg):
+    """The JAX `registration._maybe_fused` as it is off the CPU, with the
+    Pallas kernel in interpret mode: patched in where a JAX run must hold
+    its candidate block for `corr_refresh_every` iterations, as the port
+    does (on the CPU the JAX registration takes its unfused path, which
+    finds fresh correspondences at every iteration)."""
+    from lio_slam_tpu.ops import fused_corr as jfc
+    from lio_slam_tpu.utils import se3 as jse3
+
+    if grid is None or not cfg.use_fused_kernel:
+        return None
+    kw = dict(halo=cfg.grid_halo, nn_radius=cfg.nn_radius,
+              plane_dist_thresh=cfg.plane_dist_thresh,
+              robust_weight_floor=cfg.robust_weight_floor, interpret=True)
+    if cfg.corr_refresh_every <= 1:
+        return lambda pose: jfc.fused_normal_equations(grid, scan, scan_mask,
+                                                       pose, **kw)
+
+    def gather_fn(pose):
+        R, t = jse3.pose6_to_Rt(pose)
+        return jfc.gather_planar(grid, jse3.transform_points(R, t, scan),
+                                 cfg.grid_halo)
+
+    def from_cand_fn(cand, hh, pose):
+        return jfc.fused_ne_from_candidates(cand, hh, scan, scan_mask, pose,
+                                            **kw)
+
+    return (gather_fn, from_cand_fn, int(cfg.corr_refresh_every))

@@ -32,7 +32,18 @@ CPU over exactly those missions and saves what the smoke run compares:
   corrections, the ATE against the rebased truth and the output bag's
   records per topic; for the hostile bag (`hostile_bag_config()`) per-scan
   poses, keyframe flags, GN iterations and GPS factor counts (keys with
-  the prefix `hostile_`).
+  the prefix `hostile_`).  Both replays run with the JAX
+  `LiveFeed._window_for` patched to the port's repaired window start
+  (`torch_port_helpers.repaired_jax_window_for`): the JAX feed hands the
+  IMU sample one float64 ulp after a scan stamp to two corrections.
+- `corner_mission_jax.npz` and `rebuild_mission_jax.npz`: the corner
+  missions of `synthetic_mission` (`corner_mission_config()` on the
+  incremental map, 60 scans, and on the rebuild-mode map, 40 scans; the
+  port's `make_sweep_sequence` through `rig_sensor_for(cfg)`, 32768 points,
+  the IMU windows of `make_imu_windows(sweep_cover=sweep_time)`): the
+  sha256 of the port's scans, per-scan poses, keyframe flags and GN
+  iterations, the keyframe count, the corners stored per keyframe and the
+  ATE against truth.
 
 On the CPU the JAX registration takes its unfused path, which finds fresh
 correspondences at every GN iteration whatever `corr_refresh_every` says
@@ -42,9 +53,9 @@ path it takes off the CPU, with the Pallas kernel in interpret mode and the
 candidate block held between refreshes, as the port does.
 
 Run by hand from the repository root (`smoke`, `loop`, `archive`, `bag`,
-or all four when no argument is given):
+`corner`, or all five when no argument is given):
 
-    python tests/torch_port_make_fixture.py [smoke|loop|archive|bag]
+    python tests/torch_port_make_fixture.py [smoke|loop|archive|bag|corner]
 
 It is not a test (pytest does not collect it).
 """
@@ -65,7 +76,6 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 from lio_slam_tpu import config as jax_config  # noqa: E402
-from lio_slam_tpu.ops import fused_corr as jfc  # noqa: E402
 from lio_slam_tpu.ops import registration as jreg  # noqa: E402
 from lio_slam_tpu.pipeline.runner import Runner  # noqa: E402
 from lio_slam_tpu.utils import se3 as jse3  # noqa: E402
@@ -73,37 +83,16 @@ from lio_slam_tpu_torch.io import synthetic  # noqa: E402
 from lio_slam_tpu_torch.pipeline import synthetic_mission as sm  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
-from torch_port_helpers import to_jax_config  # noqa: E402
+from torch_port_helpers import (jax_fused_interpret, repaired_jax_feed,  # noqa: E402
+                                to_jax_config)
 
 FIXTURES = os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures")
 OUT = os.path.join(FIXTURES, "smoke_mission_jax.npz")
 LOOP_OUT = os.path.join(FIXTURES, "loop_mission_jax.npz")
 ARCHIVE_OUT = os.path.join(FIXTURES, "archive_mission_jax.npz")
 BAG_OUT = os.path.join(FIXTURES, "bag_mission_jax.npz")
-
-
-def fused_interpret(scan, scan_mask, grid, cfg):
-    """`registration._maybe_fused` as it is off the CPU, with the Pallas
-    kernel in interpret mode."""
-    if grid is None or not cfg.use_fused_kernel:
-        return None
-    kw = dict(halo=cfg.grid_halo, nn_radius=cfg.nn_radius,
-              plane_dist_thresh=cfg.plane_dist_thresh,
-              robust_weight_floor=cfg.robust_weight_floor, interpret=True)
-    if cfg.corr_refresh_every <= 1:
-        return lambda pose: jfc.fused_normal_equations(grid, scan, scan_mask,
-                                                       pose, **kw)
-
-    def gather_fn(pose):
-        R, t = jse3.pose6_to_Rt(pose)
-        return jfc.gather_planar(grid, jse3.transform_points(R, t, scan),
-                                 cfg.grid_halo)
-
-    def from_cand_fn(cand, hh, pose):
-        return jfc.fused_ne_from_candidates(cand, hh, scan, scan_mask, pose,
-                                            **kw)
-
-    return (gather_fn, from_cand_fn, int(cfg.corr_refresh_every))
+CORNER_OUT = os.path.join(FIXTURES, "corner_mission_jax.npz")
+REBUILD_OUT = os.path.join(FIXTURES, "rebuild_mission_jax.npz")
 
 
 def count_iterations(runner):
@@ -414,11 +403,39 @@ def smoke_mission():
           f"{sum(iters)} GN iterations, {time.time() - t0:.1f} s")
 
 
+def corner_missions():
+    """The JAX `Runner` over the port's corner missions (the incremental
+    and the rebuild-mode map); writes CORNER_OUT and REBUILD_OUT."""
+    for mode, n_scans, out in (("incremental", sm.CORNER_SCANS, CORNER_OUT),
+                               ("rebuild", sm.REBUILD_SCANS, REBUILD_OUT)):
+        cfg = sm.corner_mission_config(mode)
+        seq, scans, imus = sm.corner_mission_inputs(cfg, n_scans=n_scans)
+        runner = Runner(to_jax_config(cfg, jax_config))
+        iters = count_iterations(runner)
+        t0 = time.time()
+        results = [runner.process_scan(scans[i], imu=imus[i])
+                   for i in range(len(scans))]
+        poses = np.stack([r.pose for r in results]).astype(np.float32)
+        ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
+        n_kf = int(runner.state.store.count)
+        corners = np.array(runner.state.store.corner_masks[:n_kf]).sum(1)
+        np.savez(out, scans_sha256=np.array(sm.scans_sha256(scans)),
+                 poses=poses,
+                 is_keyframe=np.array([r.is_keyframe for r in results]),
+                 registration_iters=np.array(iters, np.int32),
+                 keyframes=np.int32(n_kf), corners=corners.astype(np.int32),
+                 ate_rmse_m=np.float32(ate))
+        print(f"wrote {out}: {mode} map, {len(results)} scans, {n_kf} "
+              f"keyframes, corners a keyframe {corners.tolist()}, ATE "
+              f"{ate:.5f} m, {sum(iters)} GN iterations, "
+              f"{time.time() - t0:.1f} s")
+
+
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("smoke", "loop", "archive", "bag", "all"):
+    if which not in ("smoke", "loop", "archive", "bag", "corner", "all"):
         sys.exit(__doc__)
-    jreg._maybe_fused = fused_interpret
+    jreg._maybe_fused = jax_fused_interpret
     if which in ("smoke", "all"):
         smoke_mission()
     if which in ("loop", "all"):
@@ -426,7 +443,10 @@ def main():
     if which in ("archive", "all"):
         archive_mission()
     if which in ("bag", "all"):
-        bag_missions()
+        with repaired_jax_feed():
+            bag_missions()
+    if which in ("corner", "all"):
+        corner_missions()
 
 
 if __name__ == "__main__":

@@ -122,6 +122,29 @@
    nearby keyframes and a grid built every scan, `register_loam`; held to
    fixtures/rebuild_mission_jax.npz the same way, with the map assembly's
    and the grid build's times.
+16. Hard-tier replay: `HostDrivenReplay(hard_replay_config(),
+   loop_every=10)` (the "default" preset at bench.py's widths, its 500 Hz
+   IMU in a 64-sample window) on the card over 60 sweep scans of the hard
+   world (`hard_replay_inputs()`: 2 % garbage returns, 20000 clutter
+   points), held to fixtures/hard_replay_jax.npz (the JAX replay of the
+   same inputs, their sha256 checked first): every scan's degenerate flag
+   and its GN iterations within one of the reference's, the trajectory
+   within the mapping limits, the loop count, launches of mapping equal to
+   the GN iterations and of loop verification counted apart, one captured
+   launch against the plain version; then the replay again with the
+   reference's IMU front-end state carried into each scan, within 1e-3 m
+   and 0.005 deg.  Prints the ATE and mean GN iterations beside RIG_ATE.json's
+   "default" row, scans/s over scans 5-59, and from a profiled replay of
+   scans 20-24 the host and device ms a scan of prep+predict, the mapping
+   step and correct+fuse with the device's idle share.
+17. Deskew mission: the sweep mission of tests/test_sweep_sensor.py through
+   `HostDrivenReplay` on the card with the point times and with zeros: the
+   deskewed ATE under 0.2 m and within 10 % of the reference's, the ATE
+   without deskew at least 4.5 times larger; launches of both runs.
+Then both preintegration forms on one front-end window on the card: the
+parallel form held to the sequential one, host and device ms and operator
+calls of each; phases 3-5 also print the IMU front-end's host and device
+ms a scan beside those of the sequential form.
 Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line describing the
@@ -170,6 +193,24 @@ SMI = "card not read"       # nvidia-smi's name and power limit, set by main
 BAG_CAPTURE_AT = 200
 HOSTILE_CAPTURE_AT = 60
 CORNER_CAPTURE_AT = {"incremental": 80, "rebuild": 70}
+# the hard-tier replay's kernel launch held to the plain version
+HARD_CAPTURE_AT = 100
+# The hard replay's GN iterations may differ from the reference's by
+# CARRIED_MAX_ITER_DIFF on a scan, their sums by no more than the scans
+# that differ.  CPU (port and reference, each GN step read from its trace):
+# free-running at 5 of 60 scans, where the JAX front-end's float32 first
+# update moves the guesses and the first steps differ by up to 10 %; with
+# the reference's front-end state carried in at 2, scan 59 a last step
+# 0.04808 cm (reference, stops) against 0.05048 cm (port, goes on) at the
+# 0.05 cm threshold, scan 58 a sixth step that doubles in the reference.
+# the same stages with the sequential preintegration, before the front-end
+# integrated in log depth (this script on an NVIDIA H100 80GB HBM3,
+# 700.00 W): imu_frontend host and device ms a scan, device kernels and
+# copies a scan
+SEQUENTIAL_IMU_FRONTEND_MS = (83.593, 7.155)
+SEQUENTIAL_DEVICE_KERNELS_A_SCAN = 15528
+# RIG_ATE.json's "default" row, hard tier (the JAX package's record)
+RIG_ATE_DEFAULT = (0.0653, 3.86)
 
 
 def fail(msg: str):
@@ -541,6 +582,9 @@ def mission_phase(dev, profile_dir):
     host = {k: round(v["mean_ms"], 3) for k, v in runner.timer.as_dict().items()}
     print(f"mission stages, host ms/scan (unsynchronized): {json.dumps(host)}",
           flush=True)
+    print(f"mission: imu_frontend (preintegrate_parallel) {host['imu_frontend']} "
+          f"host ms/scan; sequential: {SEQUENTIAL_IMU_FRONTEND_MS[0]} ({SMI})",
+          flush=True)
 
     carried_phase(dev, cfg, scans, imus, fixture)
     profiled_phase(dev, cfg, scans, imus, profile_dir)
@@ -633,6 +677,13 @@ def profiled_phase(dev, cfg, scans, imus, profile_dir):
     print(f"profiled stages, ms/scan (device: kernels launched inside the "
           f"stage; host: the range under the profiler): {json.dumps(stages)}",
           flush=True)
+    front = stages.get("imu_frontend", {})
+    print(f"profiled: imu_frontend {front.get('device_ms')} device ms/scan, "
+          f"{front.get('host_ms')} host ms/scan under the profiler "
+          f"(sequential: {SEQUENTIAL_IMU_FRONTEND_MS[1]} device ms/scan); "
+          f"{n_dev / 10:.1f} device kernels and copies a scan (sequential: "
+          f"{SEQUENTIAL_DEVICE_KERNELS_A_SCAN}) "
+          f"({SMI})", flush=True)
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
         with open(os.path.join(profile_dir, "mission_profile.txt"), "w") as f:
@@ -1941,6 +1992,464 @@ def corner_mission_phase(mode):
     return launches, err
 
 
+def operator_calls(fn) -> int:
+    """The aten operator calls `fn()` makes (counted by a torch dispatch
+    mode)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counting(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Counting() as mode:
+        fn()
+    return mode.n
+
+
+def preintegration_phase(dev):
+    """Both preintegration forms on the card over one front-end window (64
+    samples, 10 valid, 100 Hz): the parallel form held to the sequential
+    one at the tolerances of tests/test_preintegration_parallel.py, host ms
+    a call (the host's clock, unsynchronized, mean of 20), device ms a call
+    (torch.profiler) and operator calls of each."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.ops import preintegration as pre
+
+    rs = np.random.RandomState(0)
+    T, valid = 64, 10
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    args = (f32(rs.randn(T, 3) * 0.5 + [0.0, 0.0, 9.80511]),
+            f32(rs.randn(T, 3) * 0.3), f32(np.full(T, 0.01)),
+            torch.from_numpy(np.arange(T) < valid).to(dev),
+            f32(np.zeros(3)), f32(np.zeros(3)), 1e-2, 1e-3)
+    out, results = {}, {}
+    for name in ("preintegrate", "preintegrate_parallel"):
+        fn = getattr(pre, name)
+        results[name] = fn(*args)
+        ops = operator_calls(lambda: fn(*args))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn(*args)
+        host = 1e3 * (time.perf_counter() - t0) / 20
+        torch.cuda.synchronize()
+        out[name] = {"host_ms": round(host, 4),
+                     "device_ms": round(device_ms(lambda: fn(*args), reps=5), 4),
+                     "operator_calls": ops}
+    seq, par = results["preintegrate"], results["preintegrate_parallel"]
+    g = lambda x: x.detach().double().cpu().numpy()
+    limits = {"dR": 2e-5, "dv": 2e-4, "dp": 2e-4, "dt": 1e-6,
+              **{k: 5e-3 for k in ("dR_dbg", "dv_dbg", "dv_dba", "dp_dbg",
+                                   "dp_dba")},
+              "cov": 2e-2 * float(g(seq.cov).__abs__().max()) + 1e-10}
+    diffs = {k: float(np.abs(g(getattr(par, k)) - g(getattr(seq, k))).max())
+             for k in limits}
+    print(f"preintegration on the card ({SMI}; a 64-sample window, 10 valid): "
+          f"{json.dumps(out)}; parallel - sequential, largest difference: "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in diffs.items()})}",
+          flush=True)
+    over = [k for k in limits if not diffs[k] <= limits[k]]
+    if over:
+        fail(f"preintegrate_parallel differs from preintegrate on the card in "
+             f"{over}: {[diffs[k] for k in over]}")
+
+
+def profiling_between(prof, first, last):
+    """`run_wrapped` wrappers for a replay's `_prep_predict` and
+    `transform_fusion` (the first and the last stage of a scan): the
+    profiler `prof` runs from the prep of scan `first` to the end of scan
+    `last` (the card synchronized at both ends); the wall time lands in
+    `prof.wall_ms`."""
+    import torch
+
+    seen = {"prep": 0, "fuse": 0}
+
+    def prep_wrap(fn):
+        def wrapped(*a, **k):
+            if seen["prep"] == first:
+                torch.cuda.synchronize()
+                prof.start()
+                prof.t0 = time.perf_counter()
+            seen["prep"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    def fuse_wrap(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            if seen["fuse"] == last:
+                torch.cuda.synchronize()
+                prof.wall_ms = 1e3 * (time.perf_counter() - prof.t0)
+                prof.stop()
+            seen["fuse"] += 1
+            return out
+        return wrapped
+
+    return prep_wrap, fuse_wrap
+
+
+def hard_replay_phase():
+    """Phase 16: `HostDrivenReplay(hard_replay_config(), loop_every=10)` on
+    the card over the 60 hard-tier sweep scans, held to
+    fixtures/hard_replay_jax.npz: the inputs' sha256, every scan's
+    degenerate flag, its GN iterations as `iteration_parting` holds them, the
+    trajectory within the mapping limits, the loop count, kernel launches of mapping equal to the GN
+    iterations and of loop verification to the reference's verifications,
+    one captured launch against the plain version (the bag paths' rule).
+    Prints the ATE and mean GN iterations beside RIG_ATE.json's "default"
+    row, scans/s over scans 5-59, and from a second replay of scans 0-24
+    profiled over scans 20-24 the host and device ms a scan of
+    prep+predict, the mapping step and correct+fuse and the device's idle
+    share.  Returns (mapping launches, verification launches, the kernel
+    check's largest difference)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import replay
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    label = "hard replay"
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "hard_replay_jax.npz"))
+    cfg = sm.hard_replay_config()
+    t0 = time.perf_counter()
+    seq, batch = sm.hard_replay_inputs(cfg)
+    digest = sm.batch_sha256(batch)
+    print(f"{label}: {sm.HARD_SCANS} sweep scans of {sm.SMOKE_POINTS} points "
+          f"(the default rig: 16 beams, 500 Hz IMU; 2 % garbage, 20000 "
+          f"clutter points) made in {time.perf_counter() - t0:.1f} s on the "
+          f"host, sha256 {digest} (the reference replayed "
+          f"{fixture['batch_sha256']})", flush=True)
+    if digest != str(fixture["batch_sha256"]):
+        fail(f"{label}: the inputs differ from those the reference replayed")
+    hd = replay.HostDrivenReplay(cfg, loop_every=sm.HARD_LOOP_EVERY)
+    if hd.device.type != "cuda":
+        fail(f"HostDrivenReplay(cfg) chose {hd.device}, not the card")
+    scans = hd.split(batch)
+    cycles, stamps, captured = [], [], []
+
+    def watching(detector):
+        def wrapped(state):
+            state, aux = detector(state)
+            cycles.append(aux)
+            return state, aux
+        return wrapped
+
+    def stamping(correct):
+        def wrapped(*a, **k):
+            out = correct(*a, **k)
+            stamps.append(time.perf_counter())
+            return out
+        return wrapped
+
+    traces = []
+    restore = [run_wrapped(hd, "detector", watching),
+               run_wrapped(hd, "correct", stamping),
+               run_wrapped(fc, "fused_ne_from_bucket_ids",
+                           capturing(HARD_CAPTURE_AT, captured))]
+    restore += gn_tracing(hd, traces)
+    try:
+        state, fes = hd.init()
+        fc.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        state, fes, outs = hd.run(state, fes, scans)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = fc.KERNEL_LAUNCHES
+    finally:
+        for undo in restore:
+            undo()
+
+    poses = outs.poses.cpu().numpy()
+    iters = outs.iters.cpu().numpy()
+    degen = outs.degenerate.cpu().numpy()
+    verify_iters = sum(sum(c["loop_iters"]) for c in cycles)
+    verifications = sum(len(c["loop_iters"]) for c in cycles)
+    ref_verifications = int((fixture["loop_fitness"] != 0).sum())
+    mapping = int(iters.sum())
+    ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
+    steady = (sm.HARD_SCANS - 5) / (stamps[-1] - stamps[4])
+    print(f"{label}: {sm.HARD_SCANS} scans in {elapsed:.3f} s ({SMI}); scans "
+          f"5-59 {steady:.3f} scans/s; ATE {ate:.5f} m, mean GN iterations "
+          f"(scans 1-59) {iters[1:].mean():.2f} (JAX reference "
+          f"{float(fixture['ate_rmse_m']):.5f} m, "
+          f"{fixture['registration_iters'][1:].mean():.2f}; RIG_ATE.json "
+          f"default row, a JAX record: {RIG_ATE_DEFAULT[0]} m, "
+          f"{RIG_ATE_DEFAULT[1]}); kernel launches {launches} = mapping "
+          f"{mapping} (JAX {int(fixture['registration_iters'].sum())}) + "
+          f"loop verification {verify_iters} in {verifications} "
+          f"verification(s) (JAX {ref_verifications}); loops "
+          f"{int(state.loop_count)} (JAX {int(fixture['loop_count'])}); "
+          f"keyframes {int(state.store.count)} (JAX {int(fixture['keyframes'])})",
+          flush=True)
+    failures = iteration_parting(label, iters, traces, fixture, cfg)
+    if not np.isfinite(poses).all():
+        failures.append(f"{label}: non-finite poses")
+    if (degen != fixture["degenerate"]).any():
+        failures.append(f"{label}: degenerate flags differ at scans "
+                        f"{np.nonzero(degen != fixture['degenerate'])[0].tolist()}")
+    if int(state.loop_count) != int(fixture["loop_count"]):
+        failures.append(f"{label}: {int(state.loop_count)} loops, JAX "
+                        f"{int(fixture['loop_count'])}")
+    if launches != mapping + verify_iters or mapping == 0:
+        failures.append(f"{label}: {launches} launches, {mapping} GN iterations "
+                        f"of mapping + {verify_iters} of verification")
+    if verifications != ref_verifications:
+        failures.append(f"{label}: {verifications} loop verifications, JAX "
+                        f"{ref_verifications}")
+    if not captured:
+        failures.append(f"{label}: kernel launch {HARD_CAPTURE_AT} never came")
+    failures += deviation_spans(label, poses, fixture["poses"], (
+        ("whole replay", slice(None), MAX_DEV_M, MAX_DEV_RAD),))
+    fused = np.abs(outs.fused_last.cpu().numpy() - fixture["fused_last"]).max()
+    print(f"{label}: TransformFusion output within {fused:.3e} of the "
+          f"reference's", flush=True)
+    if failures:
+        fail("; ".join(failures))
+    err = bag_kernel_check(f"{label} launch {HARD_CAPTURE_AT}", captured[0])
+    carried_replay(cfg, scans, fixture)
+
+    # profiled pass: a fresh replay of scans 0-24, profiled over 20-24
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    hd2 = replay.HostDrivenReplay(cfg, loop_every=sm.HARD_LOOP_EVERY)
+    host = {}
+    prep_wrap, fuse_wrap = profiling_between(prof, 20, 24)
+    # (range, attribute): TransformFusion runs after the correction and
+    # shares its range
+    spans = (("prep_predict", "_prep_predict"), ("mapping_step", "step"),
+             ("correct_fuse", "correct"), ("correct_fuse", "transform_fusion"))
+    restore = [run_wrapped(hd2, attr, spanned(span, host.setdefault(span, [])))
+               for span, attr in spans]
+    restore += [run_wrapped(hd2, "_prep_predict", prep_wrap),
+                run_wrapped(hd2, "transform_fusion", fuse_wrap)]
+    try:
+        state, fes = hd2.init()
+        hd2.run(state, fes, scans[:25])
+    finally:
+        for undo in reversed(restore):
+            undo()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = prof.key_averages()
+    dev_ms = {e.key: round(1e-3 * e.device_time_total / 5, 3) for e in rows
+              if e.key in host and e.device_type != cuda}
+    host_ms = {span: round(1e3 * sum(v[20:25] if span != "correct_fuse"
+                                     else v[40:50]) / 5, 3)
+               for span, v in host.items()}
+    busy = device_busy_ms(prof)
+    n_dev = sum(e.count for e in rows if e.device_type == cuda
+                and not getattr(e, "is_user_annotation", False))
+    print(f"{label} profiled scans 20-24 ({SMI}): host ms a scan "
+          f"{json.dumps(host_ms)}, device ms a scan {json.dumps(dev_ms)}; "
+          f"device busy {busy:.3f} ms of {prof.wall_ms:.3f} ms wall (idle share "
+          f"{1.0 - busy / prof.wall_ms:.3f}); {n_dev / 5:.1f} device kernels "
+          f"and copies a scan", flush=True)
+    return mapping, verify_iters, err
+
+
+def gn_tracing(hd, traces):
+    """Wrap `hd.step` and `registration._gn_loop` (the fused path without
+    candidate refresh) so that `traces` gets a list for each scan and each
+    GN loop of that scan appends its trace to it: the (pose, inliers) each
+    iteration starts from, then (final pose, -1), left on the device until
+    read.  Returns the functions that undo the wrapping."""
+    from lio_slam_tpu_torch.ops import registration as reg
+
+    def per_scan(step):
+        def wrapped(*a, **k):
+            traces.append([])
+            return step(*a, **k)
+        return wrapped
+
+    def tracing(gn_loop):
+        def wrapped(*a, ne_fn=None, **k):
+            trace = []
+
+            def noting(pose):
+                ne = ne_fn(pose)
+                trace.append((pose, ne[2]))
+                return ne
+
+            res = gn_loop(*a, ne_fn=noting, **k)
+            trace.append((res.pose, -1))
+            traces[-1].append(trace)
+            return res
+        return wrapped
+
+    return [run_wrapped(hd, "step", per_scan),
+            run_wrapped(reg, "_gn_loop", tracing)]
+
+
+def gn_steps(poses, rcfg):
+    """Each GN step between successive poses over the convergence test's
+    thresholds: the larger of the rotation in deg over `rot_converge` and
+    the translation in cm over `trans_converge`, a list of floats.  The
+    loop stops after the first step under 1."""
+    import numpy as np
+
+    d = np.diff(np.asarray(poses, np.float64), axis=0)
+    q = np.maximum(np.degrees(np.linalg.norm(d[:, :3], axis=1))
+                   / rcfg.rot_converge,
+                   100.0 * np.linalg.norm(d[:, 3:], axis=1)
+                   / rcfg.trans_converge)
+    return [round(float(x), 4) for x in q]
+
+
+def iteration_parting(label, iters, traces, fixture, cfg):
+    """Hold the hard replay's GN iterations to the reference's: at most
+    CARRIED_MAX_ITER_DIFF apart on a scan and their sums no further apart
+    than the number of scans that differ.  At each scan that differs print
+    both packages' GN steps over the convergence thresholds (a step under
+    1.0 in both ends the loop) and the inliers of each iteration, the
+    reference's from the fixture's GN traces.  Returns the failures."""
+    import numpy as np
+
+    rcfg = cfg.registration
+    d_it = iters - fixture["registration_iters"]
+    differ = np.nonzero(d_it)[0]
+    print(f"{label}: GN iterations {int(iters.sum())} (JAX "
+          f"{int(fixture['registration_iters'].sum())}), differing at scans "
+          f"{differ.tolist()}", flush=True)
+    for k in differ:
+        n_j, n_p = int(fixture["registration_iters"][k]), int(iters[k])
+        trace = traces[k][0]
+        ref = gn_steps(fixture["gn_poses"][k, :n_j + 1], rcfg)
+        got = gn_steps(np.stack([p.cpu().numpy() for p, _ in trace]), rcfg)
+        print(f"{label}: scan {k}, {n_j} iterations in JAX, {n_p} in the "
+              f"port; GN steps over the thresholds ({rcfg.rot_converge} deg, "
+              f"{rcfg.trans_converge} cm) JAX {ref}, port {got}; inliers JAX "
+              f"{fixture['gn_inliers'][k, :n_j].tolist()}, port "
+              f"{[int(c) for _, c in trace[:-1]]}", flush=True)
+    failures = []
+    if np.abs(d_it).max() > CARRIED_MAX_ITER_DIFF:
+        failures.append(f"{label}: GN iterations differ by up to "
+                        f"{np.abs(d_it).max()} on a scan")
+    if abs(int(d_it.sum())) > len(differ):
+        failures.append(f"{label}: GN iterations sum {int(iters.sum())}, JAX "
+                        f"{int(fixture['registration_iters'].sum())}")
+    return failures
+
+
+def carried_replay(cfg, scans, fixture):
+    """Phase 16 again, each scan's prep and correction starting from the
+    JAX front-end's state before that scan (recorded in the fixture): the
+    mapping path alone against the reference, without the reference's
+    float32 error in its first covariance update.  Every scan's degenerate
+    flag must be the reference's and its GN iterations as
+    `iteration_parting` holds them, the poses within 1e-3 m and 0.005
+    deg."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import replay
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    hd = replay.HostDrivenReplay(cfg, loop_every=sm.HARD_LOOP_EVERY)
+
+    def substituting(fn):
+        """Calls of `fn(fes, ...)` take the reference's state of scan k on
+        their k-th call."""
+        calls = iter(range(len(scans)))
+
+        def wrapped(fes, *a, **k):
+            return fn(fixture_imu_state(fixture, next(calls), hd.device), *a, **k)
+        return wrapped
+
+    traces = []
+    restore = [run_wrapped(hd, "_prep_predict", substituting),
+               run_wrapped(hd, "correct", substituting)]
+    restore += gn_tracing(hd, traces)
+    try:
+        state, fes = hd.init()
+        fc.KERNEL_LAUNCHES = 0
+        _, _, outs = hd.run(state, fes, scans)
+        torch.cuda.synchronize()
+        launches = fc.KERNEL_LAUNCHES
+    finally:
+        for undo in restore:
+            undo()
+    poses = outs.poses.cpu().numpy()
+    iters = outs.iters.cpu().numpy()
+    degen = outs.degenerate.cpu().numpy()
+    dev_t = float(np.abs(poses[:, 3:] - fixture["poses"][:, 3:]).max())
+    dev_r = float(np.abs(poses[:, :3] - fixture["poses"][:, :3]).max())
+    print(f"hard replay, carried IMU state: max deviation {dev_t:.3e} m, "
+          f"{math.degrees(dev_r):.3e} deg; degenerate flags differ at scans "
+          f"{np.nonzero(degen != fixture['degenerate'])[0].tolist()}; "
+          f"{launches} kernel launches", flush=True)
+    failures = iteration_parting("hard replay, carried IMU state", iters,
+                                 traces, fixture, cfg)
+    if (degen != fixture["degenerate"]).any():
+        failures.append("hard replay with the reference's IMU state: "
+                        "degenerate flags differ")
+    if failures:
+        fail("; ".join(failures))
+    if dev_t > CARRIED_MAX_DEV_M or dev_r > CARRIED_MAX_DEV_RAD:
+        fail(f"hard replay, carried-state deviation {dev_t} m / {dev_r} rad")
+    if launches != int(outs.iters.sum()):
+        fail(f"hard replay, carried: {launches} launches, "
+             f"{int(outs.iters.sum())} GN iterations")
+
+
+def deskew_phase():
+    """Phase 17: the deskew mission of tests/test_sweep_sensor.py through
+    `HostDrivenReplay` on the card, once with the sweep's point times and
+    once with zeros: the JAX test's gates (ATE under 0.2 m with deskew,
+    at least 4.5 times larger without) and the deskewed ATE within 10 % of
+    the reference's (fixtures/hard_replay_jax.npz); launches equal to the
+    GN iterations of both runs.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import replay
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "hard_replay_jax.npz"))
+    cfg, seq, windows = sm.deskew_mission_inputs()
+    ates, launches, iters = [], 0, 0
+    for ptimes in (None, np.zeros_like(seq.ptimes)):
+        hd = replay.HostDrivenReplay(cfg, loop_every=0)
+        scans = hd.split(sm.replay_batch(seq, windows, ptimes))
+        state, fes = hd.init()
+        fc.KERNEL_LAUNCHES = 0
+        _, _, outs = hd.run(state, fes, scans)
+        torch.cuda.synchronize()
+        launches += fc.KERNEL_LAUNCHES
+        iters += int(outs.iters.sum())
+        ates.append(synthetic.ate_rmse(outs.poses.cpu().numpy(),
+                                       sm.relative_truth(seq)))
+    with_, without = ates
+    ref_with = float(fixture["deskew_ate_with_m"])
+    print(f"deskew mission ({SMI}): ATE {with_:.5f} m with point times (JAX "
+          f"{ref_with:.5f}), {without:.5f} m without (JAX "
+          f"{float(fixture['deskew_ate_without_m']):.5f}), ratio "
+          f"{without / with_:.2f} (gate 4.5); kernel launches {launches} == GN "
+          f"iterations {iters}", flush=True)
+    failures = []
+    if not with_ < 0.2:
+        failures.append(f"deskewed ATE {with_} m")
+    if not without >= 4.5 * with_:
+        failures.append(f"deskew off {without} m is not 4.5 x {with_} m")
+    if not abs(with_ - ref_with) <= 0.1 * ref_with:
+        failures.append(f"deskewed ATE {with_} m, reference {ref_with} m")
+    if launches != iters or launches == 0:
+        failures.append(f"{launches} launches, {iters} GN iterations")
+    if failures:
+        fail("deskew mission: " + "; ".join(failures))
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-dir", default=None,
@@ -2010,11 +2519,17 @@ def main():
                                corner_mission_phase, "incremental")
     rebuilt, rebuild_err = phase("phase 15 (corner mission, rebuild-mode map)",
                                  corner_mission_phase, "rebuild")
+    hard_map, hard_ver, hard_err = phase("phase 16 (hard-tier replay)",
+                                         hard_replay_phase)
+    deskewed = phase("phase 17 (deskew mission)", deskew_phase)
+    phase("preintegration on the card", preintegration_phase, dev)
     paths = {"mission": launches, "loop_mapping": loop_map,
              "loop_verification": loop_ver, **arch, "resume": resumed,
              "bag_mapping": bag_map, "bag_loop_verification": bag_ver,
              "hostile_bag": hostile, "corner_mapping": corner,
-             "rebuild_mapping": rebuilt}
+             "rebuild_mapping": rebuilt, "hard_replay_mapping": hard_map,
+             "hard_replay_verification": hard_ver,
+             "deskew_replay": deskewed}
     print(json.dumps({"kernels": [{
         "name": "fused_corr", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/fused_corr.cu",
@@ -2022,7 +2537,7 @@ def main():
         "launches": sum(paths.values()),
         **{f"launches_{p}": v for p, v in paths.items()},
         "max_abs_err": max(k["max_abs_err"], loop_err, arch_err, bag_err,
-                           hostile_err, corner_err, rebuild_err),
+                           hostile_err, corner_err, rebuild_err, hard_err),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None, "cold_ms": k["cold_ms"],
         "entry_ms": k["entry_ms"], "entry_plain_ms": k["entry_plain_ms"]}]}),

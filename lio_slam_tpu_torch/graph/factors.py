@@ -156,3 +156,8 @@ def info_from_variances(variances, device=None) -> torch.Tensor:
     """gtsam noiseModel::Diagonal::Variances -> information diagonal."""
     v = torch.as_tensor(variances, dtype=torch.float32, device=device)
     return 1.0 / torch.clamp(v, min=1e-12)
+
+
+def cauchy_weight(e_norm2: torch.Tensor, k: float = 0.5) -> torch.Tensor:
+    """gtsam mEstimator::Cauchy(k) weight for the SC loop factors (:1250)."""
+    return 1.0 / (1.0 + e_norm2 / (k * k))

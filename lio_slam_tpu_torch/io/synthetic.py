@@ -1,7 +1,7 @@
-"""Synthetic LiDAR/IMU sequence generator (port of the parts of
-`lio_slam_tpu/io/synthetic.py` the port's runner and tests use): the clean
-instantaneous-scan mission, and the spinning-scanner (sweep) mission with
-rings, per-point times and its IMU windows.
+"""Synthetic LiDAR/IMU sequence generator (port of
+`lio_slam_tpu/io/synthetic.py`): the instantaneous-scan mission with its
+hard-world knobs, the corridor world, and the spinning-scanner (sweep)
+mission with rings, per-point times and its IMU windows.
 
 numpy with the same `RandomState` call order as the JAX package, so one
 seed gives the same world, trajectory and scans; the rotations go through
@@ -94,20 +94,87 @@ def observe(world: np.ndarray, pose6: np.ndarray, n_points: int,
     return out, mask
 
 
+def make_corridor_world(length: float = 120.0, width: float = 6.0,
+                        height: float = 4.0, seed: int = 0,
+                        n_points: int = 120000):
+    """Degenerate corridor: a ground strip, two long parallel walls and a
+    far end cap.  Planar support constrains only the across-corridor and
+    vertical directions: translation along the corridor is unobservable to
+    point-to-plane registration, the regime of the eigenvalue-gated
+    degeneracy projection (mapOptmization.cpp:1786-1814)."""
+    rs = np.random.RandomState(seed)
+    u = lambda n, lo, hi: rs.uniform(lo, hi, n).astype(np.float32)
+    n4 = n_points // 4
+    surfaces = [
+        np.stack([u(n4, -5.0, length), u(n4, -width / 2, width / 2),
+                  np.zeros(n4, np.float32)], 1),
+        np.stack([u(n4, -5.0, length),
+                  np.full(n4, -width / 2, np.float32), u(n4, 0, height)], 1),
+        np.stack([u(n4, -5.0, length),
+                  np.full(n4, width / 2, np.float32), u(n4, 0, height)], 1),
+        np.stack([np.full(n4 // 4, length, np.float32),
+                  u(n4 // 4, -width / 2, width / 2),
+                  u(n4 // 4, 0, height)], 1),
+    ]
+    world = np.concatenate(surfaces).astype(np.float32)
+    world += rs.randn(*world.shape).astype(np.float32) * 0.01
+    return world
+
+
 def make_sequence(n_scans: int = 40, n_points: int = 8192, seed: int = 0,
                   speed: float = 2.0, yaw_rate: float = 0.15,
                   noise: float = 0.01, rpy_noise: float = 0.002,
-                  extent: float = 60.0) -> SyntheticSequence:
-    """The clean synthetic mission (the JAX generator's default knobs; its
-    hard-world options are not ported)."""
+                  extent: float = 60.0,
+                  outlier_frac: float = 0.0,
+                  range_noise: float = 0.0,
+                  n_scatter: int = 0,
+                  moving_object: bool = False) -> SyntheticSequence:
+    """Synthetic mission.  The defaults make the clean world; the hard-world
+    knobs degrade it toward real-bag conditions:
+
+    - outlier_frac: that share of each scan replaced by uniform garbage
+      returns (no planar support);
+    - range_noise: per-point Gaussian sigma growing with range
+      (range_noise * d / 60 on top of `noise`);
+    - n_scatter: vegetation-like random clutter added to the world;
+    - moving_object: a 2 x 2 x 1.5 m box of points crossing the scene.
+    """
     rs = np.random.RandomState(seed + 1)
     world = make_world(seed, extent=extent)
+    if n_scatter:
+        u = lambda n, lo, hi: rs.uniform(lo, hi, n).astype(np.float32)
+        scatter = np.stack([u(n_scatter, -extent, extent),
+                            u(n_scatter, -extent, extent),
+                            u(n_scatter, 0.2, 3.0)], 1)
+        world = np.concatenate([world, scatter])
     poses, stamps = make_trajectory(n_scans, speed=speed, yaw_rate=yaw_rate)
     scans = np.zeros((n_scans, n_points, 3), np.float32)
     masks = np.zeros((n_scans, n_points), bool)
+    if moving_object:
+        nb = 400
+        box = np.stack([rs.uniform(0, 2, nb), rs.uniform(0, 2, nb),
+                        rs.uniform(0, 1.5, nb)], 1).astype(np.float32)
+        mo_start = np.array([8.0, -10.0, 0.0], np.float32)
+        mo_vel = np.array([-0.4, 0.5, 0.0], np.float32)   # m/s
     for i in range(n_scans):
-        scans[i], masks[i] = observe(world, poses[i], n_points, noise=noise,
+        w = world
+        if moving_object:
+            w = np.concatenate([world,
+                                box + mo_start + mo_vel * float(stamps[i])])
+        scans[i], masks[i] = observe(w, poses[i], n_points, noise=noise,
                                      rng=rs)
+        n_valid = int(masks[i].sum())
+        if range_noise > 0.0 and n_valid:
+            d = np.linalg.norm(scans[i, :n_valid], axis=1)
+            sig = (range_noise * d / 60.0)[:, None]
+            scans[i, :n_valid] += (rs.randn(n_valid, 3) * sig).astype(np.float32)
+        if outlier_frac > 0.0 and n_valid:
+            n_out = int(n_valid * outlier_frac)
+            if n_out:
+                idx = rs.choice(n_valid, n_out, replace=False)
+                scans[i, idx] = np.stack([
+                    rs.uniform(-40, 40, n_out), rs.uniform(-40, 40, n_out),
+                    rs.uniform(-2, 10, n_out)], 1).astype(np.float32)
     imu_rpy = poses[:, :3] + rs.randn(n_scans, 3).astype(np.float32) * rpy_noise
     return SyntheticSequence(world=world, poses=poses, stamps=stamps,
                              scans=scans, scan_masks=masks, imu_rpy=imu_rpy)

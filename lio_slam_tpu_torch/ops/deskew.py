@@ -3,9 +3,10 @@ compensation (port of `lio_slam_tpu/ops/deskew.py`,
 imageProjection.cpp:339-575).
 
 The table composes per-sample rotations on SO(3): R_t = R_{t-1} exp(w_t d_t).
-The increments are computed batched, the products in a host loop over the
-(short) IMU window, and the rotation vectors batched at the end — the same
-arithmetic per step as the JAX `lax.scan`.
+The increments are computed batched, the cumulative products by the
+log-depth `smallmat.associative_scan` (the JAX `lax.scan` multiplies
+them in sequence: the same products, reassociated), and the rotation
+vectors batched at the end.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from lio_slam_tpu_torch.utils import se3
+from lio_slam_tpu_torch.utils import se3, smallmat
 
 
 class RotationTable(NamedTuple):
@@ -32,12 +33,7 @@ def build_rotation_table(gyr: torch.Tensor, times: torch.Tensor,
     dt = torch.diff(times, prepend=times[:1])
     dt = torch.where(mask, torch.clamp(dt, min=0.0), torch.zeros_like(dt))
     steps = se3.so3_exp(gyr * dt[:, None])                       # (T, 3, 3)
-    Rs = []
-    R = torch.eye(3, dtype=gyr.dtype, device=gyr.device)
-    for k in range(steps.shape[0]):
-        R = R @ steps[k]
-        Rs.append(R)
-    rotvec = se3.so3_log(torch.stack(Rs))
+    rotvec = se3.so3_log(smallmat.associative_scan(torch.matmul, steps))
     return RotationTable(times=times, rotvec=rotvec, mask=mask)
 
 
@@ -78,3 +74,26 @@ def deskew(points: torch.Tensor, point_times: torch.Tensor,
         p = p + ratio[:, None] * pos_increment[None, :]
     p = p @ R0
     return torch.where(point_mask[:, None], p, points)
+
+
+class DeskewInfo(NamedTuple):
+    """Per-scan metadata handed to the mapping stage: the cloud_info record
+    (`src/liorf/msg/cloud_info.msg`) without the ROS plumbing."""
+
+    imu_available: torch.Tensor   # () bool, rotation table valid
+    odom_available: torch.Tensor  # () bool, initial guess from IMU odometry
+    imu_rpy_init: torch.Tensor    # (3,) IMU attitude at scan start (9-axis)
+    initial_guess: torch.Tensor   # (6,) pose6 initial guess for registration
+
+
+def make_deskew_info(imu_available, odom_available, imu_rpy_init,
+                     initial_guess, device=None) -> DeskewInfo:
+    return DeskewInfo(
+        imu_available=torch.as_tensor(imu_available, dtype=torch.bool,
+                                      device=device),
+        odom_available=torch.as_tensor(odom_available, dtype=torch.bool,
+                                       device=device),
+        imu_rpy_init=torch.as_tensor(imu_rpy_init, dtype=torch.float32,
+                                     device=device),
+        initial_guess=torch.as_tensor(initial_guess, dtype=torch.float32,
+                                      device=device))

@@ -1,13 +1,13 @@
 """IMU preintegration (port of `lio_slam_tpu/ops/preintegration.py`,
 imuPreintegration.cpp:167-614; Forster et al., RSS 2015).
 
-`preintegrate` is the sequential form: a host loop over the window with the
-per-sample rotations and right Jacobians computed batched up front.  The
-JAX front-end uses the log-depth `preintegrate_parallel`, which is the same
-math reassociated; the port's front-end uses this sequential form
-(tests/test_torch_imu.py states the tolerance between the two).
-`integrate_pose_train` builds the cumulative rotations with a host loop of
-3x3 products where JAX uses an associative scan.
+`preintegrate_parallel` is the form the front-end integrates with, as in
+the JAX package: cumulative rotations and the 9x9 suffix transition
+products by the log-depth `smallmat.associative_scan` (the combine order
+of `jax.lax.associative_scan`), dv and dp by cumsums, the covariance and the
+bias Jacobians as batched sums.  `preintegrate` is the sequential form, a
+host loop over the window kept as the readable reference.
+`integrate_pose_train` builds its cumulative rotations with the same scan.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from lio_slam_tpu_torch.utils import se3
+from lio_slam_tpu_torch.utils import se3, smallmat
 
 
 class Preintegrated(NamedTuple):
@@ -114,6 +114,79 @@ def preintegrate(acc: torch.Tensor, gyr: torch.Tensor, dt: torch.Tensor,
     return st
 
 
+def preintegrate_parallel(acc: torch.Tensor, gyr: torch.Tensor,
+                          dt: torch.Tensor, mask: torch.Tensor,
+                          bias_gyr: torch.Tensor, bias_acc: torch.Tensor,
+                          acc_noise: float, gyr_noise: float,
+                          init_cov: float = 1e-8) -> Preintegrated:
+    """`preintegrate` in log depth (JAX `preintegrate_parallel`), the same
+    math up to float reassociation:
+
+    - cumulative rotations D_i = prod exp(w_j dt_j) by an associative
+      matmul scan;
+    - dv and dp by cumsums of the rotated increments;
+    - per-sample 9x9 transitions A_j and noise Q_j, the suffix products
+      S_j = A_T ... A_{j+1} by a reverse associative scan;
+    - covariance P = S_0 P_0 S_0^T + sum_j S_j Q_j S_j^T and bias Jacobians
+      J = sum_j S_j C_j."""
+    dtype, dev = acc.dtype, acc.device
+    T = acc.shape[0]
+    dtf = torch.where(mask, dt, torch.zeros_like(dt)).to(dtype)
+    a = acc - bias_acc
+    w = gyr - bias_gyr
+    sig_g2 = torch.tensor(gyr_noise, dtype=dtype, device=dev) ** 2
+    sig_a2 = torch.tensor(acc_noise, dtype=dtype, device=dev) ** 2
+
+    theta = w * dtf[:, None]
+    dRk = se3.so3_exp(theta)                                # (T, 3, 3)
+    Jr = se3.so3_right_jacobian(theta)
+
+    D = smallmat.associative_scan(torch.matmul, dRk)
+    eye = torch.eye(3, dtype=dtype, device=dev)[None]
+    D_prev = torch.cat([eye, D[:-1]], dim=0)
+
+    Ra = torch.einsum("tij,tj->ti", D_prev, a)
+    dt2 = dtf * dtf
+    dv_cum = torch.cumsum(Ra * dtf[:, None], dim=0)
+    dv_prev = torch.cat([torch.zeros((1, 3), dtype=dtype, device=dev),
+                         dv_cum[:-1]], dim=0)
+    dp = torch.sum(dv_prev * dtf[:, None] + 0.5 * Ra * dt2[:, None], dim=0)
+
+    dt_ = dtf[:, None, None]
+    dt2_ = dt2[:, None, None]
+    Ahat = torch.einsum("tij,tjk->tik", D_prev, se3.skew(a))  # D_{j-1} [a]x
+    Z = torch.zeros((T, 3, 3), dtype=dtype, device=dev)
+    I3 = eye.expand(T, 3, 3)
+    A = torch.cat([
+        torch.cat([dRk.transpose(-1, -2), Z, Z], dim=-1),
+        torch.cat([-Ahat * dt_, I3, Z], dim=-1),
+        torch.cat([-0.5 * Ahat * dt2_, I3 * dt_, I3], dim=-1)], dim=-2)
+    Bg = torch.cat([Jr * dt_, Z, Z], dim=-2)                # (T, 9, 3)
+    Ba = torch.cat([Z, D_prev * dt_, 0.5 * D_prev * dt2_], dim=-2)
+    inv_dt = torch.where(dtf > 0, 1.0 / torch.clamp(dtf, min=1e-6),
+                         torch.zeros_like(dtf))
+    Q = (torch.einsum("tik,tjk->tij", Bg, Bg) * (sig_g2 * inv_dt)[:, None, None]
+         + torch.einsum("tik,tjk->tij", Ba, Ba) * (sig_a2 * inv_dt)[:, None, None])
+
+    # S[j] = A_T ... A_j; the exclusive suffix S_excl[j] = A_T ... A_{j+1}
+    S = smallmat.associative_scan(torch.matmul, A, reverse=True)
+    S_excl = torch.cat([S[1:], torch.eye(9, dtype=dtype, device=dev)[None]],
+                       dim=0)
+    P0 = torch.eye(9, dtype=dtype, device=dev) * init_cov
+    S0 = S[0]
+    cov = S0 @ P0 @ S0.T + torch.einsum("tij,tjk,tlk->il", S_excl, Q, S_excl)
+
+    Cg = torch.cat([-Jr * dt_, Z, Z], dim=-2)
+    Ca = torch.cat([Z, -D_prev * dt_, -0.5 * D_prev * dt2_], dim=-2)
+    Jg = torch.einsum("tij,tjk->ik", S_excl, Cg)            # (9, 3)
+    Ja = torch.einsum("tij,tjk->ik", S_excl, Ca)
+    return Preintegrated(
+        dR=D[-1], dv=dv_cum[-1], dp=dp, dt=torch.sum(dtf),
+        dR_dbg=Jg[:3], dv_dbg=Jg[3:6], dv_dba=Ja[3:6],
+        dp_dbg=Jg[6:9], dp_dba=Ja[6:9], cov=cov,
+        bias_gyr=bias_gyr.to(dtype), bias_acc=bias_acc.to(dtype))
+
+
 def integrate_pose_train(R0: torch.Tensor, p0: torch.Tensor, v0: torch.Tensor,
                          acc: torch.Tensor, gyr: torch.Tensor, dt: torch.Tensor,
                          mask: torch.Tensor, gravity: float) -> torch.Tensor:
@@ -121,10 +194,7 @@ def integrate_pose_train(R0: torch.Tensor, p0: torch.Tensor, v0: torch.Tensor,
     dtype, dev = acc.dtype, acc.device
     dtf = torch.where(mask, dt, torch.zeros_like(dt)).to(dtype)
     dRk = se3.so3_exp(gyr * dtf[:, None])
-    D = [dRk[0]]
-    for k in range(1, dRk.shape[0]):
-        D.append(D[-1] @ dRk[k])
-    D = torch.stack(D)
+    D = smallmat.associative_scan(torch.matmul, dRk)
     eye = torch.eye(3, dtype=dtype, device=dev)[None]
     D_prev = torch.cat([eye, D[:-1]], dim=0)
     R = torch.einsum("ij,tjk->tik", R0, D)

@@ -4,9 +4,9 @@
 - `correct`: error-state update on [dtheta, dv, dp, dbg, dba] fusing the
   lidar pose (odometryHandler :271-516), with the symmetrization and the
   Joseph-form update of the JAX version, and the failure reset
-  (failureDetection :496-516).  The window integrates with the sequential
-  `preintegrate` (JAX: `preintegrate_parallel`, the same math reassociated);
-  the 15x15 covariance algebra runs in float64, the state stays float32.
+  (failureDetection :496-516).  The window integrates with the log-depth
+  `preintegrate_parallel`, as in the JAX front-end; the 15x15 covariance
+  algebra runs in float64, the state stays float32.
 - `predict_rate`: the pose at every IMU sample (imuHandler :518-613).
 - `transform_fusion`: lidar odometry ∘ IMU increment (TransformFusion).
 
@@ -86,8 +86,9 @@ def make_frontend(cfg: ImuConfig):
             return _anchored(lidar_pose6, z3, z3, False)
         acc_g, gyr_g, dt_g = pre.apply_pileup_gate(acc, gyr, dt, g,
                                                    min_dt=min_dt)
-        pint = pre.preintegrate(acc_g, gyr_g, dt_g, mask, state.bias_gyr,
-                                state.bias_acc, cfg.acc_noise, cfg.gyr_noise)
+        pint = pre.preintegrate_parallel(acc_g, gyr_g, dt_g, mask,
+                                         state.bias_gyr, state.bias_acc,
+                                         cfg.acc_noise, cfg.gyr_noise)
         nav = pre.predict(state.nav, pint, g)
 
         # The 15x15 covariance algebra runs in float64 (the JAX version pins

@@ -83,6 +83,20 @@ class StepOutput(NamedTuple):
     evictions: torch.Tensor        # () int32 cumulative evictions
 
 
+def empty_scan_input(capacity: int, device=None) -> ScanInput:
+    """A scan of `capacity` masked points with every input off."""
+    f32 = dict(dtype=torch.float32, device=device)
+    no = torch.zeros((), dtype=torch.bool, device=device)
+    return ScanInput(
+        cloud=pc.Cloud(xyz=torch.zeros((capacity, 3), **f32),
+                       mask=torch.zeros(capacity, dtype=torch.bool,
+                                        device=device)),
+        stamp=torch.zeros((), **f32), init_guess=torch.zeros(6, **f32),
+        guess_valid=no, imu_rpy=torch.zeros(3, **f32), imu_available=no,
+        gps_pos=torch.zeros(3, **f32), gps_info=torch.zeros(3, **f32),
+        gps_valid=no)
+
+
 class MapOps(NamedTuple):
     """Persistent-map and solver backend of the step (single device)."""
 

@@ -13,11 +13,13 @@ import numpy as np
 import torch
 
 from lio_slam_tpu_torch.config import (Config, GpsConfig, ImuConfig,
-                                       LoopClosureConfig, RegistrationConfig,
-                                       StaticConfig)
+                                       KeyframeConfig, LoopClosureConfig,
+                                       RegistrationConfig, StaticConfig,
+                                       get_config)
 from lio_slam_tpu_torch.io import formats
 from lio_slam_tpu_torch.io import synthetic
 from lio_slam_tpu_torch.io.synthetic import SyntheticSequence
+from lio_slam_tpu_torch.pipeline.replay import ReplayBatch
 from lio_slam_tpu_torch.utils import se3
 
 # the mission chip_smoke.py drives and the parity fixture records
@@ -61,6 +63,16 @@ HOSTILE_TOPICS = {"gps": "/gps/fix", "sensor": "robosense"}
 # on the incremental map and on the rebuild-mode map
 CORNER_SCANS = 60
 REBUILD_SCANS = 40
+
+# the hard-tier replay: the "default" rig's sweep sensor over the outdoor
+# world with 2 % garbage returns and 20000 clutter points
+# (tools/rig_ate_table.py's "hard" tier), through HostDrivenReplay
+HARD_SCANS = 60
+HARD_LOOP_EVERY = 10
+HARD_KNOBS = dict(outlier_frac=0.02, n_scatter=20000, speed=2.0)
+# the deskew mission of tests/test_sweep_sensor.py: a fast oscillating yaw
+# seen by a 32-beam sweep, replayed with and without per-point times
+DESKEW_SCANS = 20
 
 
 def bag_mission_bag_kwargs() -> dict:
@@ -158,6 +170,82 @@ def corner_mission_config(local_map_mode: str = "incremental") -> Config:
         base, registration=dataclasses.replace(
             base.registration, use_corner_features=True,
             local_map_mode=local_map_mode))
+
+
+def hard_replay_config() -> Config:
+    """The "default" preset at the full-width shapes of
+    tools/rig_ate_table.py (raw 32768, scan 8192, map 65536, K=256, window
+    32, a 64-sample IMU window; the preset's IMU runs at 500 Hz)."""
+    return dataclasses.replace(get_config("default"), static=StaticConfig(
+        max_raw_points=32768, max_scan_points=8192, max_map_points=65536,
+        max_keyframes=256, max_keyframe_points=8192, max_loop_queue=8,
+        max_gps_queue=8, window_size=32, max_imu_window=64))
+
+
+def replay_batch(seq: SyntheticSequence, windows, ptimes=None) -> ReplayBatch:
+    """A `ReplayBatch` of numpy arrays: the sweep sequence's scans, rings
+    and point times (`ptimes` in their place when given) with the IMU
+    windows of `synthetic.make_imu_windows`."""
+    acc, gyr, dts, rel_t, imask = windows
+    return ReplayBatch(
+        xyz=seq.scans, ptime=seq.ptimes if ptimes is None else ptimes,
+        pmask=seq.scan_masks, ring=seq.rings, acc=acc, gyr=gyr, dts=dts,
+        rel_t=rel_t, imask=imask, stamp=seq.stamps)
+
+
+def batch_sha256(batch: ReplayBatch) -> str:
+    """sha256 of every array of a numpy `ReplayBatch`: a run checks with it
+    that it replays the inputs its reference replayed."""
+    h = hashlib.sha256()
+    for a in batch:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def hard_replay_inputs(cfg: Config = None, n_scans: int = HARD_SCANS,
+                       n_points: int = SMOKE_POINTS):
+    """(sequence, ReplayBatch) of the hard-tier replay: `make_sweep_sequence`
+    through `rig_sensor_for(cfg)` (`hard_replay_config()` by default), seed
+    0, with `HARD_KNOBS`, and IMU windows covering each sweep
+    (`make_imu_windows(sweep_cover=sensor.sweep_time)`)."""
+    cfg = cfg or hard_replay_config()
+    sensor = synthetic.rig_sensor_for(cfg)
+    seq = synthetic.make_sweep_sequence(n_scans=n_scans, n_points=n_points,
+                                        seed=SMOKE_SEED, sensor=sensor,
+                                        **HARD_KNOBS)
+    windows = synthetic.make_imu_windows(
+        seq, cfg.static.max_imu_window,
+        samples_per_scan=sensor.samples_per_scan, gravity=cfg.imu.gravity,
+        sweep_cover=sensor.sweep_time)
+    return seq, replay_batch(seq, windows)
+
+
+def deskew_mission_inputs(n_points: int = 8192):
+    """(config, sequence, IMU windows) of the deskew mission of
+    tests/test_sweep_sensor.py: 20 sweeps of a 32-beam 60 m scanner at
+    0.5 m/s with an oscillating 1.2 rad/s yaw, 10 IMU samples a scan and
+    windows that cover each sweep.  Replay it with `replay_batch(seq,
+    windows)` and with `ptimes` zeroed (deskew off)."""
+    sensor = synthetic.RigSensor(n_scan=32, max_range=60.0,
+                                 samples_per_scan=10)
+    seq = synthetic.make_sweep_sequence(n_scans=DESKEW_SCANS,
+                                        n_points=n_points, seed=SMOKE_SEED,
+                                        sensor=sensor, speed=0.5,
+                                        yaw_rate=1.2, noise=0.01)
+    cfg = Config(
+        static=StaticConfig(max_raw_points=n_points,
+                            max_scan_points=n_points // 2,
+                            max_map_points=4 * n_points, max_keyframes=64,
+                            max_keyframe_points=n_points // 2,
+                            max_loop_queue=4, max_gps_queue=4, window_size=16,
+                            max_imu_window=32),
+        registration=RegistrationConfig(degeneracy_eig_thresh=10.0),
+        keyframe=KeyframeConfig(dist_threshold=0.2, angle_threshold=0.1))
+    windows = synthetic.make_imu_windows(
+        seq, cfg.static.max_imu_window,
+        samples_per_scan=sensor.samples_per_scan, gravity=cfg.imu.gravity,
+        sweep_cover=sensor.sweep_time)
+    return cfg, seq, windows
 
 
 def sweep_inputs(seq: SyntheticSequence, windows):

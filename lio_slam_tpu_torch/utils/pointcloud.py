@@ -36,6 +36,16 @@ class Cloud(NamedTuple):
         return torch.sum(self.mask).to(torch.int32)
 
 
+def make_cloud(xyz, mask=None, device=None) -> Cloud:
+    """A cloud of float32 points, every point valid unless `mask` says
+    otherwise."""
+    xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
+    if mask is None:
+        mask = torch.ones(xyz.shape[0], dtype=torch.bool, device=xyz.device)
+    return Cloud(xyz=xyz, mask=torch.as_tensor(mask, dtype=torch.bool,
+                                               device=xyz.device))
+
+
 def pad_cloud(xyz, capacity: int, device=None) -> Cloud:
     """Pad a concrete (n, 3) array or tensor up to `capacity` with masked
     slots (points past `capacity` are dropped)."""
@@ -164,3 +174,23 @@ def packed_voxel_downsample(cloud: Cloud, leaf_size: float,
     xyz_s = (coords[order].to(torch.float32) + qs) * leaf
     out, out_mask = _segment_centroids(vid_s, mask_s, xyz_s, max_out)
     return Cloud(xyz=out, mask=out_mask)
+
+
+def merge_clouds(a: Cloud, b: Cloud, capacity: int) -> Cloud:
+    """Concatenate two masked clouds into a fixed capacity (valid first)."""
+    merged = compact(Cloud(xyz=torch.cat([a.xyz, b.xyz]),
+                           mask=torch.cat([a.mask, b.mask])))
+    return Cloud(xyz=merged.xyz[:capacity], mask=merged.mask[:capacity])
+
+
+def random_downsample(cloud: Cloud, max_out: int) -> Cloud:
+    """Stride subsample of the valid points to `max_out` (the fallback when
+    a voxel grid is overkill).  Deterministic despite the name, as the JAX
+    version is: its `key` argument is never read, so the port takes none."""
+    c = compact(cloud)
+    n = c.count().to(torch.int64)
+    stride = torch.clamp(n // max_out + (n % max_out > 0).to(torch.int64),
+                         min=1)
+    pos = torch.arange(max_out, device=c.xyz.device) * stride
+    idx = torch.clamp(pos, 0, c.capacity - 1)
+    return Cloud(xyz=c.xyz[idx], mask=pos < n)

@@ -5,7 +5,9 @@ The GN step solves a 6x6 system per iteration and eigendecomposes it once
 per scan (mapOptmization.cpp:1781-1808).  These unrolled forms do exactly
 the arithmetic of the JAX versions, so the GN stopping rule sees the same
 step sizes on both sides.  All functions are batch-generic over leading
-dims.
+dims.  `associative_scan` is the log-depth scan over the leading axis that
+preintegration and deskew build their rotation and transition products
+with.
 """
 
 from __future__ import annotations
@@ -106,3 +108,30 @@ def eigh_jacobi(A: torch.Tensor, sweeps: int = 8):
     w = torch.gather(w, -1, order)
     V = torch.gather(V, -1, order[..., None, :].expand(V.shape))
     return w, V
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """even[0], odd[0], even[1], odd[1], ... along the leading axis."""
+    out = torch.empty((even.shape[0] + odd.shape[0],) + even.shape[1:],
+                      dtype=even.dtype, device=even.device)
+    out[0::2] = even
+    out[1::2] = odd
+    return out
+
+
+def associative_scan(fn, elems: torch.Tensor,
+                     reverse: bool = False) -> torch.Tensor:
+    """Inclusive scan of `elems` along its leading axis under the
+    associative `fn(a, b)` (batched over that axis), in log2(T) levels with
+    the pairing of `jax.lax.associative_scan`: adjacent pairs combined, the
+    half-length scan by recursion, the even entries from it.  With
+    `reverse` the scan runs from the last entry, out[j] = fn(... fn(e[T-1],
+    e[T-2]) ..., e[j])."""
+    if reverse:
+        return associative_scan(fn, elems.flip(0)).flip(0)
+    T = elems.shape[0]
+    if T < 2:
+        return elems
+    odd = associative_scan(fn, fn(elems[0:-1:2], elems[1::2]))
+    even = fn(odd[:-1] if T % 2 == 0 else odd, elems[2::2])
+    return _interleave(torch.cat([elems[:1], even]), odd)

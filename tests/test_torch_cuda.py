@@ -526,3 +526,97 @@ def test_corner_paths_on_the_card(cuda, mode, monkeypatch):
     ref = [cpu.process_scan(scans[i], imu=imus[i]) for i in range(6)]
     dev = np.abs(np.stack([r.pose for r in res]) - np.stack([r.pose for r in ref]))
     assert dev.max() < 1e-3, dev.max(axis=0)
+
+
+def fault_missions():
+    """tests/test_fault_injection.py's corrupt-scan missions, as (scan, imu)
+    steps: an empty scan, a scan with every 7th point NaN (through
+    `from_velodyne`, which drops them) and two single-plane scans."""
+    from lio_slam_tpu_torch.io import formats
+    from lio_slam_tpu_torch.utils import se3
+
+    seq = synthetic.make_sequence(n_scans=3, n_points=2048, seed=0)
+
+    def scan(i, xyz=None):
+        xyz = seq.scans[i][seq.scan_masks[i]] if xyz is None else xyz
+        k = len(xyz)
+        return formats.StandardScan(
+            xyz=xyz, intensity=np.zeros(k, np.float32),
+            ring=np.zeros(k, np.uint16), time=np.zeros(k, np.float32),
+            stamp=float(seq.stamps[i]))
+
+    def imu(i):
+        inc = se3.pose6_between(t(seq.poses[i - 1]), t(seq.poses[i])).numpy()
+        return {"acc": np.tile([0, 0, 9.81], (10, 1)).astype(np.float32),
+                "gyr": np.tile(inc[:3] / 0.1, (10, 1)).astype(np.float32),
+                "stamps": seq.stamps[i - 1] + np.arange(1, 11) * 0.01}
+
+    nan = seq.scans[1][seq.scan_masks[1]].copy()
+    nan[::7] = np.nan
+    z = lambda k: np.zeros(k, np.float32)
+    rs = np.random.RandomState(0)
+    plane = []
+    for i in range(2):
+        xyz = np.stack([rs.uniform(-10, 10, 1500), rs.uniform(-10, 10, 1500),
+                        rs.normal(0, 0.02, 1500) - 1.5], 1).astype(np.float32)
+        plane.append((formats.StandardScan(
+            xyz=xyz, intensity=z(1500), ring=np.zeros(1500, np.uint16),
+            time=z(1500), stamp=0.1 * i), None))
+    return {
+        "empty": [(scan(0), None), (scan(1, np.zeros((0, 3), np.float32)),
+                                    imu(1)), (scan(2), imu(2))],
+        "nan": [(scan(0), None), (formats.from_velodyne(
+            nan, z(len(nan)), np.zeros(len(nan), np.uint16), z(len(nan)),
+            float(seq.stamps[1])), imu(1))],
+        "plane": plane,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "nan", "plane"])
+def test_corrupt_scans_on_the_card(cuda, case, monkeypatch):
+    """The fault-injection scans through `Runner(device="cuda")`: finite
+    poses, the CPU port's degenerate flags, a launch a GN iteration, each
+    launch as the plain version on its own arguments; then the kernel on
+    the mission's map with the scan mask all false and with one point in
+    ten valid, against the plain version."""
+    from lio_slam_tpu_torch.config import RegistrationConfig, StaticConfig
+
+    cfg = Config(static=StaticConfig(max_raw_points=2048, max_scan_points=2048,
+                                     max_map_points=8192, max_keyframes=16,
+                                     max_keyframe_points=1024, max_loop_queue=2,
+                                     max_gps_queue=2, window_size=8,
+                                     max_imu_window=32),
+                 registration=RegistrationConfig(degeneracy_eig_thresh=10.0))
+    steps = fault_missions()[case]
+    kernel = fc.fused_ne_from_bucket_ids
+    launched = []
+
+    def checked(*a, **k):
+        out = kernel(*a, **k)
+        if a[0].is_cuda:
+            launched.append(a)
+            assert_ne_close_or_cancelling(out, a, k)
+        return out
+
+    monkeypatch.setattr(fc, "fused_ne_from_bucket_ids", checked)
+    runner = Runner(cfg, device=cuda, loop_every=100)
+    fc.KERNEL_LAUNCHES = 0
+    res = [runner.process_scan(s, imu=i) for s, i in steps]
+    assert fc.KERNEL_LAUNCHES == len(launched) == \
+        sum(r.registration_iters for r in res) > 0
+    cpu = Runner(cfg, device="cpu", loop_every=100)
+    ref = [cpu.process_scan(s, imu=i) for s, i in steps]
+    assert all(np.isfinite(r.pose).all() for r in res)
+    assert [r.degenerate for r in res] == [r.degenerate for r in ref]
+    if case == "plane":
+        assert res[-1].degenerate
+
+    table, hh, scan, mask, pose = launched[-1][:5]
+    for keep in (torch.zeros_like(mask),
+                 mask & (torch.arange(len(mask), device=cuda) % 10 == 0)):
+        before = fc.KERNEL_LAUNCHES
+        out = checked(table, hh, scan, keep, pose)
+        assert fc.KERNEL_LAUNCHES == before + 1
+        if not keep.any():
+            assert int(out[2]) == 0 and float(out[0].abs().sum()) == 0.0

@@ -94,6 +94,58 @@ def test_corner_path_modules_import_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_replay_and_preintegration_modules_import_no_jax():
+    """The batch replay, the front-end on the parallel preintegration and
+    the deskew table by name."""
+    out = _imports_no_jax(("pipeline.replay", "pipeline.imu_frontend",
+                           "ops.preintegration", "ops.deskew",
+                           "graph.factors", "utils.pointcloud"))
+    assert out.returncode == 0, out.stderr
+
+
+def test_hard_replay_fixture_matches_its_configuration():
+    """The recorded JAX replay of the hard tier: the "default" preset at
+    tools/rig_ate_table.py's widths, 60 scans of the hard world (2 %
+    garbage, 20000 clutter points, 2 m/s), the loop cadence chip_smoke.py
+    drives, with each scan's GN trace; and the deskew mission's two
+    ATEs."""
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    f = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                             "hard_replay_jax.npz"))
+    cfg = sm.hard_replay_config()
+    d = port_config.get_config("default")
+    assert dataclasses.replace(cfg, static=d.static) == d
+    s = cfg.static
+    assert (s.max_raw_points, s.max_scan_points, s.max_map_points,
+            s.max_keyframes, s.window_size, s.max_imu_window) == \
+        (32768, 8192, 65536, 256, 32, 64)
+    assert sm.HARD_KNOBS == dict(outlier_frac=0.02, n_scatter=20000,
+                                 speed=2.0)
+    assert (sm.HARD_SCANS, sm.HARD_LOOP_EVERY) == (60, 10)
+    sensor = synthetic.rig_sensor_for(cfg)
+    assert (sensor.n_scan, sensor.samples_per_scan) == (16, 50)
+    assert f["poses"].shape == (sm.HARD_SCANS, 6)
+    assert f["registration_iters"].shape == f["degenerate"].shape == \
+        (sm.HARD_SCANS,)
+    assert len(str(f["batch_sha256"])) == 64
+    assert f["loop_accepted"].shape == (sm.HARD_SCANS // sm.HARD_LOOP_EVERY, 2)
+    # each scan's GN trace: a pose for each iteration and the final one,
+    # an inlier count for each iteration
+    cap = cfg.registration.max_iterations
+    assert f["gn_poses"].shape == (sm.HARD_SCANS, cap + 1, 6)
+    assert f["gn_inliers"].shape == (sm.HARD_SCANS, cap)
+    traced = np.isfinite(f["gn_poses"]).all(axis=2)
+    np.testing.assert_array_equal(traced.sum(axis=1),
+                                  f["registration_iters"] + 1)
+    np.testing.assert_array_equal((f["gn_inliers"] >= 0).sum(axis=1),
+                                  f["registration_iters"])
+    assert float(f["ate_rmse_m"]) < 0.2
+    assert float(f["deskew_ate_with_m"]) < 0.2
+    assert float(f["deskew_ate_without_m"]) >= 4.5 * float(f["deskew_ate_with_m"])
+
+
 @pytest.mark.parametrize("name,mode,scans", [
     ("corner_mission_jax.npz", "incremental", "CORNER_SCANS"),
     ("rebuild_mission_jax.npz", "rebuild", "REBUILD_SCANS")])

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -138,3 +140,112 @@ def jax_fused_interpret(scan, scan_mask, grid, cfg):
                                             **kw)
 
     return (gather_fn, from_cand_fn, int(cfg.corr_refresh_every))
+
+
+def truth_increment(pose_a, pose_b) -> np.ndarray:
+    """pose6_between of two truth poses, in float32 numpy (the port's se3
+    on CPU tensors): the IMU windows the robustness missions build from it
+    are handed to both packages as the same arrays."""
+    from lio_slam_tpu_torch.utils import se3
+
+    return se3.pose6_between(torch.from_numpy(np.asarray(pose_a, np.float32)),
+                             torch.from_numpy(np.asarray(pose_b, np.float32))
+                             ).numpy()
+
+
+class MissionRun(NamedTuple):
+    runner: object
+    results: list          # ScanResult a scan
+    mapping_error: list    # runner.mapping_error after each scan
+    modes: list            # runner.fsm.mode after each scan
+
+
+def run_mission(runner, steps) -> MissionRun:
+    """`runner.process_scan(scan, imu=imu)` over (scan, imu) steps."""
+    results, errors, modes = [], [], []
+    for scan, imu in steps:
+        results.append(runner.process_scan(scan, imu=imu))
+        errors.append(bool(runner.mapping_error))
+        modes.append(int(runner.fsm.mode))
+    return MissionRun(runner, results, errors, modes)
+
+
+def record_imu_states(jax_runner) -> list:
+    """Wrap the JAX runner's `process_scan` so that the returned list
+    collects its front-end state (numpy leaves) before each call."""
+    import jax
+
+    states = []
+    process = jax_runner.process_scan
+
+    def recording(*args, **kwargs):
+        states.append(jax.tree.map(np.asarray, jax_runner.imu_state))
+        return process(*args, **kwargs)
+
+    jax_runner.process_scan = recording
+    return states
+
+
+def carry_imu_states(port_runner, states: list):
+    """Wrap the port runner's `process_scan` so that call k starts from the
+    front-end state `states[k]` (from `record_imu_states`): the mapping
+    path alone against the reference's."""
+    from lio_slam_tpu_torch import convert
+
+    process = port_runner.process_scan
+    calls = iter(states)
+
+    def carried(*args, **kwargs):
+        port_runner.imu_state = convert.from_numpy(next(calls),
+                                                    port_runner.device)
+        return process(*args, **kwargs)
+
+    port_runner.process_scan = carried
+
+
+def run_both(port_runner, jax_runner, steps, carry_imu_state=False):
+    """(port run, JAX run) of the same steps.  With `carry_imu_state` each
+    scan of the port starts from the JAX front-end's state before that
+    scan (`carry_imu_states`)."""
+    if not carry_imu_state:
+        return run_mission(port_runner, steps), run_mission(jax_runner, steps)
+    states = record_imu_states(jax_runner)
+    ref = run_mission(jax_runner, steps)
+    carry_imu_states(port_runner, states)
+    return run_mission(port_runner, steps), ref
+
+
+# poses of the two packages' missions: the parity limits of the port's
+# robustness mirrors (tests/test_torch_fault_injection.py and the others)
+POSE_ATOL_M = 1e-3
+POSE_ATOL_RAD = math.radians(0.01)
+
+
+def assert_poses_match(port_poses, jax_poses, atol_m=POSE_ATOL_M,
+                       atol_rad=POSE_ATOL_RAD):
+    p, j = np.asarray(port_poses), np.asarray(jax_poses)
+    assert p.shape == j.shape and np.isfinite(p).all()
+    dt = float(np.abs(p[..., 3:] - j[..., 3:]).max())
+    dr = float(np.abs(p[..., :3] - j[..., :3]).max())
+    assert dt <= atol_m and dr <= atol_rad, (
+        f"poses {dt:.3e} m / {math.degrees(dr):.3e} deg from the JAX run")
+
+
+def assert_runs_match(port: MissionRun, ref: MissionRun,
+                      atol_m=POSE_ATOL_M, atol_rad=POSE_ATOL_RAD):
+    """What both packages' runs of one mission must share: every scan's
+    pose (within the limits above unless the caller states others),
+    degenerate and keyframe flags, `mapping_error` and FSM mode after each
+    scan, and the keyframe and eviction counts at the end."""
+    assert len(port.results) == len(ref.results)
+    assert_poses_match([r.pose for r in port.results],
+                       [r.pose for r in ref.results], atol_m, atol_rad)
+    assert [r.degenerate for r in port.results] == \
+        [bool(r.degenerate) for r in ref.results]
+    assert [r.is_keyframe for r in port.results] == \
+        [bool(r.is_keyframe) for r in ref.results]
+    assert port.mapping_error == ref.mapping_error
+    assert port.modes == ref.modes
+    assert int(port.runner.state.store.count) == int(ref.runner.state.store.count)
+    assert int(port.runner.state.evict_count) == int(ref.runner.state.evict_count)
+    assert port.runner.keyframe_evictions == ref.runner.keyframe_evictions

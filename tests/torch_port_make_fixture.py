@@ -44,6 +44,17 @@ CPU over exactly those missions and saves what the smoke run compares:
   sha256 of the port's scans, per-scan poses, keyframe flags and GN
   iterations, the keyframe count, the corners stored per keyframe and the
   ATE against truth.
+- `hard_replay_jax.npz`: the JAX `HostDrivenReplay` (`loop_every=10`)
+  over the port's hard-tier replay (`hard_replay_config()`, the "default"
+  preset at full width; 60 sweep scans of `hard_replay_inputs()` with 2 %
+  garbage returns and 20000 clutter points): the inputs' sha256, per-scan
+  poses, GN iterations, degenerate flags and TransformFusion output, the
+  IMU front-end state each scan starts from, the loop count, each detector
+  cycle's accepted flags and fitness, each scan's GN trace (the pose and
+  inlier count each iteration starts from, the final pose; recorded by
+  `jax.debug.callback` in the traced loop); and the
+  ATEs of the deskew mission (`deskew_mission_inputs()`) replayed with its
+  point times and with zeros.
 
 On the CPU the JAX registration takes its unfused path, which finds fresh
 correspondences at every GN iteration whatever `corr_refresh_every` says
@@ -53,9 +64,9 @@ path it takes off the CPU, with the Pallas kernel in interpret mode and the
 candidate block held between refreshes, as the port does.
 
 Run by hand from the repository root (`smoke`, `loop`, `archive`, `bag`,
-`corner`, or all five when no argument is given):
+`corner`, `hard`, or all six when no argument is given):
 
-    python tests/torch_port_make_fixture.py [smoke|loop|archive|bag|corner]
+    python tests/torch_port_make_fixture.py [smoke|loop|archive|bag|corner|hard]
 
 It is not a test (pytest does not collect it).
 """
@@ -93,6 +104,7 @@ ARCHIVE_OUT = os.path.join(FIXTURES, "archive_mission_jax.npz")
 BAG_OUT = os.path.join(FIXTURES, "bag_mission_jax.npz")
 CORNER_OUT = os.path.join(FIXTURES, "corner_mission_jax.npz")
 REBUILD_OUT = os.path.join(FIXTURES, "rebuild_mission_jax.npz")
+HARD_OUT = os.path.join(FIXTURES, "hard_replay_jax.npz")
 
 
 def count_iterations(runner):
@@ -431,9 +443,139 @@ def corner_missions():
               f"{time.time() - t0:.1f} s")
 
 
+def recording_gn_loop(gn_loop, scans):
+    """`registration._gn_loop` for a trace that calls back with the pose
+    and the inlier count each GN iteration starts from, then the final
+    pose, into `scans[-1]` (the fused path without candidate refresh,
+    `corr_refresh_every=1`)."""
+    def note(pose, n_inl):
+        scans[-1].append((np.array(pose), int(n_inl)))
+
+    def wrapped(scan, scan_mask, corr_fn, init_pose6, cfg, runnable,
+                min_correspondences, ne_fn=None):
+        def noting(pose):
+            ne = ne_fn(pose)
+            jax.debug.callback(note, pose, ne[2], ordered=True)
+            return ne
+
+        res = gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg, runnable,
+                      min_correspondences, ne_fn=noting)
+        jax.debug.callback(note, res.pose, -1, ordered=True)
+        return res
+    return wrapped
+
+
+def jax_replay(cfg, batch, loop_every, gn=None):
+    """(final state, ReplayOut, detector cycles, the front-end's state
+    before each scan) of the JAX `HostDrivenReplay` over a numpy
+    `ReplayBatch` of the port.  With a list `gn`, each scan's mapping step
+    appends to it the (pose, inliers) each GN iteration started from and
+    the final pose (inliers -1)."""
+    import jax.numpy as jnp
+
+    from lio_slam_tpu.pipeline import replay as jreplay
+
+    hd = jreplay.HostDrivenReplay(to_jax_config(cfg, jax_config),
+                                  loop_every=loop_every)
+    cycles, imu_states = [], []
+    detector = hd.detector
+    prep_predict = hd._prep_predict
+    step = hd.step
+
+    def watching_detector(state):
+        state, aux = detector(state)
+        cycles.append({k: np.array(v) for k, v in aux.items()})
+        return state, aux
+
+    def watching_prep(fes, *args):
+        imu_states.append(jax.tree.map(np.asarray, fes))
+        return prep_predict(fes, *args)
+
+    def recording_step(state, inp):
+        gn.append([])
+        state, out = step(state, inp)
+        jax.effects_barrier()
+        return state, out
+
+    hd.detector = watching_detector
+    hd._prep_predict = watching_prep
+    if gn is not None:
+        hd.step = recording_step
+        gn_loop, jreg._gn_loop = jreg._gn_loop, recording_gn_loop(jreg._gn_loop,
+                                                                  gn)
+    try:
+        state, fes = hd.init()
+        state, _, outs = hd.run(state, fes, hd.split(jreplay.ReplayBatch(
+            *(jnp.asarray(a) for a in batch))))
+    finally:
+        if gn is not None:
+            jreg._gn_loop = gn_loop
+    return state, outs, cycles, imu_states
+
+
+def hard_replay():
+    """The JAX `HostDrivenReplay` over the port's hard-tier inputs and over
+    the deskew mission; writes HARD_OUT."""
+    t0 = time.time()
+    cfg = sm.hard_replay_config()
+    seq, batch = sm.hard_replay_inputs(cfg)
+    gn = []
+    state, outs, cycles, imu = jax_replay(cfg, batch, sm.HARD_LOOP_EVERY, gn)
+    poses = np.asarray(outs.poses, np.float32)
+    iters = np.asarray(outs.iters, np.int32)
+    # each scan's GN trace, padded: the pose each iteration started from,
+    # then the final pose; the inliers of each iteration
+    cap = cfg.registration.max_iterations
+    gn_poses = np.full((len(gn), cap + 1, 6), np.nan, np.float32)
+    gn_inliers = np.full((len(gn), cap), -1, np.int32)
+    for k, trace in enumerate(gn):
+        assert len(trace) == iters[k] + 1, (k, len(trace), iters[k])
+        gn_poses[k, :len(trace)] = [p for p, _ in trace]
+        gn_inliers[k, :iters[k]] = [c for _, c in trace[:-1]]
+    ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
+    cyc = lambda k: np.stack([c[k] for c in cycles])
+    stack = lambda get: np.stack([get(f) for f in imu])
+    t1 = time.time()
+
+    dcfg, dseq, windows = sm.deskew_mission_inputs()
+    ates = []
+    for ptimes in (None, np.zeros_like(dseq.ptimes)):
+        _, douts, _, _ = jax_replay(dcfg, sm.replay_batch(dseq, windows,
+                                                          ptimes), 0)
+        ates.append(synthetic.ate_rmse(np.asarray(douts.poses),
+                                       sm.relative_truth(dseq)))
+    np.savez(HARD_OUT, batch_sha256=np.array(sm.batch_sha256(batch)),
+             poses=poses, registration_iters=iters,
+             degenerate=np.asarray(outs.degenerate),
+             fused_last=np.asarray(outs.fused_last, np.float32),
+             loop_count=np.int32(state.loop_count),
+             keyframes=np.int32(state.store.count),
+             loop_accepted=cyc("loop_accepted"), loop_fitness=cyc("loop_fitness"),
+             ate_rmse_m=np.float32(ate),
+             imu_R=stack(lambda f: f.nav.R), imu_p=stack(lambda f: f.nav.p),
+             imu_v=stack(lambda f: f.nav.v),
+             imu_bias_gyr=stack(lambda f: f.bias_gyr),
+             imu_bias_acc=stack(lambda f: f.bias_acc),
+             imu_cov=stack(lambda f: f.cov),
+             imu_initialized=stack(lambda f: f.initialized),
+             imu_failure=stack(lambda f: f.failure),
+             gn_poses=gn_poses, gn_inliers=gn_inliers,
+             deskew_ate_with_m=np.float32(ates[0]),
+             deskew_ate_without_m=np.float32(ates[1]))
+    print(f"wrote {HARD_OUT}: {len(poses)} scans, "
+          f"{int(state.store.count)} keyframes, {int(state.loop_count)} loops, "
+          f"ATE {ate:.5f} m, {int(iters.sum())} GN iterations (mean over "
+          f"scans 1-59 {iters[1:].mean():.2f}), degenerate at "
+          f"{np.nonzero(np.asarray(outs.degenerate))[0].tolist()}, cycles' "
+          f"fitness {cyc('loop_fitness').tolist()}, {t1 - t0:.1f} s; deskew "
+          f"mission ATE {ates[0]:.5f} m with point times, {ates[1]:.5f} m "
+          f"without, {time.time() - t1:.1f} s")
+
+
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("smoke", "loop", "archive", "bag", "corner", "all"):
+    if which not in ("smoke", "loop", "archive", "bag", "corner", "hard",
+                     "all"):
         sys.exit(__doc__)
     jreg._maybe_fused = jax_fused_interpret
     if which in ("smoke", "all"):
@@ -447,6 +589,8 @@ def main():
             bag_missions()
     if which in ("corner", "all"):
         corner_missions()
+    if which in ("hard", "all"):
+        hard_replay()
 
 
 if __name__ == "__main__":

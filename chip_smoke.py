@@ -145,6 +145,27 @@ Then both preintegration forms on one front-end window on the card: the
 parallel form held to the sequential one, host and device ms and operator
 calls of each; phases 3-5 also print the IMU front-end's host and device
 ms a scan beside those of the sequential form.
+18. Sharded mission (`lio_slam_tpu_torch/parallel/`), spawned (start
+   method `spawn`) twice on cuda:0: world 1 on NCCL and world 2 on gloo
+   (NCCL refuses two ranks on one card), each rank a process with a
+   FileStore rendezvous and a deadline; a rank's failure or the deadline
+   fails the run.  Each world runs (a) the column-sharded sparse solver at
+   K=2048 against `solve_sparse` (the JAX slow test's gates: chain-only
+   within 1e-4; with loops within 5e-2 and no farther from the truth than
+   1.1x + 1e-3); (b) the map-sharded register on the kernel phase's scan
+   and map, within 5e-3 of the single-device register; (c) `Runner(
+   sharded_mission_config(D), device="cuda:0", mesh=...)` over 40 scans of
+   the smoke sequence, an injected loop (newest keyframe to keyframe 0)
+   and scans until its correction, held to
+   lio_slam_tpu_torch/fixtures/sharded_mission_jax.npz (the JAX Runner on
+   a mesh of 1 and 2 devices): within 0.02 m / 0.1 deg before the
+   correction and 0.05 m / 0.25 deg after, keyframes and the correction's
+   scan equal, rows a shard within 0.5 %, every replicated leaf bit-equal
+   across ranks, no fused_corr launch (the sharded mapping path is plain
+   k-NN with a cross-rank merge, as in JAX).  Prints scans/s over scans
+   5-39, the mapping step's host and device ms a scan and the collectives'
+   calls and ms a scan (torch.profiler over scans 40-41), the correction's
+   ms and the solver's.
 Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line describing the
@@ -369,14 +390,14 @@ def kernel_bound(table, hh, scan, mask):
             n_bytes, flop, n_rows)
 
 
-def kernel_scene(dev):
-    """The main path's shapes: an 8192-point scan drawn from a 65536-point
-    map in a 32768 x 24 grid, and a pose a GN step away from the truth."""
+def scene_points():
+    """(map (N_MAP, 3), body-frame scan (N_SCAN, 3), true pose): the
+    synthetic world near the origin, the scan drawn from the map, seen from
+    the pose, with sensor noise."""
     import numpy as np
     import torch
 
     from lio_slam_tpu_torch.io import synthetic
-    from lio_slam_tpu_torch.ops import voxel_grid as vg
     from lio_slam_tpu_torch.utils import se3
 
     rs = np.random.RandomState(0)
@@ -386,10 +407,20 @@ def kernel_scene(dev):
     sel = rs.permutation(N_MAP)[:N_SCAN]
     pose0 = np.array([0.01, -0.02, 0.3, 1.0, -0.5, 0.2], np.float32)
     R0, t0 = se3.pose6_to_Rt(torch.from_numpy(pose0))
-    # body-frame scan whose world image lies on the map, plus sensor noise
     body = ((torch.from_numpy(map_pts[sel]) - t0) @ R0).numpy()
     body = (body + rs.randn(N_SCAN, 3) * 0.02).astype(np.float32)
+    return map_pts, body, pose0
 
+
+def kernel_scene(dev):
+    """The main path's shapes: an 8192-point scan drawn from a 65536-point
+    map in a 32768 x 24 grid, and a pose a GN step away from the truth."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.ops import voxel_grid as vg
+
+    map_pts, body, pose0 = scene_points()
     grid = vg.build_grid(torch.from_numpy(map_pts).to(dev),
                          torch.ones(N_MAP, dtype=torch.bool, device=dev),
                          1.0, TABLE, CAP, halo="z")
@@ -2450,6 +2481,460 @@ def deskew_phase():
     return launches
 
 
+# ---- phase 18: the sharded mission over torch.distributed ----
+
+SHARDED_DEADLINE_S = 300.0    # a world's ranks, from spawn to their results
+SHARDED_MAX_DEV_M = 0.02      # before the correction: the mapping limits
+SHARDED_MAX_DEV_RAD = math.radians(0.1)
+SHARDED_AFTER_DEV_M = 0.05    # after it: the loop mission's GPS-era limits
+SHARDED_AFTER_DEV_RAD = math.radians(0.25)
+SHARDED_ROWS_REL = 0.005      # rows a shard against the reference's
+SHARDED_PROFILED = 2          # scans profiled after the injected loop
+
+
+def sharded_loop_graph(K, n_loops, dev):
+    """tests/test_parallel_sparse.py's `make_loop_graph` (bench.py part 3's
+    graph): a noisy straight chain of 1 m steps, `n_loops` loop factors
+    i -> i + K/4, a translation-soft prior and K/8 GPS factors."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.graph import factors as F
+
+    rs = np.random.RandomState(0)
+    poses = np.zeros((K, 6), np.float32)
+    poses[:, 3] = np.arange(K) * 1.0
+    poses += rs.randn(K, 6).astype(np.float32) * 0.02
+    B = (K - 1) + 64
+    meas = np.tile(np.array([0, 0, 0, 1, 0, 0], np.float32), (B, 1))
+    bt_i = np.concatenate([np.arange(K - 1), np.zeros(65, np.int64)])[:B]
+    bt_j = np.concatenate([np.arange(1, K), np.zeros(65, np.int64)])[:B]
+    bt_mask = np.zeros(B, bool)
+    bt_mask[:K - 1] = True
+    span = K // 4
+    for q in range(n_loops):
+        s = (K - 1) + q
+        i = (q * K // (n_loops + 1)) % (K - span)
+        bt_i[s], bt_j[s] = i, i + span
+        meas[s] = [0, 0, 0, float(span), 0, 0]
+        bt_mask[s] = True
+    G = 64
+    gps_i, gps_meas = np.zeros(G, np.int32), np.zeros((G, 3), np.float32)
+    gps_info, gps_mask = np.zeros((G, 3), np.float32), np.zeros(G, bool)
+    for s, i in enumerate(range(0, K, max(K // 8, 1))):
+        gps_i[s], gps_meas[s] = i, poses[i, 3:6]
+        gps_info[s], gps_mask[s] = 100.0, True
+    to = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    info = F.info_from_variances((1e-6, 1e-6, 1e-6, 1e-4, 1e-4, 1e-4))
+    return F.empty_graph(K, B, G, device=dev)._replace(
+        poses=to(poses), pose_mask=torch.ones(K, dtype=torch.bool, device=dev),
+        prior_pose=to(poses[0]),
+        prior_info=F.info_from_variances(
+            (1e-2, 1e-2, np.pi ** 2, 1e8, 1e8, 1e8)).to(dev),
+        bt_i=to(bt_i.astype(np.int32)), bt_j=to(bt_j.astype(np.int32)),
+        bt_meas=to(meas), bt_info=info.to(dev)[None].repeat(B, 1),
+        bt_mask=to(bt_mask), gps_i=to(gps_i), gps_meas=to(gps_meas),
+        gps_info=to(gps_info), gps_mask=to(gps_mask))
+
+
+def sharded_register_scene(dev):
+    """(scan, mask, map, mask, start, truth) on `dev`: the kernel phase's
+    8192-point scan and 65536-point map (`scene_points`), started 0.2 m /
+    2 deg off the truth, as tests/test_sharding.py starts.  That test's
+    four-plane world is not used at this size: 65536 points put about 200
+    halo rows into a wall cell's 24 slots, so the single-device register
+    starves there while the map split over the ranks keeps more rows a
+    cell, and the two land apart for that reason alone."""
+    import numpy as np
+    import torch
+
+    map_pts, body, pose0 = scene_points()
+    init = pose0 + np.array([0.02, 0.01, -0.03, 0.2, -0.15, 0.08], np.float32)
+    on = lambda x: torch.from_numpy(np.asarray(x)).to(dev)
+    return (on(body), torch.ones(N_SCAN, dtype=torch.bool, device=dev),
+            on(map_pts.astype(np.float32)),
+            torch.ones(N_MAP, dtype=torch.bool, device=dev), on(init), pose0)
+
+
+def sharded_rank(rank, world, backend, store_path, queue):
+    """One rank of phase 18, spawned: its results, or its traceback, go to
+    `queue`."""
+    import traceback
+
+    try:
+        queue.put((rank, sharded_rank_work(rank, world, backend, store_path,
+                                           "cuda"), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def sharded_rank_work(rank, world, backend, store_path, device_type):
+    """(a) the sharded sparse solver at K=2048 against `solve_sparse`,
+    (b) the map-sharded register against the single-device one, (c) the
+    sharded `Runner` mission; every rank runs all three (their collectives
+    pair up), rank 0's numbers are reported.  Every tensor lives on
+    `device_type` ("cuda": cuda:0; "cpu" for a rehearsal)."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    t_begin = time.perf_counter()
+    sys.path.insert(0, ROOT)
+    on_card = device_type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if on_card else [])
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    import dataclasses
+    import zlib
+
+    from lio_slam_tpu_torch.config import RegistrationConfig
+    from lio_slam_tpu_torch.graph import sparse as gsparse
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import registration as reg
+    from lio_slam_tpu_torch.parallel import mesh as mesh_mod
+    from lio_slam_tpu_torch.parallel import registration as preg
+    from lio_slam_tpu_torch.parallel import sparse as psparse
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+    from lio_slam_tpu_torch.pipeline.runner import Runner
+    from lio_slam_tpu_torch.utils import se3
+
+    mesh = mesh_mod.make_mesh(world, device_type=device_type)
+    dev = mesh_mod.mesh_device(mesh)
+    t_start = time.perf_counter()
+    # seconds of wall time in each part
+    parts = {"start-up (imports, process group, mesh)": t_start - t_begin}
+
+    def part_done(name):
+        parts[name] = time.perf_counter() - t_begin - sum(parts.values())
+
+    def synced_ms(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    out = {"world": world, "backend": backend}
+
+    # (a) the column-sharded sparse solver at K=2048; the single-device
+    # references run on rank 0 alone (the others wait at the next
+    # collective)
+    solve = psparse.make_sharded_sparse_solver(mesh)
+    g0, g = sharded_loop_graph(2048, 0, dev), sharded_loop_graph(2048, 8, dev)
+    got0 = solve(g0, iterations=2).graph.poses
+    got, sharded_ms = synced_ms(lambda: solve(g, iterations=5).graph.poses)
+    # (b) map-sharded registration: the map split over the ranks
+    scan, smask, mp, mmask, init, truth6 = sharded_register_scene(dev)
+    cfg_r = RegistrationConfig(degeneracy_eig_thresh=1.0)
+    register = preg.make_map_sharded_register(mesh, cfg_r)
+    run_sharded = lambda: register(scan, smask,
+                                   mesh_mod.shard_points(mesh, mp),
+                                   mesh_mod.shard_points(mesh, mmask), init)
+    run_sharded()                       # warm: first calls build and cache
+    res, reg_ms = synced_ms(run_sharded)
+    part_done("sharded solver and register")
+    if rank == 0:
+        # why the sharded solver linearizes the whole graph on every rank:
+        # a batch of half the factors against the same factors in the whole
+        from torch.func import vmap
+
+        from lio_slam_tpu_torch.graph import factors as F
+
+        eb, _, _ = F.linearize_between(g)
+        h = eb.shape[0] // 2
+        e_half = vmap(F._one_between)(g.poses[g.bt_i[:h].long()],
+                                      g.poses[g.bt_j[:h].long()],
+                                      g.bt_meas[:h])[0]
+        batch_bits = [(int((e_half != eb[:h]).sum()), e_half.numel())]
+        if world == 1:
+            # ... and why Y's column chunks may be split: half the columns
+            # against the whole
+            D, Loff, _, _, loops = gsparse._assemble(g)
+            f = gsparse.tridiag_factor(D, Loff)
+            li, lj, Jli, Jlj, _, lmask, nL = loops
+            oh = lambda idx: gsparse._one_hot(idx, 2048, torch.float32) \
+                * lmask.float()[:, None]
+            At = (torch.einsum("lk,lrs->kslr", oh(li), Jli)
+                  + torch.einsum("lk,lrs->kslr", oh(lj), Jlj)).reshape(
+                      2048, 6, nL * 6)
+            Y = gsparse.tridiag_solve(f, At)
+            m = nL * 3
+            Y_h = gsparse.tridiag_solve(f, At[:, :, :m].contiguous())
+            batch_bits.append((int((Y_h != Y[:, :, :m]).sum()), Y_h.numel()))
+        ref0 = gsparse.solve_sparse(g0, iterations=2).graph.poses
+        ref, single_ms = synced_ms(
+            lambda: gsparse.solve_sparse(g, iterations=5).graph.poses)
+        truth = torch.zeros((2048, 6), device=dev)
+        truth[:, 3] = torch.arange(2048, device=dev)
+        out["solver"] = {
+            "chain_err": float((got0 - ref0).abs().max()),
+            "loop_err": float((got - ref).abs().max()),
+            "d_got": float((got - truth).abs().max()),
+            "d_ref": float((ref - truth).abs().max()),
+            "sharded_ms": sharded_ms, "single_ms": single_ms,
+            "batch_bits": batch_bits}
+        run_single = lambda: reg.register(scan, smask, mp, mmask, init, cfg_r)
+        run_single()
+        ref1, single_reg_ms = synced_ms(run_single)
+        out["register"] = {
+            "err": float((res.pose - ref1.pose).abs().max()),
+            "truth_err": float(np.abs(res.pose.cpu().numpy() - truth6).max()),
+            "iters": res.iterations, "single_iters": ref1.iterations,
+            "ms": reg_ms, "single_ms": single_reg_ms}
+
+    # (c) the sharded Runner: 40 scans, an injected loop, scans until the
+    # full correction has run (through the sharded sparse solver)
+    cfg = sm.sharded_mission_config(world)
+    seq = synthetic.make_sequence(n_scans=sm.SHARDED_SCANS + sm.SHARDED_TAIL,
+                                  n_points=sm.SMOKE_POINTS, seed=sm.SMOKE_SEED,
+                                  speed=sm.SMOKE_SPEED)
+    scans, imus = sm.synthetic_inputs(seq, cfg)
+    part_done("single-device references (rank 0) and the mission's inputs")
+    runner = Runner(cfg, device=dev, mesh=mesh)
+    fc.KERNEL_LAUNCHES = 0
+    results, stamps = [], []
+    for i in range(sm.SHARDED_SCANS):
+        results.append(runner.process_scan(scans[i], imu=imus[i]))
+        sync()
+        stamps.append(time.perf_counter())
+    st = runner.state
+    n_kf = int(st.store.count)
+    meas = se3.pose6_between(st.store.poses[n_kf - 1], st.store.poses[0])
+    accepted = runner.inject_loop_constraint(
+        n_kf - 1, 0, meas.cpu().numpy(), np.full(6, 1e2, np.float32))
+    # the first SHARDED_PROFILED scans after it under torch.profiler (a
+    # short pass: the profiler's analysis of a full correction's launches
+    # takes longer than the phase), then scans until the correction ran
+    i = sm.SHARDED_SCANS
+    prof = profile(activities=activities)
+    prof.start()
+    n_prof = 0
+    while not runner.full_correction_scans and i < len(scans):
+        results.append(runner.process_scan(scans[i], imu=imus[i]))
+        i += 1
+        n_prof += 1
+        if n_prof == SHARDED_PROFILED:
+            break
+    sync()
+    prof.stop()
+    while not runner.full_correction_scans and i < len(scans):
+        results.append(runner.process_scan(scans[i], imu=imus[i]))
+        i += 1
+    sync()
+    correction_ms = 1e3 * runner.timer.last().get("full_correction", 0.0)
+    tail = i - sm.SHARDED_SCANS
+    launches = fc.KERNEL_LAUNCHES
+    part_done("mission")
+    rows = mesh_mod.all_gather(runner.state.map_grid.counts.sum().to(
+        torch.int64), mesh).cpu().numpy()
+    # a crc32 of every replicated leaf, gathered: equal rows, equal bits
+    sharded = {"map_grid.table", "map_grid.counts", "store.clouds",
+               "store.cloud_masks"}
+
+    def crcs(tree, prefix=""):
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return [c for f in tree._fields
+                    for c in crcs(getattr(tree, f), f"{prefix}{f}.")]
+        if not isinstance(tree, torch.Tensor) or prefix[:-1] in sharded:
+            return []
+        return [zlib.crc32(tree.detach().cpu().numpy().tobytes())]
+
+    sums = mesh_mod.all_gather(torch.tensor(
+        crcs(runner.state) + crcs(runner.imu_state), dtype=torch.int64,
+        device=dev), mesh).cpu().numpy()
+    # the ranges' host-side rows (their device rows are spans, not work)
+    by_key = {e.key: e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CUDA}
+    per = lambda key, attr: (getattr(by_key[key], attr) * 1e-3 / n_prof
+                             if key in by_key else 0.0)
+    part_done("profile analysis and checksums")
+    out["mission"] = {
+        "poses": np.stack([r.pose for r in results]),
+        "is_keyframe": np.array([r.is_keyframe for r in results]),
+        "iters": np.array([r.registration_iters for r in results]),
+        "keyframes_before": n_kf, "keyframes": int(runner.state.store.count),
+        "accepted": bool(accepted),
+        "correction_scans": list(runner.full_correction_scans),
+        "launches": launches, "rows": rows, "checksums": sums,
+        "scans_per_s": (sm.SHARDED_SCANS - 5) / (stamps[-1] - stamps[4]),
+        "tail": tail, "profiled_scans": n_prof,
+        "mapping_host_ms": per("mapping_step", "cpu_time_total"),
+        "mapping_device_ms": per("mapping_step", "device_time_total"),
+        "collective_host_ms": per("collective:psum", "cpu_time_total")
+        + per("collective:all_gather", "cpu_time_total"),
+        "collective_device_ms": per("collective:psum", "device_time_total")
+        + per("collective:all_gather", "device_time_total"),
+        "collective_calls": sum(by_key[k].count for k in
+                                ("collective:psum", "collective:all_gather")
+                                if k in by_key) / n_prof,
+        "correction_ms": correction_ms,
+        "table_shape": tuple(runner.state.map_grid.table.shape)}
+    out["parts"] = parts
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def run_world(world, backend):
+    """Spawn `world` ranks of phase 18 on cuda:0 and return rank 0's
+    results; a rank's failure or the deadline fails the run."""
+    import queue as queue_mod
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, world, backend, os.path.join(tmp, "store"), q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARDED_DEADLINE_S
+    got, error = {}, None
+    try:
+        while len(got) < world and error is None:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                error = f"deadline of {SHARDED_DEADLINE_S:.0f} s passed"
+                break
+            try:
+                rank, res, tb = q.get(timeout=min(left, 5.0))
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    error = f"a rank exited with {dead}"
+                continue
+            if tb is not None:
+                error = f"rank {rank} failed:\n{tb}"
+            got[rank] = res
+        for p in procs:
+            p.join(timeout=30 if error is None else 0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if error is not None:
+        fail(f"phase 18, world {world} on {backend}: {error}")
+    return got[0]
+
+
+def check_sharded(res, fixture):
+    """Phase 18's gates on rank 0's results of one world."""
+    import numpy as np
+
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    D, be = res["world"], res["backend"]
+    tag = f"phase 18 (world {D}, {be})"
+    s = res["solver"]
+    print(f"{tag}: sharded sparse solver K=2048: chain-only {s['chain_err']:.3e} "
+          f"from solve_sparse (limit 1e-4); with loops {s['loop_err']:.3e} "
+          f"(limit 5e-2), {s['d_got']:.4f} from truth against "
+          f"{s['d_ref']:.4f}; 5 iterations {s['sharded_ms']:.3f} ms sharded, "
+          f"{s['single_ms']:.3f} ms solve_sparse ({SMI})", flush=True)
+    bits = s["batch_bits"]
+    print(f"{tag}: computed for half the batch against the whole graph: "
+          f"the between factors' residuals differ in {bits[0][0]} of "
+          f"{bits[0][1]}"
+          + (f"; the columns of Y = T⁻¹Aᵀ solved in two halves against "
+             f"all at once: {bits[1][0]} of {bits[1][1]} differ"
+             if len(bits) > 1 else ""), flush=True)
+    if not (s["chain_err"] < 1e-4 and s["loop_err"] < 5e-2
+            and s["d_got"] <= s["d_ref"] * 1.1 + 1e-3):
+        fail(f"{tag}: sharded sparse solver {s}")
+    r = res["register"]
+    print(f"{tag}: map-sharded register, {N_SCAN} scan points against a "
+          f"{N_MAP}-point map: {r['err']:.3e} from the single-device register "
+          f"(limit 5e-3), {r['truth_err']:.3e} from truth; {r['iters']} GN "
+          f"iterations ({r['single_iters']} single); {r['ms']:.3f} ms "
+          f"({r['single_ms']:.3f} ms single, fused kernel) ({SMI})", flush=True)
+    if not (r["err"] <= 5e-3 and r["truth_err"] < 0.02):
+        fail(f"{tag}: map-sharded register {r}")
+    m = res["mission"]
+    key = lambda k: fixture[f"d{D}_{k}"]
+    poses, ref = m["poses"], key("poses")
+    n = sm.SHARDED_SCANS
+    if poses.shape != ref.shape:
+        fail(f"{tag}: {len(poses)} scans, reference {len(ref)}")
+    dev_b = (float(np.abs(poses[:n, 3:] - ref[:n, 3:]).max()),
+             float(np.abs(poses[:n, :3] - ref[:n, :3]).max()))
+    dev_a = (float(np.abs(poses[n:, 3:] - ref[n:, 3:]).max()),
+             float(np.abs(poses[n:, :3] - ref[n:, :3]).max()))
+    rows_ref = key("rows")
+    rows_rel = np.abs(m["rows"] - rows_ref) / np.maximum(rows_ref, 1)
+    same_sums = bool((m["checksums"] == m["checksums"][0]).all())
+    print(f"{tag}: Runner mission, {n} scans + {m['tail']} "
+          f"after the injected loop: {m['scans_per_s']:.3f} scans/s over "
+          f"scans 5-39; deviation from the JAX reference {dev_b[0]:.3e} m / "
+          f"{math.degrees(dev_b[1]):.3e} deg before the correction, "
+          f"{dev_a[0]:.3e} m / {math.degrees(dev_a[1]):.3e} deg after; "
+          f"keyframes {m['keyframes_before']} -> {m['keyframes']} (JAX "
+          f"{int(key('keyframes_before'))} -> {int(key('keyframes'))}); "
+          f"full correction at scan {m['correction_scans']} (JAX "
+          f"{int(key('correction_scan'))}); rows a shard {m['rows'].tolist()} "
+          f"(JAX {rows_ref.tolist()}); a table of {m['table_shape'][0]} "
+          f"buckets a rank; replicated leaves equal on every rank: "
+          f"{same_sums}; fused_corr launches {m['launches']}", flush=True)
+    print(f"{tag}: profiled scans {n}-{n + m['profiled_scans'] - 1}: "
+          f"mapping step {m['mapping_host_ms']:.3f} host ms / "
+          f"{m['mapping_device_ms']:.3f} device ms a scan; collectives "
+          f"{m['collective_calls']:.1f} calls, {m['collective_host_ms']:.3f} "
+          f"host ms / {m['collective_device_ms']:.3f} device ms a scan; the "
+          f"full correction (the sharded sparse solver, K=256, and the "
+          f"rebuild) {m['correction_ms']:.3f} host ms, its stage timer "
+          f"({SMI})", flush=True)
+    if not np.isfinite(poses).all():
+        fail(f"{tag}: non-finite poses")
+    if dev_b[0] > SHARDED_MAX_DEV_M or dev_b[1] > SHARDED_MAX_DEV_RAD:
+        fail(f"{tag}: {dev_b} from the reference before the correction")
+    if dev_a[0] > SHARDED_AFTER_DEV_M or dev_a[1] > SHARDED_AFTER_DEV_RAD:
+        fail(f"{tag}: {dev_a} from the reference after the correction")
+    if (m["keyframes_before"], m["keyframes"]) != (
+            int(key("keyframes_before")), int(key("keyframes"))):
+        fail(f"{tag}: keyframe counts differ from the reference")
+    if not m["accepted"] or m["correction_scans"] != [int(key("correction_scan"))]:
+        fail(f"{tag}: the full correction ran at {m['correction_scans']}")
+    if (rows_rel > SHARDED_ROWS_REL).any():
+        fail(f"{tag}: rows a shard {m['rows']} against {rows_ref}")
+    print(f"{tag}: rank 0's wall time in s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["parts"].items()),
+          flush=True)
+    if not same_sums:
+        fail(f"{tag}: the ranks' replicated leaves differ")
+    if m["launches"]:
+        fail(f"{tag}: the sharded mapping path launched fused_corr")
+
+
+def sharded_phase():
+    """Phase 18 at world 1 on NCCL and world 2 on gloo, both on cuda:0
+    (NCCL refuses two ranks on one card)."""
+    import numpy as np
+
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "sharded_mission_jax.npz"))
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        check_sharded(run_world(world, backend), fixture)
+        print(f"phase 18 world {world} ({backend}): "
+              f"{time.perf_counter() - t0:.1f} s wall", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-dir", default=None,
@@ -2523,6 +3008,7 @@ def main():
                                          hard_replay_phase)
     deskewed = phase("phase 17 (deskew mission)", deskew_phase)
     phase("preintegration on the card", preintegration_phase, dev)
+    phase("phase 18 (sharded mission)", sharded_phase)
     paths = {"mission": launches, "loop_mapping": loop_map,
              "loop_verification": loop_ver, **arch, "resume": resumed,
              "bag_mapping": bag_map, "bag_loop_verification": bag_ver,

@@ -5,7 +5,10 @@
 `jax.tree.map(np.asarray, state)`) and returns the port's NamedTuple of
 the same name on `device`.  Fields are matched by name, so any object with
 the right attributes works.  `to_numpy(state)` returns the port's
-NamedTuple with numpy leaves.
+NamedTuple with numpy leaves.  A sharded mission's state converts in its
+global layout (the JAX Runner with a mesh holds it so; the port's
+`Runner.global_state()` gathers it), and the sharded `MapOps.shard`
+(`parallel/mission.py`) cuts a converted state to a rank's slice.
 """
 
 from __future__ import annotations

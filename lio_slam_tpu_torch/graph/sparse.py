@@ -239,11 +239,12 @@ def _chol_solve_multi(S: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 def _woodbury_apply(f: TridiagFactor, loops, rhs: torch.Tensor,
-                    any_loop: bool) -> torch.Tensor:
+                    any_loop: bool, y_solve=tridiag_solve) -> torch.Tensor:
     """H^-1 rhs from the factored chain + the loop low-rank correction.
     rhs: (K, 6) or (K, 6, M).  `any_loop` (a host value: whether a loop
     factor is active) skips the correction, so a mission before its first
-    loop pays the chain solve only."""
+    loop pays the chain solve only.  `y_solve(f, At)` computes Y = T^-1 A^T
+    over the 6L loop columns (the sharded solver splits them over ranks)."""
     li, lj, Jli, Jlj, wl, lmask, nL = loops
     tb = tridiag_solve(f, rhs)                       # T^-1 rhs
     if nL == 0 or not any_loop:
@@ -256,7 +257,7 @@ def _woodbury_apply(f: TridiagFactor, loops, rhs: torch.Tensor,
     # factor's pose
     At = (torch.einsum("lk,lrs->kslr", _one_hot(li, K, dtype) * lm[:, None], Jli)
           + torch.einsum("lk,lrs->kslr", _one_hot(lj, K, dtype) * lm[:, None], Jlj))
-    Y = tridiag_solve(f, At.reshape(K, 6, nL * 6))   # (K, 6, 6L)
+    Y = y_solve(f, At.reshape(K, 6, nL * 6))         # (K, 6, 6L)
 
     def a_apply(x):
         """A x for x (K, 6, ...): gather + Jacobian apply -> (6L, ...)."""
@@ -290,12 +291,14 @@ def _host_flags(graph: F.PoseGraph, n_active: Optional[int]):
 # ---------------------------------------------------------------------------
 
 def solve_sparse(graph: F.PoseGraph, iterations: int = 5,
-                 n_active: Optional[int] = None) -> SolveResult:
+                 n_active: Optional[int] = None,
+                 y_solve=tridiag_solve) -> SolveResult:
     """Full-graph GN over all active poses, O(K) memory, with backtracking
     step control (monotone descent).  Drop-in for
     `solver.solve(graph, pose_mask, n)`.  `n_active`: one past the last
     active pose if the caller knows it (K runs the full-length recursion);
-    by default it is read from the mask, one device-to-host read a solve."""
+    by default it is read from the mask, one device-to-host read a solve.
+    `y_solve`: the Woodbury column solve (`_woodbury_apply`)."""
     n_active, any_loop = _host_flags(graph, n_active)
     g = graph
     dtype, dev = graph.poses.dtype, graph.poses.device
@@ -304,7 +307,7 @@ def solve_sparse(graph: F.PoseGraph, iterations: int = 5,
     for _ in range(iterations):
         D, Loff, b, chi2, loops = _assemble(g)
         f = tridiag_factor(D, Loff, n_active)
-        delta = _woodbury_apply(f, loops, b, any_loop)           # (K, 6)
+        delta = _woodbury_apply(f, loops, b, any_loop, y_solve)  # (K, 6)
         delta = torch.where(g.pose_mask[:, None], delta,
                             torch.zeros_like(delta))
         new_poses, scale = backtrack_step(g, delta, chi2)

@@ -167,6 +167,18 @@ def find_correspondences(scan: torch.Tensor, scan_mask: torch.Tensor,
         res = knn_mod.knn(scan_w, scan_mask, map_pts, map_mask, k=k)
         neighbors = map_pts[res.idx.to(torch.int64)]
         nn_valid, dist2 = res.valid, res.dist2
+    return plane_correspondences(scan, scan_mask, scan_w, neighbors,
+                                 nn_valid, dist2, cfg)
+
+
+def plane_correspondences(scan: torch.Tensor, scan_mask: torch.Tensor,
+                          scan_w: torch.Tensor, neighbors: torch.Tensor,
+                          nn_valid: torch.Tensor, dist2: torch.Tensor,
+                          cfg: RegistrationConfig) -> Correspondences:
+    """The plane fit, gates and weight of `find_correspondences` from the
+    scan's k-NN in the map (`neighbors` (N, k, 3), `nn_valid` / `dist2`
+    (N, k) in ascending distance), wherever the k-NN came from."""
+    k = dist2.shape[1]
     # kd-tree gate: 5th neighbour within nn_radius (pointSearchSqDis[4] < 1.0)
     nn_ok = nn_valid[:, k - 1] & (dist2[:, k - 1] < cfg.nn_radius ** 2)
     normal, offset, plane_ok = fit_planes(neighbors, nn_valid,

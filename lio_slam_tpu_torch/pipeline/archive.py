@@ -32,6 +32,7 @@ import torch
 
 from lio_slam_tpu_torch.config import Config
 from lio_slam_tpu_torch.ops import registration as reg
+from lio_slam_tpu_torch.pipeline import keyframes as kf
 from lio_slam_tpu_torch.pipeline import lio
 from lio_slam_tpu_torch.utils import pointcloud as pc
 from lio_slam_tpu_torch.utils import se3
@@ -285,7 +286,7 @@ def make_kf_snapshot():
     return snap
 
 
-def make_archive_verifier(cfg: Config):
+def make_archive_verifier(cfg: Config, rows=kf.keyframe_rows):
     """`verify_and_queue(state, submap_xyz, submap_mask, init_pose,
     max_wander) -> (state, added () bool, fitness ())`: register the
     CURRENT keyframe's stored cloud against the re-promoted archive submap
@@ -306,7 +307,8 @@ def make_archive_verifier(cfg: Config):
       of pulling the trajectory back onto the archived map.
 
     The JAX version's gates and slot choices are device selects; here they
-    are the same selects, with `lio._first_free` for the first free slot."""
+    are the same selects, with `lio._first_free` for the first free slot.
+    `rows` reads the current keyframe's cloud (`MapOps.keyframe_rows`)."""
     s, l, r = cfg.static, cfg.loop, cfg.registration
 
     def verify_and_queue(state: lio.LioState, submap_xyz: torch.Tensor,
@@ -318,8 +320,9 @@ def make_archive_verifier(cfg: Config):
         submap = pc.voxel_downsample(pc.Cloud(xyz=submap_xyz, mask=submap_mask),
                                      r.mapping_surf_leaf_size,
                                      s.icp_submap_points)
-        res = reg.register(state.store.clouds[ci], state.store.cloud_masks[ci],
-                           submap.xyz, submap.mask, init_pose, r)
+        cur_xyz, cur_mask = rows(state.store, ci[None])
+        res = reg.register(cur_xyz[0], cur_mask[0], submap.xyz, submap.mask,
+                           init_pose, r)
         fitness = res.mean_residual
         # displacement gate: the registration started at the SC hypothesis
         # (the archived candidate's pose); a result that wandered beyond

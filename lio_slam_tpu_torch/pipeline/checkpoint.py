@@ -72,12 +72,15 @@ def save_checkpoint(path: str, state: lio.LioState,
     os.replace(tmp, path)          # atomic
 
 
-def load_checkpoint(path: str, cfg: Config, device=None):
+def load_checkpoint(path: str, cfg: Config, device=None, ops=None):
     """(lio_state, imu_state or None, metadata) on `device`.
 
     The leaves are grafted onto states freshly built for `cfg`, so shapes
     are checked leaf by leaf: a capacity mismatch raises a ValueError that
-    names the leaf."""
+    names the leaf.  With a sharded `ops` (`parallel/mission.py`) the file
+    holds the global layout, as the JAX Runner with a mesh writes it, and
+    each rank keeps its slice (building the template gathers: every rank
+    calls this)."""
     with np.load(path, allow_pickle=False) as z:
         manifest = json.loads(str(z["__manifest__"]))
         if manifest["format_version"] != FORMAT_VERSION:
@@ -97,7 +100,12 @@ def load_checkpoint(path: str, cfg: Config, device=None):
                     device=tmpl.device, dtype=tmpl.dtype))
             return _rebuild(template, iter(new))
 
-        state = restored(lio.init_state(cfg, device=device), "leaf_")
+        if ops is None:
+            state = restored(lio.init_state(cfg, device=device), "leaf_")
+        else:
+            state = ops.shard(restored(
+                ops.gather(lio.init_state(cfg, device=device, ops=ops)),
+                "leaf_"))
         imu_state = None
         if manifest["n_imu_leaves"]:
             imu_state = restored(fe.init_state(device=device), "imu_leaf_")

@@ -82,6 +82,12 @@ def add_keyframe(store: KeyframeStore, pose: torch.Tensor,
     return store
 
 
+def keyframe_rows(store: KeyframeStore, idx: torch.Tensor):
+    """(clouds (n, P, 3), masks (n, P)) of the keyframes at `idx` (n,): the
+    single-device reader of `MapOps.keyframe_rows`."""
+    return store.clouds[idx], store.cloud_masks[idx]
+
+
 def _select_nearby(store: KeyframeStore, position: torch.Tensor,
                    now: torch.Tensor, radius: float, recent_sec: float,
                    max_selected: int):

@@ -98,7 +98,9 @@ def empty_scan_input(capacity: int, device=None) -> ScanInput:
 
 
 class MapOps(NamedTuple):
-    """Persistent-map and solver backend of the step (single device)."""
+    """Persistent-map and solver backend of the step: one device
+    (`default_map_ops`) or a mesh (`parallel/mission.make_sharded_map_ops`,
+    where each rank holds its slice of the grid and the keyframe clouds)."""
 
     empty_grid: object    # () -> HashGrid
     register: object      # (scan_xyz, scan_mask, grid, pose_guess) -> RegistrationResult
@@ -106,6 +108,21 @@ class MapOps(NamedTuple):
     rebuild: object       # (store) -> HashGrid (full map rebuild)
     full_solve: object    # (graph) -> graph (the x5 full-graph correction)
     marginal_cov: object  # (graph, idx) -> (6, 6)
+    # The JAX MapOps' `constrain` (sharding annotations on the persistent
+    # state) is explicit slicing here; on one device all three are
+    # identities.
+    keyframe_cloud: object  # (cloud) -> the points of a keyframe's cloud
+    #                         this rank stores (JAX: constrain's P(None,
+    #                         axis) on store.clouds / cloud_masks)
+    shard: object         # (state) -> the state with a grid or store in the
+    #                       global layout cut to this rank's slice (JAX:
+    #                       constrain)
+    gather: object        # (state, grid=True) -> the global view of the
+    #                       sharded leaves, the JAX package's layout (JAX:
+    #                       none needed, a sharded jax.Array is global)
+    keyframe_rows: object  # (store, idx) -> (clouds, masks) of keyframes
+    #                        `idx` whole (JAX: indexing the sharded
+    #                        store.clouds gathers their points)
 
 
 def _use_sparse_solver(cfg: Config) -> bool:
@@ -146,10 +163,16 @@ def default_map_ops(cfg: Config, device=None) -> MapOps:
         empty_grid=lambda: vg.empty_grid(r.nn_radius, r.grid_table_size,
                                          r.grid_max_per_cell, device=device),
         register=register, insert=insert, rebuild=rebuild,
-        full_solve=full_solve, marginal_cov=marginal_cov)
+        full_solve=full_solve, marginal_cov=marginal_cov,
+        keyframe_cloud=lambda cloud: cloud, shard=lambda state: state,
+        gather=lambda state, grid=True: state,
+        keyframe_rows=kf.keyframe_rows)
 
 
-def init_state(cfg: Config, device=None) -> LioState:
+def init_state(cfg: Config, device=None, ops: MapOps = None) -> LioState:
+    """The empty mission state; with a sharded `ops`, this rank's slice."""
+    if ops is None:
+        ops = default_map_ops(cfg, device)
     s = cfg.static
     K = s.max_keyframes
     B = K - 1 + s.max_loop_queue * 8
@@ -160,11 +183,11 @@ def init_state(cfg: Config, device=None) -> LioState:
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     b = dict(dtype=torch.bool, device=device)
-    return LioState(
+    return ops.shard(LioState(
         store=kf.empty_store(K, s.max_keyframe_points,
                              corner_points_per_kf=corner_pts, device=device),
         graph=F.empty_graph(K, B, G, device=device),
-        map_grid=default_map_ops(cfg, device).empty_grid(),
+        map_grid=ops.empty_grid(),
         sc_db=sc_mod.empty_db(K, s.sc_num_ring, s.sc_num_sector, device=device),
         last_loop_kf=torch.full((), -1, **i32),
         needs_full_solve=torch.zeros((), **b),
@@ -176,7 +199,7 @@ def init_state(cfg: Config, device=None) -> LioState:
         pend_i=torch.zeros(Q, **i32), pend_j=torch.zeros(Q, **i32),
         pend_meas=torch.zeros((Q, 6), **f32),
         pend_info=torch.zeros((Q, 6), **f32),
-        pend_mask=torch.zeros(Q, **b))
+        pend_mask=torch.zeros(Q, **b)))
 
 
 def _update_initial_guess(state: LioState, inp: ScanInput) -> torch.Tensor:
@@ -395,8 +418,8 @@ def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
     g = g._replace(bt_i=bt_i, bt_j=bt_j, bt_meas=bt_meas, bt_info=bt_info,
                    bt_mask=bt_mask)
 
-    store = kf.add_keyframe(state.store, pose, inp.stamp, scan_ds,
-                            corner=corner_ds)
+    store = kf.add_keyframe(state.store, pose, inp.stamp,
+                            ops.keyframe_cloud(scan_ds), corner=corner_ds)
     ni = new_idx.to(torch.int64)
     poses, pose_mask = g.poses.clone(), g.pose_mask.clone()
     poses[ni] = pose

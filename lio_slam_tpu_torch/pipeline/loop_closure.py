@@ -27,15 +27,18 @@ import torch
 from lio_slam_tpu_torch.config import Config
 from lio_slam_tpu_torch.ops import registration as reg
 from lio_slam_tpu_torch.ops import scancontext as sc
+from lio_slam_tpu_torch.pipeline import keyframes as kf
 from lio_slam_tpu_torch.pipeline import lio as lio_mod
 from lio_slam_tpu_torch.utils import pointcloud as pc
 from lio_slam_tpu_torch.utils import se3
 
 
 def _submap_around(store, center_idx: torch.Tensor, search_num: int,
-                   capacity: int, leaf: float) -> pc.Cloud:
+                   capacity: int, leaf: float,
+                   rows=kf.keyframe_rows) -> pc.Cloud:
     """loopFindNearKeyframes: clouds of keyframes [center-n, center+n],
-    transformed to world, merged + downsampled."""
+    transformed to world, merged + downsampled.  `rows` reads the clouds
+    (`MapOps.keyframe_rows`)."""
     K = store.clouds.shape[0]
     dev = store.clouds.device
     lo = torch.clamp(center_idx - search_num, 0, K - 1)
@@ -43,15 +46,19 @@ def _submap_around(store, center_idx: torch.Tensor, search_num: int,
     idx = torch.clamp(lo + torch.arange(take, device=dev), 0, K - 1)
     valid_kf = (idx < store.count) & (idx >= 0)
     idx = idx.to(torch.int64)
-    masks = store.cloud_masks[idx] & valid_kf[:, None]
+    clouds, masks = rows(store, idx)
+    masks = masks & valid_kf[:, None]
     R, t = se3.pose6_to_Rt(store.poses[idx])
-    world = torch.einsum("sij,spj->spi", R, store.clouds[idx]) + t[:, None, :]
+    world = torch.einsum("sij,spj->spi", R, clouds) + t[:, None, :]
     merged = pc.Cloud(xyz=world.reshape(-1, 3), mask=masks.reshape(-1))
     return pc.voxel_downsample(merged, leaf, capacity)
 
 
-def make_loop_detector(cfg: Config):
-    """`detect_loops(state) -> (state, aux)`: one detector cycle.  `aux`
+def make_loop_detector(cfg: Config, rows=kf.keyframe_rows):
+    """`detect_loops(state) -> (state, aux)`: one detector cycle.  `rows`
+    reads the keyframe clouds it verifies against (`MapOps.keyframe_rows`:
+    in a sharded mission a collective, made only for the current keyframe
+    and the candidates' submaps, the same on every rank).  `aux`
     holds the cycle's provenance as device tensors: `loop_accepted` (2,)
     bool for [radius search, Scan Context], `loop_pair_i` / `loop_pair_j`
     (2,) the matched keyframe pair, `loop_fitness` (2,) the verification's
@@ -70,8 +77,6 @@ def make_loop_detector(cfg: Config):
 
         cur_pose = store.poses[cur_c]
         cur_stamp = store.stamps[cur_c]
-        cur_cloud = pc.Cloud(xyz=store.clouds[cur_c],
-                             mask=store.cloud_masks[cur_c])
 
         # --- RS candidate: nearest keyframe within radius, > time_diff older
         kf_mask = torch.arange(K, device=dev) < store.count
@@ -100,8 +105,10 @@ def make_loop_detector(cfg: Config):
             measured between cur->cand, info, fitness, GN iterations)."""
             submap = _submap_around(store, cand_idx, l.search_num,
                                     s.icp_submap_points,
-                                    cfg.registration.mapping_surf_leaf_size)
-            r = reg.register(cur_cloud.xyz, cur_cloud.mask, submap.xyz,
+                                    cfg.registration.mapping_surf_leaf_size,
+                                    rows)
+            cur_xyz, cur_mask = rows(store, cur_c[None])
+            r = reg.register(cur_xyz[0], cur_mask[0], submap.xyz,
                              submap.mask, init_pose, cfg.registration)
             fitness = r.mean_residual
             ok = ((fitness < l.fitness_score) & (r.num_inliers > 100)

@@ -14,6 +14,8 @@ returns -1, `lib/common_lib.cpp:38-43`; "TODO remapping",
 The JAX version's `lax.cond` on the match is one host branch here (one
 device-to-host read).  Typical use: `checkpoint.load_checkpoint`, then
 `relocalize` a fresh scan, then seed a new mission at the returned pose.
+In a sharded mission pass `runner.global_state()` (the keyframe clouds
+gathered from every rank), not a rank's `runner.state`.
 """
 
 from __future__ import annotations

@@ -19,8 +19,22 @@ asynchronously (`fetch_every`, `drain`); the archive, the mission log and
 the trajectory are fed from that queue, and so is the output bag
 (`record_bag`: odometry, gpsdata and sensor_fusion_output records).
 Checkpoints (`save_checkpoint`, `auto_checkpoint`, `Runner.resume`) use the
-JAX package's format.  Not ported: the sharded mesh (`mesh`, which needs
-more than one card); asking for it raises NotImplementedError.
+JAX package's format.
+
+With `mesh` (a `parallel/mesh.make_mesh` DeviceMesh) the mission runs
+sharded (`parallel/mission.py`): one process per device, each with a
+`Runner` of its own fed the same scans, holding its slice of the map grid
+and of the keyframe clouds.  Launch it as
+
+    torchrun --nproc-per-node=D my_mission.py
+    # in my_mission.py, on every rank:
+    mesh = make_mesh(device_type="cuda")   # NCCL from torchrun's environment
+    runner = Runner(cfg, device=f"cuda:{local_rank}", mesh=mesh)
+    for scan, imu in feed: runner.process_scan(scan, imu=imu)
+
+Every rank must make the same calls (checkpoints and map products gather
+the sharded leaves, a collective); files (mission log, output bag,
+checkpoint, save_map) are written by rank 0 only.
 
 CLI (a ROS1 bag through `io/bag_replay.py`, or the synthetic mission):
     python -m lio_slam_tpu_torch.pipeline.runner --bag X.bag \
@@ -128,17 +142,50 @@ class Runner:
         that path, one set of records per drained scan (the reference's
         saveBagFlag, mapOptmization.cpp:243-246); written at `close()`.
 
-        `mesh` mirrors the JAX Runner's sharded mission; it is not ported
-        (it needs more than one card), and anything but None raises."""
-        if mesh is not None:
-            raise NotImplementedError("not ported yet: mesh (the sharded "
-                                      "mission)")
+        `mesh`: a DeviceMesh (`parallel/mesh.make_mesh`) runs the SHARDED
+        mission (`parallel/mission.py`): the map grid and the keyframe
+        clouds are split over the mesh's ranks, so total map capacity scales
+        with its size (`cfg.registration.grid_table_size` counts buckets A
+        RANK); the full correction runs the column-sharded sparse solver
+        when `full_solver` selects the sparse backend.  Surface-only
+        incremental-map missions only.  Each rank runs its own Runner on
+        the same inputs; `global_state()` is the state in the JAX
+        package's global layout.  `device` must be the rank's mesh device
+        (`parallel/mesh.mesh_device`; "cuda" with no index stands for it)."""
         self.cfg = cfg or get_config("default")
         self.device = torch.device(device)
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            from lio_slam_tpu_torch.parallel import mesh as mesh_mod
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError("mesh must be a torch.distributed DeviceMesh "
+                                f"(parallel/mesh.make_mesh), not {type(mesh)}")
+            mdev = mesh_mod.mesh_device(mesh)
+            if (self.device.type != mdev.type
+                    or self.device.index not in (None, mdev.index)):
+                raise ValueError(
+                    f"Runner(device={str(device)!r}) is not this rank's mesh "
+                    f"device {mdev}: a CUDA rank runs on its current card "
+                    "(torch.cuda.set_device before the mesh is built)")
+            self.device = mdev
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"Runner(device={str(device)!r}) needs a CUDA device and torch "
                 'finds none; pass device="cpu" to run on the CPU')
+        self.mesh = mesh
+        self._is_writer = True        # the rank that writes files
+        sharded = None
+        if mesh is not None:
+            import torch.distributed as dist
+
+            from lio_slam_tpu_torch.parallel import mission as pmission
+
+            sharded = pmission.make_sharded_map_ops(mesh, self.cfg)
+            self._is_writer = dist.get_rank() == 0
+        # the map backend; gather / shard are identities on one device
+        self._ops = sharded or lio.default_map_ops(self.cfg, self.device)
         self.loop_every = int(loop_every)
         self.fetch_every = max(int(fetch_every), 1)
         self._auto_checkpoint = auto_checkpoint
@@ -146,15 +193,18 @@ class Runner:
         # deferred-fetch queue: (epoch stamp, mission t, mode, host copies of
         # the scan's results, the event their copies complete at)
         self._pending: list[tuple] = []
-        self.step = lio.make_lio_step(self.cfg, device=self.device)
+        self.step = lio.make_lio_step(self.cfg, ops=sharded,
+                                      device=self.device)
         self._prep = self._make_prep()
-        self.full_correct = lio.make_full_correction(self.cfg,
+        self.full_correct = lio.make_full_correction(self.cfg, ops=sharded,
                                                      device=self.device)
-        self.detector = loop_closure.make_loop_detector(self.cfg)
+        self.detector = loop_closure.make_loop_detector(
+            self.cfg, rows=self._ops.keyframe_rows)
         self.correct, self.predict_rate, self.transform_fusion = \
             fe.make_frontend(self.cfg.imu)
         self.local_map_fn, self.height_map_fn = outputs.make_local_map_fn(self.cfg)
-        self.state = lio.init_state(self.cfg, device=self.device)
+        self.state = lio.init_state(self.cfg, device=self.device,
+                                    ops=self._ops)
         self.imu_state = fe.init_state(device=self.device)
         self.gps_intake = gf.GpsIntake(self.cfg.gps)
         self.fsm = gf.PositioningModeFSM(self.cfg.gps)
@@ -162,8 +212,10 @@ class Runner:
         self.trajectory: list[np.ndarray] = []
         self.mapping_error = False
         self.keyframe_evictions = 0
-        self._mission_log = open(mission_log, "w") if mission_log else None
-        self._bag = rb.BagWriter(record_bag) if record_bag else None
+        self._mission_log = (open(mission_log, "w")
+                             if mission_log and self._is_writer else None)
+        self._bag = (rb.BagWriter(record_bag)
+                     if record_bag and self._is_writer else None)
         self._log_counts = (0, 0, 0)
         self._last_pose_dev: Optional[torch.Tensor] = None
         self._imu_ready = False
@@ -217,6 +269,13 @@ class Runner:
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
+
+    def global_state(self, grid: bool = True) -> lio.LioState:
+        """The mission state in the JAX package's global layout: with a
+        mesh, the sharded keyframe clouds (and with `grid` the map grid)
+        gathered from every rank, a collective every rank must call; else
+        the state itself."""
+        return self._ops.gather(self.state, grid=grid)
 
     def on_raw_gps(self, stamp: float, lat: float = None, lon: float = None,
                    alt: float = None, heading: float = None) -> int:
@@ -521,7 +580,13 @@ class Runner:
             fetch.update({k: loop_aux[k] for k in (
                 "loop_accepted", "loop_pair_i", "loop_pair_j", "loop_fitness")})
         if self._kf_snapshot is not None:
-            fetch.update(self._kf_snapshot(self.state))
+            snap = self._kf_snapshot(self.state)
+            if self.mesh is not None:
+                # the newest keyframe's cloud from every rank's slice
+                from lio_slam_tpu_torch.parallel import mesh as mesh_mod
+                for k in ("arch_cloud", "arch_cloud_mask"):
+                    snap[k] = mesh_mod.gather_sharded(snap[k], self.mesh)
+            fetch.update(snap)
         known = {"is_keyframe": out.is_keyframe,
                  "registration_iters": out.registration_iters}
         self._pending.append((float(scan.stamp), t, mode, known,
@@ -730,18 +795,21 @@ class Runner:
         if have_through >= next_expected:
             return                           # sidecar current (or ahead)
         if have_through < evict:
-            self._archive = arch_mod.KeyframeArchive.from_state(self.state)
+            self._archive = arch_mod.KeyframeArchive.from_state(
+                self.global_state(grid=False))
             self.archive_gaps += 1
             return
         host = lambda x: x.cpu().numpy()
         st = self.state
+        lo = have_through - evict            # first device store slot needed
         descs, poses = host(st.sc_db.descriptors), host(st.store.poses)
-        stamps, clouds = host(st.store.stamps), host(st.store.clouds)
-        masks = host(st.store.cloud_masks)
+        stamps = host(st.store.stamps)
+        clouds, masks = (host(x) for x in self._ops.keyframe_rows(
+            st.store, torch.arange(lo, count, device=self.device)))
         for gid in range(have_through, next_expected):
             i = gid - evict                  # device store slot
-            a.add(gid, poses[i], float(stamps[i]), clouds[i][masks[i]],
-                  descs[i])
+            a.add(gid, poses[i], float(stamps[i]),
+                  clouds[i - lo][masks[i - lo]], descs[i])
         a.evict_count = max(a.evict_count, evict)
 
     def _attempt_archive_loop(self, t: float):
@@ -782,7 +850,8 @@ class Runner:
             spread + 2.0 * self.cfg.keyframe.dist_threshold + 1.0,
             l.search_radius)))
         if self._archive_verify is None:
-            self._archive_verify = arch_mod.make_archive_verifier(self.cfg)
+            self._archive_verify = arch_mod.make_archive_verifier(
+                self.cfg, rows=self._ops.keyframe_rows)
         self.state, added, fit = self._archive_verify(
             self.state, self._dev(xyz), self._dev(np.arange(cap) < pts.shape[0]),
             self._dev(init), max_wander)
@@ -827,14 +896,20 @@ class Runner:
 
     def local_planning_map(self) -> pc.Cloud:
         """The map_4planning cloud around the last pose."""
-        return self.local_map_fn(self.state.store, self._current_pose())
+        return self.local_map_fn(self.global_state(grid=False).store,
+                                 self._current_pose())
 
     def height_map(self):
         """The planning map rasterized about the last pose."""
         return self.height_map_fn(self.local_planning_map(), self._current_pose())
 
     def save_map(self, destination: str, resolution: float = 0.0):
-        return outputs.save_map(self.state.store, destination, resolution)
+        """The map PCDs under `destination` (with a mesh: written by rank 0,
+        None on the other ranks)."""
+        store = self.global_state(grid=False).store
+        if not self._is_writer:
+            return None
+        return outputs.save_map(store, destination, resolution)
 
     def save_checkpoint(self, path: str):
         """The SLAM state, the IMU front-end state and the host state resume
@@ -843,9 +918,12 @@ class Runner:
         # buffered drain: at an auto-checkpoint inside process_scan a raw
         # drain() would consume the batch's newest result
         self._drain_buffered()
+        state = self.global_state()
+        if not self._is_writer:
+            return
         nan = float("nan")
         checkpoint.save_checkpoint(
-            path, self.state, self.imu_state,
+            path, state, self.imu_state,
             metadata={"scan_count": self.scan_count,
                       "t0": self._t0 if self._t0 is not None else nan,
                       "last_stamp": self._last_processed_stamp,
@@ -876,7 +954,7 @@ class Runner:
         # queued fetches belong to the discarded state
         self._pending.clear()
         self.state, imu_state, meta = checkpoint.load_checkpoint(
-            path, self.cfg, device=self.device)
+            path, self.cfg, device=self.device, ops=self._ops)
         if imu_state is not None:
             self.imu_state = imu_state
             self._imu_ready = bool(imu_state.initialized)
@@ -903,7 +981,8 @@ class Runner:
             else:
                 # no sidecar: rebuild from the live store (the evicted
                 # history is lost; base_gid marks it)
-                self._archive = arch_mod.KeyframeArchive.from_state(self.state)
+                self._archive = arch_mod.KeyframeArchive.from_state(
+                    self.global_state(grid=False))
         n = int(self.state.store.count)
         if n > 0:
             poses = self.state.store.poses[:n].cpu().numpy()

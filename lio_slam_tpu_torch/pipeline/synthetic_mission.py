@@ -75,6 +75,14 @@ HARD_KNOBS = dict(outlier_frac=0.02, n_scatter=20000, speed=2.0)
 DESKEW_SCANS = 20
 
 
+# chip_smoke.py phase 18, the sharded mission: SHARDED_SCANS scans of the
+# smoke mission's sequence, then an injected loop and at most SHARDED_TAIL
+# more scans until the full correction has run
+SHARDED_SCANS = 40
+SHARDED_TAIL = 6
+SHARDED_MAP_BUCKETS = 32768     # the mission's grid, split over the ranks
+
+
 def bag_mission_bag_kwargs() -> dict:
     """`write_synthetic_bag` arguments of the bag mission: the loop
     mission's circle (2 m/s, 0.6 rad/s, a 60 m world) as a 10 Hz lidar of
@@ -116,6 +124,20 @@ def bench_config() -> Config:
         imu=ImuConfig(imu_rate=100.0),
         registration=RegistrationConfig(corr_refresh_every=2),
         loop=LoopClosureConfig(enabled=False))
+
+
+def sharded_mission_config(n_devices: int) -> Config:
+    """`bench_config()` for the sharded mission on `n_devices` ranks: the
+    32768-bucket grid split over them (`grid_table_size` counts buckets a
+    rank) and the sparse full solver, so the correction runs the
+    column-sharded one (K=256 would pick the dense one)."""
+    base = bench_config()
+    return dataclasses.replace(
+        base,
+        static=dataclasses.replace(base.static, full_solver="sparse"),
+        registration=dataclasses.replace(
+            base.registration,
+            grid_table_size=SHARDED_MAP_BUCKETS // n_devices))
 
 
 def loop_mission_config() -> Config:

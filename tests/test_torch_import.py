@@ -103,6 +103,57 @@ def test_replay_and_preintegration_modules_import_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_parallel_modules_import_no_jax():
+    """The sharded mission's modules by name, each at its JAX counterpart's
+    path; the spawned ranks' worker module imports no jax either."""
+    mods = ("mesh", "registration", "sparse", "graph", "mission")
+    out = _imports_no_jax(tuple(f"parallel.{m}" for m in mods))
+    assert out.returncode == 0, out.stderr
+    for m in mods:
+        for pkg in ("lio_slam_tpu", "lio_slam_tpu_torch"):
+            assert os.path.exists(os.path.join(ROOT, pkg, "parallel",
+                                               f"{m}.py")), (pkg, m)
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import torch_dist_workers; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'triton', 'lio_slam_tpu')]; "
+            "assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_sharded_mission_fixture_matches_its_configuration():
+    """The JAX Runner's sharded missions on a mesh of 1 and of 2 devices
+    (chip_smoke.py phase 18): bench.py's widths with the sparse full
+    solver and the 32768-bucket grid split over the devices; 40 scans, then
+    the injected loop's scans until the correction."""
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    f = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                             "sharded_mission_jax.npz"))
+    base = sm.bench_config()
+    for D in (1, 2):
+        cfg = sm.sharded_mission_config(D)
+        assert cfg.static.full_solver == "sparse"
+        assert cfg.registration.grid_table_size == 32768 // D
+        assert dataclasses.replace(
+            cfg, static=base.static,
+            registration=dataclasses.replace(
+                cfg.registration,
+                grid_table_size=base.registration.grid_table_size)) == base
+        n = f[f"d{D}_poses"].shape[0]
+        corrected = int(f[f"d{D}_correction_scan"])
+        assert sm.SHARDED_SCANS <= corrected == n - 1 < \
+            sm.SHARDED_SCANS + sm.SHARDED_TAIL
+        assert f[f"d{D}_poses"].shape == (n, 6)
+        assert f[f"d{D}_is_keyframe"].shape == (n,)
+        assert f[f"d{D}_registration_iters"].shape == (n,)
+        assert f[f"d{D}_rows"].shape == (D,)
+        assert int(f[f"d{D}_keyframes"]) == int(f[f"d{D}_keyframes_before"]) + 1
+
+
 def test_hard_replay_fixture_matches_its_configuration():
     """The recorded JAX replay of the hard tier: the "default" preset at
     tools/rig_ate_table.py's widths, 60 scans of the hard world (2 %

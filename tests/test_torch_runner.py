@@ -162,10 +162,12 @@ def test_step_from_carried_state():
 
 
 def test_unported_features_refused(tmp_path):
-    """Only the sharded mesh is still refused, by name; bag recording, the
-    keyframe archive, batched fetches, checkpoints, the mission log, the
-    LOAM corner path, the rebuild-mode local map and the brute-force k-NN
-    are ported, so their configs build as they are."""
+    """Nothing is refused any more: bag recording, the keyframe archive,
+    batched fetches, checkpoints, the mission log, the LOAM corner path, the
+    rebuild-mode local map and the brute-force k-NN are ported, so their
+    configs build as they are; the sharded mesh is ported too
+    (tests/test_torch_sharded_mission.py), and a `mesh` that is not a
+    DeviceMesh raises a TypeError naming it."""
     cfg = small_config(port_config)
     reg = port_config.RegistrationConfig
     for kw in (dict(use_corner_features=True),
@@ -180,9 +182,9 @@ def test_unported_features_refused(tmp_path):
     assert recording._bag is not None
     recording.close()
     assert os.path.exists(tmp_path / "out.bag") and recording._bag is None
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         Runner(cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         Runner(cfg, device="cpu", record_bag=str(tmp_path / "b.bag"),
                mesh=object())
     # the default loop configuration has the keyframe archive on

@@ -249,3 +249,101 @@ def assert_runs_match(port: MissionRun, ref: MissionRun,
     assert int(port.runner.state.store.count) == int(ref.runner.state.store.count)
     assert int(port.runner.state.evict_count) == int(ref.runner.state.evict_count)
     assert port.runner.keyframe_evictions == ref.runner.keyframe_evictions
+
+
+# ---- the sharded tests' ranks (tests/torch_dist_workers.py) ----
+
+class RankRun:
+    """Rank processes started by `spawn_ranks`; `results()` waits for them
+    (at most until the deadline) and returns each rank's results."""
+
+    def __init__(self, procs, workdir, world, deadline_s):
+        self.procs, self.workdir, self.world = procs, workdir, world
+        self.deadline = __import__("time").monotonic() + deadline_s
+        self._results = None
+
+    def _logs(self) -> str:
+        import os
+
+        out = []
+        for r in range(self.world):
+            path = os.path.join(self.workdir, f"rank{r}.log")
+            with open(path, errors="replace") as f:
+                out.append(f"--- rank {r} ---\n" + f.read()[-4000:])
+        return "\n".join(out)
+
+    def _kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs:
+            p.wait()
+
+    def close(self):
+        """Kill the ranks still running (a module fixture's teardown)."""
+        self._kill()
+
+    def results(self) -> list:
+        """[rank 0's {case: results}, rank 1's, ...].  A rank that fails
+        ends the others at once (a rank waiting in a collective would
+        otherwise wait out its timeout); past the deadline every rank is
+        killed.  Either way the ranks' output is in the raised error."""
+        import os
+        import pickle
+        import time
+
+        if self._results is not None:
+            return self._results
+        while True:
+            codes = [p.poll() for p in self.procs]
+            if any(c not in (None, 0) for c in codes):
+                self._kill()
+                raise AssertionError(f"a rank failed (exit codes {codes}):\n"
+                                     + self._logs())
+            if all(c == 0 for c in codes):
+                break
+            if time.monotonic() > self.deadline:
+                self._kill()
+                raise AssertionError("the ranks passed their deadline and "
+                                     "were killed:\n" + self._logs())
+            time.sleep(0.05)
+        self._results = []
+        for r in range(self.world):
+            with open(os.path.join(self.workdir, f"result_{r}.pkl"), "rb") as f:
+                self._results.append(pickle.load(f))
+        return self._results
+
+
+def spawn_ranks(world: int, workdir, cases: list,
+                deadline_s: float = 120.0) -> RankRun:
+    """Start `world` gloo ranks of tests/torch_dist_workers.py in `workdir`
+    (a fresh directory: the rendezvous is a FileStore there, not a TCP
+    port) running `cases`, a list of (name, mesh shape, keyword
+    arguments); returns at once.  The ranks import torch and the port
+    only."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    workdir = str(workdir)
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "cases.pkl"), "wb") as f:
+        pickle.dump(cases, f)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = os.path.join(root, "tests", "torch_dist_workers.py")
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(workdir, f"rank{r}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, worker, "--rank", str(r), "--world", str(world),
+             "--dir", workdir], cwd=root, env=env, stdout=log,
+            stderr=subprocess.STDOUT))
+        log.close()
+    return RankRun(procs, workdir, world, deadline_s)
+
+
+def rank_results(run: RankRun, case: str) -> list:
+    """Every rank's results of `case`."""
+    return [res[case] for res in run.results()]

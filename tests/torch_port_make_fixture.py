@@ -56,6 +56,17 @@ CPU over exactly those missions and saves what the smoke run compares:
   ATEs of the deskew mission (`deskew_mission_inputs()`) replayed with its
   point times and with zeros.
 
+- `sharded_mission_jax.npz`: the JAX `Runner` with a mesh of 1 and of 2
+  virtual CPU devices (`make_mesh(D)`, keys prefixed `d1_` / `d2_`) over
+  the sharded mission of chip_smoke.py phase 18
+  (`sharded_mission_config(D)`: bench.py's widths, 32768 buckets split
+  over the devices, the sparse full solver): 40 scans of the smoke
+  mission's sequence with its IMU windows, then a loop constraint injected
+  between the newest keyframe and keyframe 0 (information 1e2) and scans
+  fed until the full correction has run: per-scan poses, keyframe flags and
+  GN iterations, the keyframe count before and after, the scan of the
+  correction, and each device's rows in use at the end.
+
 On the CPU the JAX registration takes its unfused path, which finds fresh
 correspondences at every GN iteration whatever `corr_refresh_every` says
 (`registration._maybe_fused` returns None there).  The mission runs
@@ -64,9 +75,10 @@ path it takes off the CPU, with the Pallas kernel in interpret mode and the
 candidate block held between refreshes, as the port does.
 
 Run by hand from the repository root (`smoke`, `loop`, `archive`, `bag`,
-`corner`, `hard`, or all six when no argument is given):
+`corner`, `hard`, `sharded`, or all seven when no argument is given):
 
-    python tests/torch_port_make_fixture.py [smoke|loop|archive|bag|corner|hard]
+    python tests/torch_port_make_fixture.py \
+        [smoke|loop|archive|bag|corner|hard|sharded]
 
 It is not a test (pytest does not collect it).
 """
@@ -79,6 +91,11 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+# two virtual CPU devices for the sharded mission's 2-device mesh
+flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in flags:
+    os.environ["XLA_FLAGS"] = flags + " --xla_force_host_platform_device_count=2"
 
 import jax  # noqa: E402
 
@@ -105,6 +122,7 @@ BAG_OUT = os.path.join(FIXTURES, "bag_mission_jax.npz")
 CORNER_OUT = os.path.join(FIXTURES, "corner_mission_jax.npz")
 REBUILD_OUT = os.path.join(FIXTURES, "rebuild_mission_jax.npz")
 HARD_OUT = os.path.join(FIXTURES, "hard_replay_jax.npz")
+SHARDED_OUT = os.path.join(FIXTURES, "sharded_mission_jax.npz")
 
 
 def count_iterations(runner):
@@ -572,10 +590,69 @@ def hard_replay():
           f"without, {time.time() - t1:.1f} s")
 
 
+def sharded_mission():
+    """The JAX `Runner` with a mesh of 1 and of 2 devices over the sharded
+    mission; writes SHARDED_OUT."""
+    from lio_slam_tpu.parallel import mesh as jax_mesh
+
+    seq = synthetic.make_sequence(n_scans=sm.SHARDED_SCANS + sm.SHARDED_TAIL,
+                                  n_points=sm.SMOKE_POINTS, seed=sm.SMOKE_SEED,
+                                  speed=sm.SMOKE_SPEED)
+    out = {}
+    for D in (1, 2):
+        t0 = time.time()
+        cfg = to_jax_config(sm.sharded_mission_config(D), jax_config)
+        scans, imus = sm.synthetic_inputs(seq, sm.sharded_mission_config(D))
+        runner = Runner(cfg, mesh=jax_mesh.make_mesh(D))
+        iters = count_iterations(runner)
+        corrected = []
+        full_correct = runner.full_correct
+
+        def watching_correct(state):
+            if bool(state.needs_full_solve):
+                corrected.append(runner.scan_count)
+            return full_correct(state)
+
+        runner.full_correct = watching_correct
+        results = [runner.process_scan(scans[i], imu=imus[i])
+                   for i in range(sm.SHARDED_SCANS)]
+        st = runner.state
+        n_kf = int(st.store.count)
+        meas = np.asarray(jse3.pose6_between(st.store.poses[n_kf - 1],
+                                             st.store.poses[0]))
+        if not runner.inject_loop_constraint(n_kf - 1, 0, meas,
+                                             np.full(6, 1e2, np.float32)):
+            raise RuntimeError("the injected loop was refused")
+        i = sm.SHARDED_SCANS
+        while not corrected and i < len(scans):
+            results.append(runner.process_scan(scans[i], imu=imus[i]))
+            i += 1
+        if not corrected:
+            raise RuntimeError("no full correction after the injected loop")
+        T = cfg.registration.grid_table_size
+        rows = np.asarray(runner.state.map_grid.counts).reshape(D, T).sum(1)
+        out.update({
+            f"d{D}_poses": np.stack([r.pose for r in results]).astype(
+                np.float32),
+            f"d{D}_is_keyframe": np.array([r.is_keyframe for r in results]),
+            f"d{D}_registration_iters": np.array(iters, np.int32),
+            f"d{D}_keyframes_before": np.int32(n_kf),
+            f"d{D}_keyframes": np.int32(int(runner.state.store.count)),
+            f"d{D}_correction_scan": np.int32(corrected[0]),
+            f"d{D}_rows": rows.astype(np.int64)})
+        print(f"sharded mission on {D} device(s): {len(results)} scans, "
+              f"{n_kf} -> {int(runner.state.store.count)} keyframes, full "
+              f"correction at scan {corrected[0]}, rows a device "
+              f"{rows.tolist()}, {sum(iters)} GN iterations, "
+              f"{time.time() - t0:.1f} s")
+    np.savez(SHARDED_OUT, **out)
+    print(f"wrote {SHARDED_OUT}")
+
+
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("smoke", "loop", "archive", "bag", "corner", "hard",
-                     "all"):
+                     "sharded", "all"):
         sys.exit(__doc__)
     jreg._maybe_fused = jax_fused_interpret
     if which in ("smoke", "all"):
@@ -591,6 +668,8 @@ def main():
         corner_missions()
     if which in ("hard", "all"):
         hard_replay()
+    if which in ("sharded", "all"):
+        sharded_mission()
 
 
 if __name__ == "__main__":

@@ -166,6 +166,41 @@ ms a scan beside those of the sequential form.
    5-39, the mapping step's host and device ms a scan and the collectives'
    calls and ms a scan (torch.profiler over scans 40-41), the correction's
    ms and the solver's.
+19. Device-resident replay programs (`pipeline/replay.py`), each scan two
+   captured CUDA graphs: (a) bench.py part 1b's inputs (`bench_config()`,
+   120 scans of 32768 points, 64-sample IMU windows) through
+   `make_pipeline_replay(loop_every=10)` and through `HostDrivenReplay` in
+   the same process: GN iterations and degenerate flags equal to the
+   host-driven replay's, poses within 1e-5 m of them (the same bits are
+   expected); against fixtures/pipeline_replay_jax.npz (the JAX monolith
+   on the same inputs, their sha256 checked first) poses within 0.02 m /
+   0.1 deg, the degenerate flags equal, the drift under bench.py's 3 m;
+   then the graphs again with the reference's IMU front-end state carried
+   into each scan, as phase 4 holds the mission: GN iterations as phase 16
+   holds them, with both packages' GN traces printed at each scan that
+   differs (the port's from the eager replay carried the same way, which
+   must give the graphs' iterations and poses; the reference's from the
+   fixture), poses within 0.02 m / 0.1 deg; the kernel on the
+   arguments of one launch tapped inside graph (a)
+   against its plain version (phase 12's tolerances with the float64
+   arbiter), and graph (a)'s own results of that launch too.  (b) The loop
+   mission's circle (`loop_mission_config()`, 130 scans, no GPS in a
+   replay) through `ChunkedReplay(loop_every=10)`, held to
+   fixtures/loop_replay_jax.npz (the JAX `ChunkedReplay`): the loop count
+   after each chunk and the scans of the full corrections equal, poses
+   within 0.05 m / 0.25 deg up to the first correction and 0.5 m / 2 deg
+   after.  Both replays run under `torch.cuda.set_sync_debug_mode("error")`,
+   off only inside the cadence calls (the detector and the full
+   correction): a synchronization elsewhere fails the phase.  The kernel
+   launches counted over each timed run (a graph's count at each of its
+   replays) must be 30 a scan plus the loop verifications' GN iterations.
+   Prints the capture time, scans/s over scans 5-119 of the graphs and of
+   the host-driven replay, from a profiled 5-scan chunk the device ms a
+   scan, the idle share and the fused_corr launches a scan (30 by
+   design, counted and in the profile), and what the dead GN passes and
+   the masked keyframe saves cost a scan (the mapping step captured alone
+   at 30 passes and at the mean rounded up; with the keyframe gate forced
+   down, with and without the save).
 Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line describing the
@@ -2286,11 +2321,12 @@ def hard_replay_phase():
 
 
 def gn_tracing(hd, traces):
-    """Wrap `hd.step` and `registration._gn_loop` (the fused path without
-    candidate refresh) so that `traces` gets a list for each scan and each
-    GN loop of that scan appends its trace to it: the (pose, inliers) each
-    iteration starts from, then (final pose, -1), left on the device until
-    read.  Returns the functions that undo the wrapping."""
+    """Wrap `hd.step` and `registration._gn_loop` (the fused path, with or
+    without the bucket-id refresh) so that `traces` gets a list for each
+    scan and each GN loop of that scan appends its trace to it: the (pose,
+    inliers) each iteration starts from, then (final pose, -1), left on
+    the device until read.  Returns the functions that undo the
+    wrapping."""
     from lio_slam_tpu_torch.ops import registration as reg
 
     def per_scan(step):
@@ -2302,11 +2338,19 @@ def gn_tracing(hd, traces):
     def tracing(gn_loop):
         def wrapped(*a, ne_fn=None, **k):
             trace = []
+            if isinstance(ne_fn, tuple):    # bucket ids held across passes
+                bucket_fn, from_ids_fn, refresh = ne_fn
 
-            def noting(pose):
-                ne = ne_fn(pose)
-                trace.append((pose, ne[2]))
-                return ne
+                def from_ids_noting(hh, pose):
+                    ne = from_ids_fn(hh, pose)
+                    trace.append((pose, ne[2]))
+                    return ne
+                noting = (bucket_fn, from_ids_noting, refresh)
+            else:
+                def noting(pose):
+                    ne = ne_fn(pose)
+                    trace.append((pose, ne[2]))
+                    return ne
 
             res = gn_loop(*a, ne_fn=noting, **k)
             trace.append((res.pose, -1))
@@ -2935,6 +2979,625 @@ def sharded_phase():
               f"{time.perf_counter() - t0:.1f} s wall", flush=True)
 
 
+# ---- phase 19: the device-resident replay programs as CUDA graphs ----
+
+PIPELINE_TAP_PASS = 1   # GN pass whose kernel launch phase 19 taps in graph (a)
+PROFILED_SCANS = 5      # scans of phase 19's profiled chunk (20 on)
+
+
+def step_clock(label):
+    """`mark(step)` prints the host seconds since the previous mark (or
+    since this call), so a phase shows where its wall time went."""
+    last = [time.perf_counter()]
+
+    def mark(step):
+        now = time.perf_counter()
+        print(f"{label}: {step} {now - last[0]:.1f} s", flush=True)
+        last[0] = now
+    return mark
+
+
+def graph_tap(at, store):
+    """A `run_wrapped` wrapper for the kernel's wrapper: at its call number
+    `at` (counted from 0 by the wrapper itself), copies of the arguments and
+    of the five results appended to `store`.  Called while a CUDA graph is
+    captured, the copies are nodes of that graph, so after each replay they
+    hold what that launch saw and wrote there."""
+    import torch
+
+    calls = [0]
+
+    def wrap(kernel):
+        def wrapped(*a, **k):
+            out = kernel(*a, **k)
+            if calls[0] == at:
+                store.append(([x.clone() if isinstance(x, torch.Tensor) else x
+                               for x in a], dict(k),
+                              [x.clone() for x in out]))
+            calls[0] += 1
+            return out
+        return wrapped
+    return wrap
+
+
+def sync_free(run):
+    """Wrap `run.detector` and `run.full_correct` (the cadence calls, whose
+    work is sized on the host) so that the sync debug mode is off inside
+    them and as it was after; returns the undo functions."""
+    import torch
+
+    def quiet(fn):
+        def wrapped(*a, **k):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return wrapped
+
+    return [run_wrapped(run, "detector", quiet),
+            run_wrapped(run, "full_correct", quiet)]
+
+
+def no_sync(fn, *a):
+    """`fn(*a)` with `torch.cuda.set_sync_debug_mode("error")`: a read of
+    the card from the host (outside the cadence calls, see `sync_free`)
+    fails the phase."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*a)
+    except RuntimeError as exc:
+        fail(f"a device synchronization inside a replay: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def scan_events(prog):
+    """Wrap `prog.finish_scan` so that a CUDA event is recorded after each
+    scan (no wait); returns (events, undo)."""
+    import torch
+
+    events = []
+
+    def wrap(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            return out
+        return wrapped
+    return events, run_wrapped(prog, "finish_scan", wrap)
+
+
+def steady_rate(events, first, last):
+    """Scans a second between the ends of scans `first` and `last`."""
+    events[last].synchronize()
+    return (last - first) / (1e-3 * events[first].elapsed_time(events[last]))
+
+
+def graph_ms(fn, reps=20):
+    """ms of one replay of `fn` captured as a CUDA graph: CUDA events
+    around `reps` back-to-back replays, after a warm-up on the capture
+    stream.  A graph of tiny kernels takes their durations and the gaps
+    between its nodes, as the replay's own graphs do."""
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fc.prepare_stream(torch.device("cuda", torch.cuda.current_device()))
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0 = fc.CAPTURED_LAUNCHES
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    held = fc.CAPTURED_LAUNCHES - n0
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    fc.KERNEL_LAUNCHES += held * (reps + 1)
+    return a.elapsed_time(b) / reps
+
+
+def resident_costs(run, batch, state, fes, iters, is_kf_share):
+    """What the resident design costs a scan, measured on the program
+    itself: `make_lio_step(resident=True)` captured as a CUDA graph on the
+    replay's final state and its last scan, each variant timed by
+    `graph_ms`.  The dead GN passes: the step at `max_iterations` against
+    the step at the mean iterations rounded up, per pass, times
+    (max_iterations - mean iterations).  The masked keyframe save: the step
+    with the keyframe gate forced down against the same step with the save
+    left out, times the share of scans that are no keyframe.  Returns (ms
+    a pass, ms of one masked save, the dead passes' ms a scan, the masked
+    saves' ms a scan)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.pipeline import lio
+    from lio_slam_tpu_torch.pipeline import replay
+
+    cfg = run.cfg
+    r = cfg.registration
+    R = r.max_iterations
+    s = replay.ReplayBatch(*(a[-1] for a in batch))
+    sin, _, _ = replay.prep_predict(cfg, run.program.predict_rate, fes, s)
+
+    def step_ms(max_iterations):
+        c = dataclasses.replace(cfg, registration=dataclasses.replace(
+            r, max_iterations=max_iterations))
+        step = lio.make_lio_step(c, device=run.device, resident=True)
+        return graph_ms(lambda: step(state, sin))
+
+    mean = float(np.mean(iters))
+    m = min(R, math.ceil(mean))
+    full = step_ms(R)
+    pass_ms = (full - step_ms(m)) / (R - m) if m < R else 0.0
+    no = torch.zeros((), dtype=torch.bool, device=run.device)
+    restore = [run_wrapped(lio.kf, "should_add_keyframe",
+                           lambda fn: lambda *a, **k: no)]
+    try:
+        gated = step_ms(R)
+        restore.append(run_wrapped(lio, "_save_keyframe",
+                                   lambda fn: lambda st, *a, **k: st))
+        save_ms = gated - step_ms(R)
+    finally:
+        for undo in reversed(restore):
+            undo()
+    return pass_ms, save_ms, pass_ms * (R - mean), save_ms * (1.0 - is_kf_share)
+
+
+def watched_detector(run, cycles):
+    """Wrap `run.detector` so that each cycle's aux lands in `cycles`;
+    returns the undo function."""
+    def watching(detector):
+        def wrapped(state):
+            state, aux = detector(state)
+            cycles.append(aux)
+            return state, aux
+        return wrapped
+    return run_wrapped(run, "detector", watching)
+
+
+def check_replay_launches(label, launches, n_scans, R, cycles):
+    """The kernel launches counted over a resident replay's run, held to
+    R a scan (every GN pass of the graph launches the kernel) plus the GN
+    iterations of the cadence calls' loop verifications.  Returns (the
+    verification launches, the failures)."""
+    verify = sum(sum(c["loop_iters"]) for c in cycles)
+    want = R * n_scans + verify
+    print(f"{label}: kernel launches in the run {launches} = {R} x {n_scans} "
+          f"scans from the graphs + {verify} of loop verification "
+          f"(expected {want})", flush=True)
+    if launches != want:
+        return verify, [f"{label}: {launches} kernel launches, {want} "
+                        "expected"]
+    return verify, []
+
+
+def pipeline_replay_phase():
+    """Phase 19 (a): bench.py part 1b's inputs (`bench_config()`, 120 scans
+    of 32768 points, 64-sample IMU windows) through
+    `make_pipeline_replay(loop_every=10)`, each scan two CUDA graphs, and
+    through `HostDrivenReplay` in the same process.  Returns (the kernel
+    launches of the timed run, counted as the graphs replay them, the
+    fused_corr kernels the profiler saw in a replayed 5-scan chunk, the
+    kernel check's largest difference)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import replay
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    label = "pipeline replay"
+    mark = step_clock(label)
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "pipeline_replay_jax.npz"))
+    cfg = sm.bench_config()
+    seq, batch = sm.pipeline_replay_inputs()
+    digest = sm.batch_sha256(batch)
+    print(f"{label}: {sm.PIPELINE_REPLAY_SCANS} scans of {sm.SMOKE_POINTS} "
+          f"points, sha256 {digest} (the reference replayed "
+          f"{fixture['batch_sha256']})", flush=True)
+    if digest != str(fixture["batch_sha256"]):
+        fail(f"{label}: the inputs differ from those the reference replayed")
+
+    # the eager replay, on the same inputs
+    hd = replay.HostDrivenReplay(cfg, loop_every=sm.LOOP_EVERY)
+    scans = hd.split(batch)
+    hd_events = []
+
+    def after_fusion(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            hd_events.append(ev)
+            return out
+        return wrapped
+
+    undo = run_wrapped(hd, "transform_fusion", after_fusion)
+    try:
+        mark("inputs made and staged")
+        _, _, eager = hd.run(*hd.init(), scans)
+    finally:
+        undo()
+    hd_rate = steady_rate(hd_events, 4, len(hd_events) - 1)
+    mark("host-driven replay")
+
+    run = replay.make_pipeline_replay(cfg, loop_every=sm.LOOP_EVERY)
+    if run.device.type != "cuda":
+        fail(f"make_pipeline_replay(cfg) chose {run.device}, not the card")
+    staged = run.stage(batch)
+    tapped = []
+    R = cfg.registration.max_iterations
+    # the wrapper is called 2 x R times in the warm-up, then R times in the
+    # capture of graph (a): tap pass PIPELINE_TAP_PASS of the capture
+    undo = run_wrapped(fc, "fused_ne_from_bucket_ids",
+                       graph_tap(2 * R + PIPELINE_TAP_PASS, tapped))
+    try:
+        state, fes = run.init()
+        run.capture(state, fes, staged)
+    finally:
+        undo()
+    mark("capture")
+    events, undo_ev = scan_events(run.program)
+    cycles = []
+    restore = sync_free(run) + [undo_ev, watched_detector(run, cycles)]
+    try:
+        state, fes = run.init()
+        t0 = time.perf_counter()
+        fc.KERNEL_LAUNCHES = 0
+        state, fes, outs = no_sync(run, state, fes, staged)
+        launches = fc.KERNEL_LAUNCHES
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        for undo in reversed(restore):
+            undo()
+    graph_rate = steady_rate(events, 4, len(events) - 1)
+    mark("graph replay")
+
+    poses = outs.poses.cpu().numpy()
+    iters = outs.iters.cpu().numpy()
+    degen = outs.degenerate.cpu().numpy()
+    e_poses = eager.poses.cpu().numpy()
+    truth = sm.relative_truth(seq)
+    drift = float(np.linalg.norm(poses[-1, 3:] - truth[-1, 3:]))
+    print(f"{label} ({SMI}): capture {run.capture_seconds:.3f} s (warm-up "
+          f"included); {len(poses)} scans in {elapsed:.3f} s; scans "
+          f"5-{len(poses) - 1} {graph_rate:.3f} scans/s as CUDA graphs, "
+          f"{hd_rate:.3f} scans/s "
+          f"host-driven (the same process); GN iterations {int(iters.sum())} "
+          f"(host-driven {int(eager.iters.sum())}, JAX "
+          f"{int(fixture['registration_iters'].sum())}); drift {drift:.4f} m "
+          f"(JAX {float(fixture['drift_m']):.4f} m, bench.py's limit 3 m); "
+          f"keyframes {int(state.store.count)} (JAX "
+          f"{int(fixture['keyframes'])}); fused_corr nodes of graphs (a), "
+          f"(b): {run.program.graph_launches}", flush=True)
+    _, failures = check_replay_launches(label, launches, len(outs.iters), R,
+                                        cycles)
+    if not np.isfinite(poses).all():
+        failures.append(f"{label}: non-finite poses")
+    if not np.array_equal(iters, eager.iters.cpu().numpy()):
+        failures.append(f"{label}: GN iterations differ from the host-driven "
+                        f"replay at scans "
+                        f"{np.nonzero(iters != eager.iters.cpu().numpy())[0].tolist()}")
+    if not np.array_equal(degen, eager.degenerate.cpu().numpy()):
+        failures.append(f"{label}: degenerate flags differ from the "
+                        "host-driven replay")
+    d_hd = float(np.abs(poses - e_poses).max())
+    print(f"{label}: poses "
+          f"{'bit-equal to' if d_hd == 0 else f'within {d_hd:.3e} of'} the "
+          f"host-driven replay's; TransformFusion within "
+          f"{float(np.abs(outs.fused_last.cpu().numpy() - eager.fused_last.cpu().numpy()).max()):.3e}",
+          flush=True)
+    if d_hd > 1e-5:
+        failures.append(f"{label}: poses {d_hd} from the host-driven replay's")
+    d_it = iters - fixture["registration_iters"]
+    print(f"{label}, free-running: GN iterations differ from JAX's at "
+          f"{np.count_nonzero(d_it)} scans, by up to {np.abs(d_it).max()} "
+          f"(sums {int(iters.sum())} / "
+          f"{int(fixture['registration_iters'].sum())}); held below with the "
+          f"reference's IMU state carried in, as phase 4 holds the mission",
+          flush=True)
+    if (degen != fixture["degenerate"]).any():
+        failures.append(f"{label}: degenerate flags differ from JAX's")
+    failures += deviation_spans(label, poses, fixture["poses"], (
+        ("whole replay", slice(None), MAX_DEV_M, MAX_DEV_RAD),))
+    if not drift <= 3.0:
+        failures.append(f"{label}: drift {drift} m")
+    if not tapped:
+        failures.append(f"{label}: no launch tapped in the capture")
+    if failures:
+        fail("; ".join(failures))
+
+    carried_pipeline_replay(run, staged, fixture, hd, scans)
+    mark("carried graph replay")
+
+    # the kernel on the arguments of a launch inside graph (a), as the last
+    # replayed scan left them; and the graph's own results of that launch
+    args, kw, graph_out = tapped[0]
+    err = bag_kernel_check(f"{label} graph (a), pass {PIPELINE_TAP_PASS} of "
+                           "the last scan", (args, kw))
+    check_ne(f"{label} graph (a)'s own results of that launch", graph_out,
+             fc.fused_ne_from_bucket_ids_ref(*args, **kw))
+    mark("kernel checks")
+
+    # a profiled chunk: scans 20-24 after a replay of scans 0-19
+    part = lambda lo, hi: replay.ReplayBatch(*(a[lo:hi] for a in staged))
+    restore = sync_free(run)
+    try:
+        st, fs, o = run(*run.init(), part(0, 20))
+        last = o.poses[-1].clone()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fc.KERNEL_LAUNCHES = 0
+            run(st, fs, part(20, 20 + PROFILED_SCANS), last)
+            counted = fc.KERNEL_LAUNCHES
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for undo in reversed(restore):
+            undo()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    busy = device_busy_ms(prof)
+    fused = sum(e.count for e in rows if "fused_corr" in e.key)
+    n_dev = sum(e.count for e in rows)
+    # no keyframe is evicted at K=256: the store holds every keyframe saved
+    mark("profiled chunk")
+    pass_ms, save_ms, dead_ms, masked_ms = resident_costs(
+        run, staged, state, fes, iters, int(state.store.count) / len(iters))
+    n = PROFILED_SCANS
+    print(f"{label} profiled chunk, scans 20-{19 + n} ({SMI}): device "
+          f"{busy / n:.3f} ms a scan, busy {busy:.3f} ms of {wall_ms:.3f} ms "
+          f"wall (idle share {1.0 - busy / wall_ms:.3f}); {n_dev / n:.1f} "
+          f"device kernels and copies a scan; fused_corr launches {fused} "
+          f"({fused / n:.1f} a scan, {R} by design; {counted} counted); "
+          f"unprofiled, the graphs "
+          f"ran scans 5-119 at {1e3 / graph_rate:.3f} ms a scan, "
+          f"{busy / n:.3f} ms of it busy (idle share "
+          f"{1.0 - busy / n * graph_rate / 1e3:.3f}); one resident GN pass "
+          f"{pass_ms:.3f} ms as a graph, the dead passes {dead_ms:.3f} ms a "
+          f"scan ({R} - {float(np.mean(iters)):.2f} mean iterations); one "
+          f"masked keyframe save {save_ms:.3f} ms as a graph, {masked_ms:.3f} "
+          f"ms a scan on the scans that are no keyframe (the mapping step "
+          f"captured alone on the final state: at {R} against "
+          f"{math.ceil(float(np.mean(iters)))} passes; gate forced down, "
+          f"with and without the save)", flush=True)
+    mark("pass and save costs")
+    # the profiler may drop up to 5 % of its device records late in a long
+    # process (as `device_ms` allows); the count itself must be exact
+    if counted != R * n or not 0.95 * counted <= fused <= counted:
+        fail(f"{label}: {counted} fused_corr launches counted over the "
+             f"chunk and {fused} in the profile, {R * n} by design")
+    return launches, fused, err
+
+
+def carried_pipeline_replay(run, staged, fixture, hd, scans):
+    """Phase 19 (a) again on the captured graphs, each scan starting from
+    the JAX front-end's state before it (recorded in the fixture): the
+    mapping path alone against the reference, without the reference's
+    float32 error in its first covariance update.  The GN iterations as
+    `iteration_parting` holds them (within CARRIED_MAX_ITER_DIFF a scan,
+    sums no further apart than the scans that differ), the degenerate flags
+    equal, the poses within the mapping limits (0.02 m, 0.1 deg: each
+    parting moves its scan's pose by up to a threshold step, and that
+    carries into the map and later guesses; phase 16's carried 1e-3 m is
+    too tight here, the card parts by about 2.3e-3 m).
+    The same carried run through the eager `HostDrivenReplay` `hd` must
+    give the graphs' iterations and poses; its GN traces are what
+    `iteration_parting` prints beside the reference's at each scan that
+    differs (a graph cannot call back to the host)."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.pipeline import replay
+
+    label = "pipeline replay, carried IMU state"
+    prog = run.program
+    ref_fes = [fixture_imu_state(fixture, i, run.device)
+               for i in range(len(fixture["poses"]))]
+
+    def substituting(map_scan):
+        def wrapped(batch, i):
+            replay._copy_into(prog.fes, ref_fes[i])
+            return map_scan(batch, i)
+        return wrapped
+
+    restore = sync_free(run) + [run_wrapped(prog, "map_scan", substituting)]
+    try:
+        _, _, outs = no_sync(run, *run.init(), staged)
+        torch.cuda.synchronize()
+    finally:
+        for undo in reversed(restore):
+            undo()
+
+    def reference_state(fn):
+        """Calls of `fn(fes, ...)` take the reference's state of scan k on
+        their k-th call."""
+        calls = iter(range(len(scans)))
+
+        def wrapped(fes, *a, **k):
+            return fn(ref_fes[next(calls)], *a, **k)
+        return wrapped
+
+    traces = []
+    restore = [run_wrapped(hd, "_prep_predict", reference_state),
+               run_wrapped(hd, "correct", reference_state)]
+    restore += gn_tracing(hd, traces)
+    try:
+        _, _, eager = hd.run(*hd.init(), scans)
+    finally:
+        for undo in reversed(restore):
+            undo()
+    poses = outs.poses.cpu().numpy()
+    iters = outs.iters.cpu().numpy()
+    degen = outs.degenerate.cpu().numpy()
+    d_eager = float(np.abs(poses - eager.poses.cpu().numpy()).max())
+    dev_t = float(np.abs(poses[:, 3:] - fixture["poses"][:, 3:]).max())
+    dev_r = float(np.abs(poses[:, :3] - fixture["poses"][:, :3]).max())
+    print(f"{label}: max deviation {dev_t:.3e} m, {math.degrees(dev_r):.3e} "
+          f"deg; degenerate flags differ at "
+          f"{np.nonzero(degen != fixture['degenerate'])[0].tolist()}; the "
+          f"eager replay carried the same way within {d_eager:.3e} of the "
+          f"graphs", flush=True)
+    failures = []
+    if not np.array_equal(iters, eager.iters.cpu().numpy()) or d_eager > 1e-5:
+        failures.append("the eager carried replay parts from the graphs'")
+    failures += iteration_parting(label, iters, traces, fixture, hd.cfg)
+    parting_summary(label, iters, traces, fixture, hd.cfg)
+    if (degen != fixture["degenerate"]).any():
+        failures.append("degenerate flags differ")
+    if dev_t > MAX_DEV_M or dev_r > MAX_DEV_RAD:
+        failures.append(f"deviation {dev_t} m / {dev_r} rad")
+    if failures:
+        fail(f"{label}: " + "; ".join(failures))
+
+
+def parting_summary(label, iters, traces, fixture, cfg):
+    """At each scan whose GN iterations differ from the reference's, both
+    packages' step at the last pass of the shorter run, over the
+    convergence thresholds (`gn_steps`): the shorter run stopped there
+    under 1.0, the longer went on at 1.0 or more.  Prints them and how
+    many lie within a factor 2 of the threshold on both sides."""
+    import numpy as np
+
+    rcfg = cfg.registration
+    rows = []
+    for k in np.nonzero(iters != fixture["registration_iters"])[0]:
+        n_j, n_p = int(fixture["registration_iters"][k]), int(iters[k])
+        m = min(n_j, n_p)
+        if m == 0:
+            continue
+        ref = gn_steps(fixture["gn_poses"][k, :n_j + 1], rcfg)
+        got = gn_steps(np.stack([p.cpu().numpy() for p, _ in traces[k][0]]),
+                       rcfg)
+        rows.append((int(k), ref[m - 1], got[m - 1]))
+    near = sum(0.5 <= a <= 2.0 and 0.5 <= b <= 2.0 for _, a, b in rows)
+    print(f"{label}: at the last pass of the shorter run, steps over the "
+          f"threshold (scan, JAX, port): {rows}; {near} of {len(rows)} "
+          f"partings with both within a factor 2 of the threshold",
+          flush=True)
+
+
+def loop_replay_phase():
+    """Phase 19 (b): the loop mission's circle (`loop_mission_config()`,
+    130 scans, no GPS in a replay) through `ChunkedReplay(loop_every=10)`,
+    the detector and the full correction after each chunk, held to
+    fixtures/loop_replay_jax.npz.  Returns the kernel launches of the run
+    (the graphs' and the loop verifications')."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import replay
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    label = "loop replay"
+    mark = step_clock(label)
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "loop_replay_jax.npz"))
+    cfg = sm.loop_mission_config()
+    seq, batch = sm.loop_replay_inputs()
+    digest = sm.batch_sha256(batch)
+    if digest != str(fixture["batch_sha256"]):
+        fail(f"{label}: the inputs differ from those the reference replayed "
+             f"({digest}, reference {fixture['batch_sha256']})")
+    cr = replay.ChunkedReplay(cfg, loop_every=sm.LOOP_EVERY)
+    chunks = cr.split(batch)
+    state, fes = cr.init()
+    mark("inputs made and staged")
+    cr.capture(state, fes, chunks[0])
+    mark("capture")
+    corrected, loops, cycles = [], [], []
+    full_correct, detector = cr.full_correct, cr.detector
+
+    def noting_detector(st):
+        st, aux = detector(st)
+        cycles.append(aux)
+        return st, aux
+
+    def noting_correct(st):
+        if bool(st.needs_full_solve):
+            corrected.append(len(cycles) * sm.LOOP_EVERY - 1)
+        st = full_correct(st)
+        loops.append(int(st.loop_count))
+        return st
+
+    cr.detector, cr.full_correct = noting_detector, noting_correct
+    restore = sync_free(cr)
+    try:
+        state, fes = cr.init()
+        t0 = time.perf_counter()
+        fc.KERNEL_LAUNCHES = 0
+        state, fes, outs = no_sync(cr.run, state, fes, chunks)
+        launches = fc.KERNEL_LAUNCHES
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        for undo in reversed(restore):
+            undo()
+    mark("chunked replay")
+    poses = outs.poses.cpu().numpy()
+    iters = outs.iters.cpu().numpy()
+    print(f"{label} ({SMI}): {len(poses)} scans in {elapsed:.3f} s, capture "
+          f"{cr.capture_seconds:.3f} s; loops after each chunk {loops} (JAX "
+          f"{fixture['loop_count'].tolist()}); full corrections at scans "
+          f"{corrected} (JAX {fixture['full_correction_scans'].tolist()}); "
+          f"GN iterations {int(iters.sum())} (JAX "
+          f"{int(fixture['registration_iters'].sum())})", flush=True)
+    verify, failures = check_replay_launches(
+        label, launches, len(poses), cfg.registration.max_iterations, cycles)
+    if loops != fixture["loop_count"].tolist():
+        failures.append(f"{label}: loop counts {loops}")
+    if corrected != fixture["full_correction_scans"].tolist() or not corrected:
+        failures.append(f"{label}: full corrections at {corrected}")
+    if not np.isfinite(poses).all():
+        failures.append(f"{label}: non-finite poses")
+    first = int(fixture["full_correction_scans"][0]) if len(
+        fixture["full_correction_scans"]) else len(poses) - 1
+    spans = [("up to the first correction", slice(0, first + 1),
+              LOOP_GPS_MAX_DEV_M, LOOP_GPS_MAX_DEV_RAD)]
+    if first + 1 < len(poses):
+        spans.append(("after it", slice(first + 1, None), LOOP_MAX_DEV_M,
+                      LOOP_MAX_DEV_RAD))
+    failures += deviation_spans(label, poses, fixture["poses"], spans)
+    if not verify:
+        failures.append(f"{label}: no loop verification launched the kernel")
+    if failures:
+        fail("; ".join(failures))
+    return launches
+
+
+def resident_replay_phase():
+    """Phase 19: (a) `pipeline_replay_phase`, (b) `loop_replay_phase`."""
+    a, graph_launches, err = pipeline_replay_phase()
+    b = loop_replay_phase()
+    return a, graph_launches, b, err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-dir", default=None,
@@ -3009,21 +3672,26 @@ def main():
     deskewed = phase("phase 17 (deskew mission)", deskew_phase)
     phase("preintegration on the card", preintegration_phase, dev)
     phase("phase 18 (sharded mission)", sharded_phase)
+    pipe, pipe_graph, loop_replay, pipe_err = phase(
+        "phase 19 (device-resident replay programs)", resident_replay_phase)
     paths = {"mission": launches, "loop_mapping": loop_map,
              "loop_verification": loop_ver, **arch, "resume": resumed,
              "bag_mapping": bag_map, "bag_loop_verification": bag_ver,
              "hostile_bag": hostile, "corner_mapping": corner,
              "rebuild_mapping": rebuilt, "hard_replay_mapping": hard_map,
              "hard_replay_verification": hard_ver,
-             "deskew_replay": deskewed}
+             "deskew_replay": deskewed, "pipeline_replay": pipe,
+             "loop_replay": loop_replay}
     print(json.dumps({"kernels": [{
         "name": "fused_corr", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/fused_corr.cu",
         "replaces": "lio_slam_tpu/ops/fused_corr.py:124",
         "launches": sum(paths.values()),
         **{f"launches_{p}": v for p, v in paths.items()},
+        "launches_pipeline_replay_graph_profiled": pipe_graph,
         "max_abs_err": max(k["max_abs_err"], loop_err, arch_err, bag_err,
-                           hostile_err, corner_err, rebuild_err, hard_err),
+                           hostile_err, corner_err, rebuild_err, hard_err,
+                           pipe_err),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None, "cold_ms": k["cold_ms"],
         "entry_ms": k["entry_ms"], "entry_plain_ms": k["entry_plain_ms"]}]}),

@@ -15,6 +15,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from lio_slam_tpu_torch.utils import se3
+from lio_slam_tpu_torch.utils.resident import constant
 
 
 class PoseGraph(NamedTuple):
@@ -154,7 +155,10 @@ def graph_chi2(graph: PoseGraph, poses: torch.Tensor = None) -> torch.Tensor:
 
 def info_from_variances(variances, device=None) -> torch.Tensor:
     """gtsam noiseModel::Diagonal::Variances -> information diagonal."""
-    v = torch.as_tensor(variances, dtype=torch.float32, device=device)
+    if isinstance(variances, torch.Tensor):
+        v = variances.to(dtype=torch.float32, device=device)
+    else:
+        v = constant(variances, torch.float32, device)
     return 1.0 / torch.clamp(v, min=1e-12)
 
 

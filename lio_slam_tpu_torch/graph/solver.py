@@ -20,6 +20,7 @@ import torch
 
 from lio_slam_tpu_torch.graph import factors as F
 from lio_slam_tpu_torch.utils import se3
+from lio_slam_tpu_torch.utils.resident import constant
 
 
 class SolveResult(NamedTuple):
@@ -108,8 +109,7 @@ def backtrack_step(g: F.PoseGraph, delta: torch.Tensor,
     iterations).  Returns (new_poses, scale_used); nothing here waits for
     the device."""
     R, t = se3.pose6_to_Rt(g.poses)
-    scales = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=g.poses.dtype,
-                          device=g.poses.device)
+    scales = constant([1.0, 0.5, 0.25, 0.125], g.poses.dtype, g.poses.device)
     cand = []
     for k in range(scales.shape[0]):
         dR, dt = se3.se3_exp(delta * scales[k])
@@ -181,6 +181,7 @@ def solve_window_compact(graph: F.PoseGraph, count: torch.Tensor,
         l0 = local_of(torch.zeros((), dtype=torch.int64, device=dev))
         l0 = torch.where((l0 >= 0) & (l0 < W), l0, torch.full_like(l0, W))
         w0 = g.prior_info
+        l0 = l0.reshape(1)      # a 0-dim index would be read back (`at`)
         H[l0, l0] += _weighted_block(J0, w0)
         b[l0] += -J0.T @ (w0 * e0)
 

@@ -64,8 +64,8 @@ def deskew(points: torch.Tensor, point_times: torch.Tensor,
     """Motion-compensate a scan (N, 3) into its start frame:
     p' = R(t0)^{-1} (R(t) p + t(t)) (deskewPoint, imageProjection.cpp:545-575).
     Masked points pass through unchanged."""
-    r0 = interpolate_rotation(table, torch.zeros((), dtype=points.dtype,
-                                                 device=points.device))
+    r0 = interpolate_rotation(table, torch.zeros((1,), dtype=points.dtype,
+                                                 device=points.device))[0]
     R0 = se3.so3_exp(r0)
     Rt = se3.so3_exp(interpolate_rotation(table, point_times))  # (N, 3, 3)
     p = (Rt @ points[..., None])[..., 0]

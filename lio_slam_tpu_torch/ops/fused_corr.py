@@ -28,7 +28,14 @@ on the input's device; nothing here waits for the device.
   sums come out NaN; its loaders (the vendor adapters of `io/formats.py`,
   not ported yet) remove such points before they get here.  `pose6` must
   be finite.
-- `KERNEL_LAUNCHES` counts launches of the kernel and nothing else.
+- `KERNEL_LAUNCHES` counts launches of the kernel and nothing else.  A
+  launch recorded into a CUDA graph is not one: it counts in
+  `CAPTURED_LAUNCHES` instead, and the graph's owner adds its captured
+  count to `KERNEL_LAUNCHES` at each replay, where the kernel runs
+  (`pipeline/replay._ScanProgram`).
+- Under capture the launch must find its scratch made: `prepare_stream`
+  on the capture stream, before the capture, makes it outside the graph's
+  memory pool.
 
 The (O, N) bucket ids stay plain torch (`voxel_grid.bucket_ids`), as the
 JAX package computes them in XLA outside its kernel.  The kernel reads the
@@ -52,6 +59,7 @@ MAX_OFFSETS = 9               # bucket ids per point the kernel holds
 # float32, then n_inliers as an int32
 OUT_WORDS = 45
 KERNEL_LAUNCHES = 0
+CAPTURED_LAUNCHES = 0         # launches recorded into CUDA graphs
 # zeroed scratch (ticket + per-block partials) per (device index, stream):
 # the kernel's last block resets the ticket, so a buffer serves every call
 # on its stream.  Calls on one stream run in order, so one host thread
@@ -152,7 +160,7 @@ def fused_ne_from_bucket_ids_ref(table: torch.Tensor, hh: torch.Tensor,
         nby.append(cy[am, cols])
         nbz.append(cz[am, cols])
         dd = dd.clone()
-        dd[am, cols] = vg._BIG
+        dd[am, cols] = torch.full_like(nnd[-1], vg._BIG)
 
     all_valid = nnd[k - 1] < vg._VALID_MAX
     nn_ok = all_valid & (nnd[k - 1] < nn_radius * nn_radius)
@@ -290,10 +298,14 @@ def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
     lib = _build.load_fused_corr()
     dev = table.device
     stream = torch.cuda.current_stream(dev).cuda_stream
+    capturing = torch.cuda.is_current_stream_capturing()
     scratch = _SCRATCH.get((dev.index, stream))
     if scratch is None:
-        scratch = _SCRATCH[(dev.index, stream)] = torch.zeros(
-            lib.lio_fused_corr_scratch_floats(), dtype=torch.float32, device=dev)
+        if capturing:
+            raise RuntimeError("fused_corr: no scratch on the capturing "
+                               "stream; call prepare_stream() on it before "
+                               "the capture")
+        scratch = prepare_stream(dev)
     out = torch.empty(OUT_WORDS, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):      # the launcher works on the current device
         err = lib.lio_fused_corr(
@@ -302,9 +314,27 @@ def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
             scratch.data_ptr(), scratch.numel(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_corr kernel launch failed: cudaError_t {err}")
-    global KERNEL_LAUNCHES
-    KERNEL_LAUNCHES += 1
+    global KERNEL_LAUNCHES, CAPTURED_LAUNCHES
+    if capturing:
+        CAPTURED_LAUNCHES += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return _views(out)
+
+
+def prepare_stream(device) -> torch.Tensor:
+    """The zeroed scratch of the kernel on `device`'s current stream, made
+    where there is none yet (never while that stream captures)."""
+    from lio_slam_tpu_torch.ops import _build
+
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _SCRATCH:
+        n = _build.load_fused_corr().lio_fused_corr_scratch_floats()
+        _SCRATCH[key] = torch.zeros(n, dtype=torch.float32, device=dev)
+    return _SCRATCH[key]
 
 
 def fused_normal_equations(grid: vg.HashGrid, scan: torch.Tensor,

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from lio_slam_tpu_torch.utils import se3, smallmat
+from lio_slam_tpu_torch.utils.resident import constant
 
 
 class Preintegrated(NamedTuple):
@@ -47,8 +48,7 @@ def apply_pileup_gate(acc: torch.Tensor, gyr: torch.Tensor, dt: torch.Tensor,
     than `min_dt` integrate as the stationary placeholder (acc = (0,0,g),
     omega = 0); non-positive dt becomes `fallback_dt`."""
     piled = dt < min_dt * 0.999
-    placeholder = torch.tensor([0.0, 0.0, gravity], dtype=acc.dtype,
-                               device=acc.device)
+    placeholder = constant([0.0, 0.0, gravity], acc.dtype, acc.device)
     acc = torch.where(piled[:, None], placeholder, acc)
     gyr = torch.where(piled[:, None], torch.zeros_like(gyr), gyr)
     dt = torch.where(dt <= 0.0, torch.full_like(dt, fallback_dt), dt)
@@ -65,8 +65,8 @@ def preintegrate(acc: torch.Tensor, gyr: torch.Tensor, dt: torch.Tensor,
     dtf = torch.where(mask, dt, torch.zeros_like(dt)).to(dtype)
     a = acc - bias_acc
     w = gyr - bias_gyr
-    sig_g2 = torch.tensor(gyr_noise, dtype=dtype, device=dev) ** 2
-    sig_a2 = torch.tensor(acc_noise, dtype=dtype, device=dev) ** 2
+    sig_g2 = constant(gyr_noise, dtype, dev) ** 2
+    sig_a2 = constant(acc_noise, dtype, dev) ** 2
     theta = w * dtf[:, None]
     dRk_all = se3.so3_exp(theta)
     Jr_all = se3.so3_right_jacobian(theta)
@@ -134,8 +134,8 @@ def preintegrate_parallel(acc: torch.Tensor, gyr: torch.Tensor,
     dtf = torch.where(mask, dt, torch.zeros_like(dt)).to(dtype)
     a = acc - bias_acc
     w = gyr - bias_gyr
-    sig_g2 = torch.tensor(gyr_noise, dtype=dtype, device=dev) ** 2
-    sig_a2 = torch.tensor(acc_noise, dtype=dtype, device=dev) ** 2
+    sig_g2 = constant(gyr_noise, dtype, dev) ** 2
+    sig_a2 = constant(acc_noise, dtype, dev) ** 2
 
     theta = w * dtf[:, None]
     dRk = se3.so3_exp(theta)                                # (T, 3, 3)
@@ -199,7 +199,7 @@ def integrate_pose_train(R0: torch.Tensor, p0: torch.Tensor, v0: torch.Tensor,
     D_prev = torch.cat([eye, D[:-1]], dim=0)
     R = torch.einsum("ij,tjk->tik", R0, D)
     R_prev = torch.einsum("ij,tjk->tik", R0, D_prev)
-    g = torch.tensor([0.0, 0.0, -gravity], dtype=dtype, device=dev)
+    g = constant([0.0, 0.0, -gravity], dtype, dev)
     acc_w = torch.einsum("tij,tj->ti", R_prev, acc) + g[None, :]
     v = v0[None, :] + torch.cumsum(acc_w * dtf[:, None], dim=0)
     v_prev = torch.cat([v0[None, :], v[:-1]], dim=0)
@@ -222,8 +222,7 @@ def bias_corrected(pre: Preintegrated, bias_gyr: torch.Tensor,
 def predict(state: NavState, pre: Preintegrated, gravity: float) -> NavState:
     """NavState propagation (gtsam NavState::predict); world gravity is
     (0, 0, -gravity)."""
-    g = torch.tensor([0.0, 0.0, -gravity], dtype=pre.dv.dtype,
-                     device=pre.dv.device)
+    g = constant([0.0, 0.0, -gravity], pre.dv.dtype, pre.dv.device)
     t = pre.dt
     return NavState(R=state.R @ pre.dR,
                     p=state.p + state.v * t + 0.5 * g * t * t + state.R @ pre.dp,

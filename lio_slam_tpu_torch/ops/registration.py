@@ -7,7 +7,9 @@ brute-force k-NN of `knn_backend="brute"`); the LOAM surface + corner
 and `register_loam` (rebuild-mode map).
 
 `lax.while_loop` becomes a host loop with one device-to-host read per GN
-iteration (the convergence flag).  The stopping rule is the reference's:
+iteration (the convergence flag); `register_with_grid(resident=True)` runs
+every pass instead, with the iterations after convergence frozen on the
+device, and reads nothing back.  The stopping rule is the reference's:
 |Δrot| < 0.05 deg and |Δtrans| < 0.05 cm, at most 30 iterations, or fewer
 than 50 correspondences.  With the fused kernel enabled (the default) each
 iteration's surface term is one `fused_corr` pass; `corr_refresh_every > 1`
@@ -29,6 +31,7 @@ from lio_slam_tpu_torch.ops import knn as knn_mod
 from lio_slam_tpu_torch.ops import voxel_grid as vg
 from lio_slam_tpu_torch.utils import se3
 from lio_slam_tpu_torch.utils import smallmat
+from lio_slam_tpu_torch.utils.resident import constant
 
 
 class Correspondences(NamedTuple):
@@ -42,8 +45,10 @@ class Correspondences(NamedTuple):
 class RegistrationResult(NamedTuple):
     pose: torch.Tensor          # (6,) refined [roll,pitch,yaw,x,y,z]
     degenerate: torch.Tensor    # () bool — eigenvalue gate fired
-    converged: bool             # host value (read every iteration anyway)
-    iterations: int             # host value
+    converged: bool             # host value (read every iteration anyway);
+    #                             a () bool tensor in the resident form
+    iterations: int             # host value; a () int32 tensor in the
+    #                             resident form
     num_inliers: torch.Tensor   # () int32 — correspondences in last iteration
     mean_residual: torch.Tensor  # () weighted mean |pd2| of last iteration
 
@@ -79,7 +84,7 @@ def _eigpair_3x3(A: torch.Tensor, which: str):
         *pick.shape, 1, 3))[..., 0, :]
     v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12)
     iso = p2 < 1e-12
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+    z = constant([0.0, 0.0, 1.0], A.dtype, A.device)
     return lam, lam_mid, torch.where(iso[..., None], z, v)
 
 
@@ -244,48 +249,61 @@ def _maybe_fused(scan, scan_mask, grid, cfg: RegistrationConfig):
     return (bucket_fn, from_ids_fn, int(cfg.corr_refresh_every))
 
 
+def _gn_pass(scan, corr_fn, ne_fn, it: int, pose, hh, P, degen,
+             cfg: RegistrationConfig, min_correspondences: int):
+    """GN iteration `it` from `pose`: (pose after the step, held bucket ids,
+    P, degen, inliers, mean residual, converged), shared by the host loop
+    and the device-resident one.  The bucket ids are refreshed and the
+    degeneracy projection computed on the iterations the pass index says,
+    as `lax.while_loop`'s body does."""
+    if isinstance(ne_fn, tuple):
+        bucket_fn, from_ids_fn, refresh = ne_fn
+        if it % refresh == 0:
+            hh = bucket_fn(pose)
+        AtA, Atb, n_inl, w_sum, wres_sum = from_ids_fn(hh, pose)
+    elif ne_fn is not None:
+        AtA, Atb, n_inl, w_sum, wres_sum = ne_fn(pose)
+    else:
+        AtA, Atb, n_inl, w_sum, wres_sum = _ne_terms(scan, corr_fn(pose), pose)
+    # Levenberg epsilon keeps the solve finite when rank-deficient
+    dx = smallmat.cholesky_solve(AtA, Atb, eps=1e-6)
+    if it == 0:     # eigendecomposition on the first iteration only
+        P, degen = _degeneracy_projection(AtA, cfg.degeneracy_eig_thresh)
+    dx = torch.where(degen, P @ dx, dx)
+    enough = n_inl >= min_correspondences
+    dx = torch.where(enough, dx, torch.zeros_like(dx))
+    delta_r_deg = torch.linalg.norm(dx[:3]) * (180.0 / math.pi)
+    delta_t_cm = torch.linalg.norm(dx[3:]) * 100.0
+    conv = (((delta_r_deg < cfg.rot_converge)
+             & (delta_t_cm < cfg.trans_converge)) | ~enough)
+    mean_res = wres_sum / torch.clamp(w_sum, min=1e-6)
+    return pose + dx, hh, P, degen, n_inl, mean_res, conv
+
+
+def _gn_start(scan, init_pose6):
+    """(pose, P, degen, inliers, mean residual) before the first pass."""
+    dev = scan.device
+    return (init_pose6.to(torch.float32).clone(),
+            torch.eye(6, dtype=torch.float32, device=dev),
+            torch.zeros((), dtype=torch.bool, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.float32, device=dev))
+
+
 def _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg: RegistrationConfig,
              runnable: bool, min_correspondences: int,
              ne_fn=None) -> RegistrationResult:
     """GN iterations until converged (host loop).  `corr_fn(pose)` is the
     unfused path; `ne_fn(pose) -> (AtA, Atb, n_inl, Σs, Σs|pd2|)` the fused
     one, or a (bucket_fn, from_ids_fn, refresh) triple."""
-    dev = scan.device
-    pose = init_pose6.to(torch.float32).clone()
-    P = torch.eye(6, dtype=torch.float32, device=dev)
-    degen = torch.zeros((), dtype=torch.bool, device=dev)
-    n_inl = torch.zeros((), dtype=torch.int32, device=dev)
-    mean_res = torch.zeros((), dtype=torch.float32, device=dev)
-    zero6 = torch.zeros(6, dtype=torch.float32, device=dev)
-    fused_refresh = isinstance(ne_fn, tuple)
-    if fused_refresh:
-        bucket_fn, from_ids_fn, refresh = ne_fn
+    pose, P, degen, n_inl, mean_res = _gn_start(scan, init_pose6)
     hh = None
     it = 0
     converged = not runnable
     while it < cfg.max_iterations and not converged:
-        if fused_refresh:
-            if it % refresh == 0:
-                hh = bucket_fn(pose)
-            AtA, Atb, n_inl, w_sum, wres_sum = from_ids_fn(hh, pose)
-        elif ne_fn is not None:
-            AtA, Atb, n_inl, w_sum, wres_sum = ne_fn(pose)
-        else:
-            AtA, Atb, n_inl, w_sum, wres_sum = _ne_terms(scan, corr_fn(pose),
-                                                         pose)
-        # Levenberg epsilon keeps the solve finite when rank-deficient
-        dx = smallmat.cholesky_solve(AtA, Atb, eps=1e-6)
-        if it == 0:     # eigendecomposition on the first iteration only
-            P, degen = _degeneracy_projection(AtA, cfg.degeneracy_eig_thresh)
-        dx = torch.where(degen, P @ dx, dx)
-        enough = n_inl >= min_correspondences
-        dx = torch.where(enough, dx, zero6)
-        pose = pose + dx
-        delta_r_deg = torch.linalg.norm(dx[:3]) * (180.0 / math.pi)
-        delta_t_cm = torch.linalg.norm(dx[3:]) * 100.0
-        conv = (((delta_r_deg < cfg.rot_converge)
-                 & (delta_t_cm < cfg.trans_converge)) | ~enough)
-        mean_res = wres_sum / torch.clamp(w_sum, min=1e-6)
+        pose, hh, P, degen, n_inl, mean_res, conv = _gn_pass(
+            scan, corr_fn, ne_fn, it, pose, hh, P, degen, cfg,
+            min_correspondences)
         it += 1
         converged = bool(conv)          # the iteration's one host read
     return RegistrationResult(pose=pose, degenerate=degen, converged=converged,
@@ -293,13 +311,44 @@ def _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg: RegistrationConfig,
                               mean_residual=mean_res)
 
 
+def _gn_loop_resident(scan, scan_mask, corr_fn, init_pose6,
+                      cfg: RegistrationConfig, runnable: torch.Tensor,
+                      min_correspondences: int,
+                      ne_fn=None) -> RegistrationResult:
+    """`_gn_loop` with no read of the device: all `cfg.max_iterations`
+    passes run, unrolled, and a device flag `active` (the runnable gate,
+    then down from the pass that converged) freezes the pose, P, degen,
+    inliers, mean residual and the iteration count, which gives
+    `lax.while_loop`'s results.  `converged` and `iterations` are device
+    tensors here.  The passes after convergence are the price of having no
+    conditional: their results are dropped."""
+    pose, P, degen, n_inl, mean_res = _gn_start(scan, init_pose6)
+    active = runnable.clone()
+    iters = torch.zeros((), dtype=torch.int32, device=scan.device)
+    hh = None
+    for it in range(cfg.max_iterations):
+        out = _gn_pass(scan, corr_fn, ne_fn, it, pose, hh, P, degen, cfg,
+                       min_correspondences)
+        pose, P, degen, n_inl, mean_res = (
+            torch.where(active, new, old) for new, old in zip(
+                (out[0],) + out[2:6], (pose, P, degen, n_inl, mean_res)))
+        hh = out[1]
+        iters = iters + active.to(torch.int32)
+        active = active & ~out[6]
+    return RegistrationResult(pose=pose, degenerate=degen, converged=~active,
+                              iterations=iters, num_inliers=n_inl,
+                              mean_residual=mean_res)
+
+
 def register_with_grid(scan: torch.Tensor, scan_mask: torch.Tensor,
                        grid: vg.HashGrid, init_pose6: torch.Tensor,
                        cfg: RegistrationConfig,
-                       min_correspondences: int = 50) -> RegistrationResult:
+                       min_correspondences: int = 50,
+                       resident: bool = False) -> RegistrationResult:
     """scan2MapOptimization against the persistent (incremental) voxel map.
     Skips (returns the initial pose) below 31 scan or 51 map points
-    (:1841)."""
+    (:1841).  `resident` runs `_gn_loop_resident`: no read of the device,
+    the same results."""
     if cfg.sort_scan_by_cell:
         raise NotImplementedError("sort_scan_by_cell is not ported")
     scan = scan.to(torch.float32)
@@ -310,8 +359,12 @@ def register_with_grid(scan: torch.Tensor, scan_mask: torch.Tensor,
 
     n_scan = torch.sum(scan_mask.to(torch.int32))
     n_map = torch.sum(grid.counts)
-    runnable = bool((n_scan > 30) & (n_map > 50))
-    return _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg, runnable,
+    runnable = (n_scan > 30) & (n_map > 50)
+    if resident:
+        return _gn_loop_resident(scan, scan_mask, corr_fn, init_pose6, cfg,
+                                 runnable, min_correspondences,
+                                 ne_fn=_maybe_fused(scan, scan_mask, grid, cfg))
+    return _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg, bool(runnable),
                     min_correspondences,
                     ne_fn=_maybe_fused(scan, scan_mask, grid, cfg))
 

@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from lio_slam_tpu_torch.utils.resident import set_at_
+
 NUM_RING = 20
 NUM_SECTOR = 60
 
@@ -71,8 +73,8 @@ def add_descriptor(db: ScanContextDB, desc: torch.Tensor) -> ScanContextDB:
     i = torch.clamp(db.count, max=K - 1).to(torch.int64)
     descriptors = db.descriptors.clone()
     ring_keys = db.ring_keys.clone()
-    descriptors[i] = desc
-    ring_keys[i] = ring_key(desc)
+    set_at_(descriptors, i, desc)
+    set_at_(ring_keys, i, ring_key(desc))
     return ScanContextDB(descriptors=descriptors, ring_keys=ring_keys,
                          count=torch.clamp(db.count + 1, max=K))
 

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from lio_slam_tpu_torch.utils.resident import constant
+
 SENTINEL = 1e6           # empty-slot coordinate; d2 >= ~1e12 >> any real match
 _BIG = 1e30
 _VALID_MAX = 1e10        # d2 above this means "sentinel / no neighbour"
@@ -58,12 +60,12 @@ def _check_halo(halo: str):
 
 def insert_offsets(device, halo: str = "z") -> torch.Tensor:
     _check_halo(halo)
-    return torch.tensor(_INSERT_OFFSETS[halo], dtype=torch.int32, device=device)
+    return constant(_INSERT_OFFSETS[halo], torch.int32, device)
 
 
 def query_offsets(device, halo: str = "z") -> torch.Tensor:
     _check_halo(halo)
-    return torch.tensor(_QUERY_OFFSETS[halo], dtype=torch.int32, device=device)
+    return constant(_QUERY_OFFSETS[halo], torch.int32, device)
 
 
 def _cell_hash(coords: torch.Tensor, table_size: int) -> torch.Tensor:

@@ -10,7 +10,10 @@
 - `predict_rate`: the pose at every IMU sample (imuHandler :518-613).
 - `transform_fusion`: lidar odometry ∘ IMU increment (TransformFusion).
 
-The JAX `lax.cond`s (initialized?, failure reset) are host branches here.
+The JAX `lax.cond`s (initialized?, failure reset) are device selects in
+`correct`: every branch runs and the result is picked on the device, so
+the correction reads nothing back (the device-resident replay captures
+it in a CUDA graph).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from lio_slam_tpu_torch.config import ImuConfig
 from lio_slam_tpu_torch.ops import preintegration as pre
 from lio_slam_tpu_torch.utils import se3
+from lio_slam_tpu_torch.utils.resident import constant, select
 
 
 class ImuFrontendState(NamedTuple):
@@ -45,9 +49,9 @@ def init_state(dtype=torch.float32, device=None) -> ImuFrontendState:
 
 def _init_cov(dtype, device) -> torch.Tensor:
     """Prior sigmas at initialization (imuPreintegration.cpp:222-231)."""
-    d = torch.cat([torch.full((3,), 1e-2 ** 2), torch.full((3,), 1e4 ** 2),
-                   torch.full((3,), 1e-2 ** 2), torch.full((6,), 1e-3 ** 2)])
-    return torch.diag(d.to(dtype)).to(device)
+    d = constant([1e-2 ** 2] * 3 + [1e4 ** 2] * 3 + [1e-2 ** 2] * 3
+                 + [1e-3 ** 2] * 6, torch.float32, device)
+    return torch.diag(d.to(dtype))
 
 
 def _anchored(lidar_pose6: torch.Tensor, bias_gyr, bias_acc,
@@ -70,20 +74,18 @@ def reinitialize(state: ImuFrontendState,
 
 
 def make_frontend(cfg: ImuConfig):
+    """(correct, predict_rate, transform_fusion) for `cfg`."""
     g = cfg.gravity
     # pileup threshold from the rig's nominal rate (half the period, capped
     # at the fork's 10 ms) — see preintegration.apply_pileup_gate
     min_dt = min(0.01, 0.5 / max(cfg.imu_rate, 1.0))
 
-    def correct(state: ImuFrontendState, acc, gyr, dt, mask,
-                lidar_pose6: torch.Tensor,
-                degenerate: torch.Tensor) -> ImuFrontendState:
-        """Fuse the lidar pose with the IMU window since the last correction."""
+    def update(state: ImuFrontendState, acc, gyr, dt, mask,
+               lidar_pose6: torch.Tensor, degenerate: torch.Tensor):
+        """(the error-state update of an initialized front-end, whether it
+        failed the divergence check)."""
         Rm, pm = se3.pose6_to_Rt(lidar_pose6)
         dtype, dev = pm.dtype, pm.device
-        if not bool(state.initialized):
-            z3 = torch.zeros(3, dtype=dtype, device=dev)
-            return _anchored(lidar_pose6, z3, z3, False)
         acc_g, gyr_g, dt_g = pre.apply_pileup_gate(acc, gyr, dt, g,
                                                    min_dt=min_dt)
         pint = pre.preintegrate_parallel(acc_g, gyr_g, dt_g, mask,
@@ -140,13 +142,27 @@ def make_frontend(cfg: ImuConfig):
                                p=nav.p + dx[6:9], v=nav.v + dx[3:6])
         bg = state.bias_gyr + dx[9:12]
         ba = state.bias_acc + dx[12:15]
-        if bool(pre.failure_detected(nav_new, bg, ba)):
-            z3 = torch.zeros(3, dtype=dtype, device=dev)
-            return _anchored(lidar_pose6, z3, z3, True)
         return ImuFrontendState(
             nav=nav_new, bias_gyr=bg, bias_acc=ba, cov=0.5 * (P_new + P_new.T),
             initialized=torch.ones((), dtype=torch.bool, device=dev),
-            failure=torch.zeros((), dtype=torch.bool, device=dev))
+            failure=torch.zeros((), dtype=torch.bool, device=dev)), \
+            pre.failure_detected(nav_new, bg, ba)
+
+    def reset(lidar_pose6: torch.Tensor, failure: bool) -> ImuFrontendState:
+        z3 = torch.zeros(3, dtype=lidar_pose6.dtype, device=lidar_pose6.device)
+        return _anchored(lidar_pose6, z3, z3, failure)
+
+    def correct(state: ImuFrontendState, acc, gyr, dt, mask,
+                lidar_pose6: torch.Tensor,
+                degenerate: torch.Tensor) -> ImuFrontendState:
+        """Fuse the lidar pose with the IMU window since the last correction:
+        `lax.cond(fail, reset, keep)` and `lax.cond(initialized, update,
+        initialize)` of the JAX front-end as selects between branches that
+        all run."""
+        new, failed = update(state, acc, gyr, dt, mask, lidar_pose6,
+                             degenerate)
+        new = select(failed, reset(lidar_pose6, True), new)
+        return select(state.initialized, new, reset(lidar_pose6, False))
 
     def predict_rate(state: ImuFrontendState, acc, gyr, dt, mask):
         """Pose at every sample of the window, from the last fused state

@@ -16,6 +16,7 @@ import torch
 
 from lio_slam_tpu_torch.utils import pointcloud as pc
 from lio_slam_tpu_torch.utils import se3
+from lio_slam_tpu_torch.utils.resident import at, set_at_
 
 
 class KeyframeStore(NamedTuple):
@@ -48,7 +49,7 @@ def should_add_keyframe(store: KeyframeStore, pose: torch.Tensor,
                         dist_threshold: float) -> torch.Tensor:
     """saveFrame gate: the first scan always; else motion since the last
     keyframe beyond either threshold."""
-    last = store.poses[torch.clamp(store.count - 1, min=0).to(torch.int64)]
+    last = at(store.poses, torch.clamp(store.count - 1, min=0).to(torch.int64))
     delta = se3.pose6_between(last, pose)
     big_angle = torch.any(torch.abs(delta[:3]) >= angle_threshold)
     big_dist = torch.linalg.norm(delta[3:]) >= dist_threshold
@@ -66,18 +67,18 @@ def add_keyframe(store: KeyframeStore, pose: torch.Tensor,
     i = torch.clamp(store.count, max=K - 1).to(torch.int64)
     poses, stamps = store.poses.clone(), store.stamps.clone()
     clouds, masks = store.clouds.clone(), store.cloud_masks.clone()
-    poses[i] = pose
-    stamps[i] = stamp
-    clouds[i] = cloud.xyz[:P]
-    masks[i] = cloud.mask[:P]
+    set_at_(poses, i, pose)
+    set_at_(stamps, i, stamp)
+    set_at_(clouds, i, cloud.xyz[:P])
+    set_at_(masks, i, cloud.mask[:P])
     store = store._replace(poses=poses, stamps=stamps, clouds=clouds,
                            cloud_masks=masks,
                            count=torch.clamp(store.count + 1, max=K))
     if corner is not None:
         Pc = store.corner_clouds.shape[1]
         cc, cm = store.corner_clouds.clone(), store.corner_masks.clone()
-        cc[i] = corner.xyz[:Pc]
-        cm[i] = corner.mask[:Pc]
+        set_at_(cc, i, corner.xyz[:Pc])
+        set_at_(cm, i, corner.mask[:Pc])
         store = store._replace(corner_clouds=cc, corner_masks=cm)
     return store
 

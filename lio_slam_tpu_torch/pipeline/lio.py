@@ -9,7 +9,12 @@ or GPS factor: `make_full_correction` (the full-graph solve, the store
 brought up to date, the voxel map rebuilt) and `inject_loop_constraint`.
 The JAX package's `lax.cond`s (eviction at capacity, keyframe save, the GPS
 covariance gate, the correction itself) are host branches on a device bool
-here: one device-to-host read each.
+here: one device-to-host read each.  `make_lio_step(cfg, resident=True)`
+builds the same step with those branches as device selects over the state
+(both sides computed, one kept) and the GN loop's passes all run
+(`registration._gn_loop_resident`): it reads nothing back, which is what
+lets `pipeline/replay.py` capture it as a CUDA graph.  It serves the
+surface-only incremental-map path without GPS, the JAX replay's path.
 
 `local_map_mode="incremental"` registers against the persistent voxel map;
 "rebuild" assembles the local map from the nearby keyframes every scan
@@ -35,6 +40,7 @@ from lio_slam_tpu_torch.ops import voxel_grid as vg
 from lio_slam_tpu_torch.pipeline import keyframes as kf
 from lio_slam_tpu_torch.utils import pointcloud as pc
 from lio_slam_tpu_torch.utils import se3
+from lio_slam_tpu_torch.utils.resident import at, constant, select, set_at_
 
 
 class LioState(NamedTuple):
@@ -77,9 +83,11 @@ class StepOutput(NamedTuple):
     pose: torch.Tensor             # (6,) global odometry
     incremental: torch.Tensor      # (6,) scan-to-scan increment
     degenerate: torch.Tensor       # () bool
-    is_keyframe: bool              # host value (the save branch reads it)
+    is_keyframe: bool              # host value (the save branch reads it);
+    #                                a () bool tensor in the resident step
     num_inliers: torch.Tensor      # () int32
-    registration_iters: int        # host value (GN loop count)
+    registration_iters: int        # host value (GN loop count); a () int32
+    #                                tensor in the resident step
     evictions: torch.Tensor        # () int32 cumulative evictions
 
 
@@ -103,7 +111,8 @@ class MapOps(NamedTuple):
     where each rank holds its slice of the grid and the keyframe clouds)."""
 
     empty_grid: object    # () -> HashGrid
-    register: object      # (scan_xyz, scan_mask, grid, pose_guess) -> RegistrationResult
+    register: object      # (scan_xyz, scan_mask, grid, pose_guess,
+    #                       resident=False) -> RegistrationResult
     insert: object        # (grid, world_pts, mask) -> HashGrid
     rebuild: object       # (store) -> HashGrid (full map rebuild)
     full_solve: object    # (graph) -> graph (the x5 full-graph correction)
@@ -138,8 +147,9 @@ def _use_sparse_solver(cfg: Config) -> bool:
 def default_map_ops(cfg: Config, device=None) -> MapOps:
     r = cfg.registration
 
-    def register(scan_xyz, scan_mask, grid, pose_guess):
-        return reg.register_with_grid(scan_xyz, scan_mask, grid, pose_guess, r)
+    def register(scan_xyz, scan_mask, grid, pose_guess, resident=False):
+        return reg.register_with_grid(scan_xyz, scan_mask, grid, pose_guess, r,
+                                      resident=resident)
 
     def insert(grid, world_pts, mask):
         return vg.insert_points(grid, world_pts, mask, halo=r.grid_halo)
@@ -207,8 +217,7 @@ def _update_initial_guess(state: LioState, inp: ScanInput) -> torch.Tensor:
     and pitch (yaw zeroed); later scans the IMU-odometry guess when valid,
     else the last pose."""
     first = state.store.count == 0
-    rp = torch.tensor([1.0, 1.0, 0.0], dtype=torch.float32,
-                      device=state.pose.device)
+    rp = constant([1.0, 1.0, 0.0], torch.float32, state.pose.device)
     first_pose = torch.cat([
         torch.where(inp.imu_available, inp.imu_rpy * rp, torch.zeros_like(rp)),
         torch.zeros_like(rp)])
@@ -334,9 +343,9 @@ def _evict_oldest(state: LioState) -> LioState:
         return torch.roll(a, -1, dims=0)
 
     cloud_masks = roll1(store.cloud_masks)
-    cloud_masks[K - 1] = False
+    cloud_masks[K - 1].fill_(False)     # (a host number assigned is a copy)
     corner_masks = roll1(store.corner_masks)
-    corner_masks[K - 1] = False
+    corner_masks[K - 1].fill_(False)
     store = store._replace(
         poses=roll1(store.poses), stamps=roll1(store.stamps),
         clouds=roll1(store.clouds), cloud_masks=cloud_masks,
@@ -348,7 +357,7 @@ def _evict_oldest(state: LioState) -> LioState:
         count=state.sc_db.count - 1)
 
     pose_mask = roll1(g.pose_mask)
-    pose_mask[K - 1] = False
+    pose_mask[K - 1].fill_(False)
 
     def shift_chain(a):
         return torch.cat([torch.roll(a[:c], -1, dims=0), a[c:]], dim=0)
@@ -356,7 +365,7 @@ def _evict_oldest(state: LioState) -> LioState:
     bt_i = shift_chain(g.bt_i) - 1
     bt_j = shift_chain(g.bt_j) - 1
     bt_mask = shift_chain(g.bt_mask)
-    bt_mask[c - 1] = False
+    bt_mask[c - 1].fill_(False)
     bt_mask = bt_mask & (bt_i >= 0) & (bt_j >= 0)
     gps_i = g.gps_i - 1
     gps_mask = g.gps_mask & (gps_i >= 0)
@@ -382,14 +391,18 @@ def _evict_oldest(state: LioState) -> LioState:
 def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
                    scan_ds: pc.Cloud, cfg: Config,
                    corner_ds: pc.Cloud = None,
-                   ops: MapOps = None) -> LioState:
+                   ops: MapOps = None, resident: bool = False) -> LioState:
     """saveKeyFramesAndFactor (:2064-2171) + window-scope correctPoses.  The
     keyframe's cloud goes into the incremental voxel map; the rebuild-mode
-    map is assembled from the store instead."""
+    map is assembled from the store instead.  `resident`: the eviction is
+    a device select, and the GPS factor is left out (the replay feeds no
+    GPS: its `gps_valid` is constant False in both packages' replays)."""
     if ops is None:
         ops = default_map_ops(cfg, pose.device)
     K = state.store.poses.shape[0]
-    if bool(state.store.count >= K):          # host branch (JAX lax.cond)
+    if resident:                              # JAX lax.cond, as a select
+        state = select(state.store.count >= K, _evict_oldest(state), state)
+    elif bool(state.store.count >= K):        # host branch (JAX lax.cond)
         state = _evict_oldest(state)
     g = state.graph
     prev_idx = state.store.count - 1
@@ -404,17 +417,18 @@ def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
             g.prior_info))
 
     prev_c = torch.clamp(prev_idx, min=0).to(torch.int64)
-    meas = se3.pose6_between(state.store.poses[prev_c], pose)
+    meas = se3.pose6_between(at(state.store.poses, prev_c), pose)
     odom_info = F.info_from_variances(cfg.keyframe.odom_sigmas, dev)
     use_between = ~first
     bt_i, bt_j = g.bt_i.clone(), g.bt_j.clone()
     bt_meas, bt_info = g.bt_meas.clone(), g.bt_info.clone()
     bt_mask = g.bt_mask.clone()
-    bt_i[prev_c] = torch.where(use_between, prev_idx, bt_i[prev_c])
-    bt_j[prev_c] = torch.where(use_between, new_idx, bt_j[prev_c])
-    bt_meas[prev_c] = torch.where(use_between, meas, bt_meas[prev_c])
-    bt_info[prev_c] = torch.where(use_between, odom_info, bt_info[prev_c])
-    bt_mask[prev_c] = use_between | bt_mask[prev_c]
+    set_at_(bt_i, prev_c, torch.where(use_between, prev_idx, at(bt_i, prev_c)))
+    set_at_(bt_j, prev_c, torch.where(use_between, new_idx, at(bt_j, prev_c)))
+    set_at_(bt_meas, prev_c, torch.where(use_between, meas, at(bt_meas, prev_c)))
+    set_at_(bt_info, prev_c,
+            torch.where(use_between, odom_info, at(bt_info, prev_c)))
+    set_at_(bt_mask, prev_c, use_between | at(bt_mask, prev_c))
     g = g._replace(bt_i=bt_i, bt_j=bt_j, bt_meas=bt_meas, bt_info=bt_info,
                    bt_mask=bt_mask)
 
@@ -422,8 +436,8 @@ def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
                             ops.keyframe_cloud(scan_ds), corner=corner_ds)
     ni = new_idx.to(torch.int64)
     poses, pose_mask = g.poses.clone(), g.pose_mask.clone()
-    poses[ni] = pose
-    pose_mask[ni] = True
+    set_at_(poses, ni, pose)
+    set_at_(pose_mask, ni, True)
     g = g._replace(poses=poses, pose_mask=pose_mask)
     desc = sc_mod.make_descriptor(
         scan_ds.xyz, scan_ds.mask, max_radius=cfg.loop.sc_max_radius,
@@ -432,14 +446,14 @@ def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
     state = state._replace(store=store, graph=g,
                            sc_db=sc_mod.add_descriptor(state.sc_db, desc))
     state = _consume_pending_loops(state, cfg)
-    if cfg.gps.use_gps:
+    if cfg.gps.use_gps and not resident:
         state = _add_gps_factor(state, inp, new_idx, cfg, ops)
 
     g = solver.solve_window_compact(state.graph, store.count,
                                     cfg.static.window_size, iterations=2)
     store = store._replace(poses=torch.where(g.pose_mask[:, None], g.poses,
                                              store.poses))
-    new_pose = g.poses[ni]
+    new_pose = at(g.poses, ni)
     if cfg.registration.local_map_mode == "incremental":
         Rn, tn = se3.pose6_to_Rt(new_pose)
         world_pts = se3.transform_points(Rn, tn, scan_ds.xyz)
@@ -509,14 +523,26 @@ def make_full_correction(cfg: Config, ops: MapOps = None, device=None):
     return full_correct
 
 
-def make_lio_step(cfg: Config, ops: MapOps = None, device=None):
+def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
+                  resident: bool = False):
     """The per-scan step for `cfg`: `step(state, inp) -> (state, out)`.  A
-    custom `ops` serves the surface-only incremental-map path only."""
+    custom `ops` serves the surface-only incremental-map path only.
+
+    `resident` builds the step that reads nothing back from the device: the
+    keyframe gate and the eviction are selects over the state (the save
+    runs on every scan and is kept where the gate holds), the GN loop runs
+    all its passes, and `out.is_keyframe` / `out.registration_iters` are
+    device tensors.  It serves the surface-only incremental-map path, and
+    it leaves the GPS factor out: it is built for the replay, whose inputs
+    carry no GPS fix."""
     s = cfg.static
     r = cfg.registration
     if r.scan_downsample not in ("packed", "voxel"):
         raise NotImplementedError(f"scan_downsample={r.scan_downsample!r} is "
                                   "not ported")
+    if resident and (r.use_corner_features or r.local_map_mode != "incremental"):
+        raise NotImplementedError("the resident step serves the surface-only "
+                                  "incremental-map path")
     if ops is None:
         ops = default_map_ops(cfg, device)
     elif r.use_corner_features or r.local_map_mode != "incremental":
@@ -550,6 +576,9 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None):
                     scan_ds.xyz, scan_ds.mask & has_map, state.map_grid,
                     corner_ds.xyz, corner_ds.mask & has_map,
                     corner_map.xyz, corner_map.mask, pose_guess, r)
+            elif resident:
+                res = ops.register(scan_ds.xyz, scan_ds.mask & has_map,
+                                   state.map_grid, pose_guess, resident=True)
             else:
                 res = ops.register(scan_ds.xyz, scan_ds.mask & has_map,
                                    state.map_grid, pose_guess)
@@ -572,13 +601,20 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None):
         pose = reg.transform_update(pose, inp.imu_rpy, inp.imu_available,
                                     cfg.imu.imu_rpy_weight,
                                     r.rotation_tolerance, r.z_tolerance)
-        is_kf = bool(kf.should_add_keyframe(state.store, pose,
-                                            cfg.keyframe.angle_threshold,
-                                            cfg.keyframe.dist_threshold))
+        is_kf = kf.should_add_keyframe(state.store, pose,
+                                       cfg.keyframe.angle_threshold,
+                                       cfg.keyframe.dist_threshold)
         state = state._replace(pose=pose, degenerate=res.degenerate)
-        if is_kf:                              # host branch (JAX lax.cond)
+        if resident:                           # JAX lax.cond, as a select
+            state = select(is_kf, _save_keyframe(state, inp, pose, scan_ds,
+                                                 cfg, ops=ops, resident=True),
+                           state)
+        elif bool(is_kf):                      # host branch (JAX lax.cond)
+            is_kf = True
             state = _save_keyframe(state, inp, pose, scan_ds, cfg,
                                    corner_ds=corner_ds, ops=ops)
+        else:
+            is_kf = False
         incremental = se3.pose6_between(state.last_incre_pose, state.pose)
         out = StepOutput(pose=state.pose, incremental=incremental,
                          degenerate=res.degenerate, is_keyframe=is_kf,

@@ -75,6 +75,14 @@ HARD_KNOBS = dict(outlier_frac=0.02, n_scatter=20000, speed=2.0)
 DESKEW_SCANS = 20
 
 
+# chip_smoke.py phase 19, the device-resident replay programs: (a) bench.py
+# part 1b's inputs (`make_sequence(n_points=32768, seed=0, speed=2.0)`, IMU
+# windows of 64 samples, 10 a scan) through `make_pipeline_replay`; (b)
+# the loop mission's circle through `ChunkedReplay`, long enough that the
+# second loop the detector accepts is corrected at a cadence scan
+PIPELINE_REPLAY_SCANS = 120
+LOOP_REPLAY_SCANS = 130
+
 # chip_smoke.py phase 18, the sharded mission: SHARDED_SCANS scans of the
 # smoke mission's sequence, then an injected loop and at most SHARDED_TAIL
 # more scans until the full correction has run
@@ -222,6 +230,41 @@ def batch_sha256(batch: ReplayBatch) -> str:
     for a in batch:
         h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()
+
+
+def bench_replay_batch(seq: SyntheticSequence, cfg: Config) -> ReplayBatch:
+    """A numpy `ReplayBatch` as bench.py part 1b builds it: the scans with
+    zero point times and rings, and `make_imu_windows` of
+    `cfg.static.max_imu_window` samples, 10 a scan."""
+    n = len(seq.stamps)
+    P = cfg.static.max_raw_points
+    acc, gyr, dts, rel_t, imask = synthetic.make_imu_windows(
+        seq, cfg.static.max_imu_window, samples_per_scan=10,
+        gravity=cfg.imu.gravity)
+    return ReplayBatch(
+        xyz=seq.scans, ptime=np.zeros((n, P), np.float32),
+        pmask=seq.scan_masks, ring=np.zeros((n, P), np.int32), acc=acc,
+        gyr=gyr, dts=dts, rel_t=rel_t, imask=imask, stamp=seq.stamps)
+
+
+def pipeline_replay_inputs(n_scans: int = PIPELINE_REPLAY_SCANS,
+                           n_points: int = SMOKE_POINTS):
+    """(sequence, ReplayBatch) of bench.py part 1b: `n_scans` scans of the
+    smoke mission's world at 2 m/s for `bench_config()`."""
+    seq = synthetic.make_sequence(n_scans=n_scans, n_points=n_points,
+                                  seed=SMOKE_SEED, speed=SMOKE_SPEED)
+    return seq, bench_replay_batch(seq, bench_config())
+
+
+def loop_replay_inputs(n_scans: int = LOOP_REPLAY_SCANS,
+                       n_points: int = SMOKE_POINTS):
+    """(sequence, ReplayBatch) of the loop mission's circle for
+    `loop_mission_config()`, with bench.py part 1b's IMU windows.  A replay
+    feeds no GPS fix, so the config's GPS factor never lands."""
+    seq = synthetic.make_sequence(n_scans=n_scans, n_points=n_points,
+                                  seed=SMOKE_SEED, speed=LOOP_SPEED,
+                                  yaw_rate=LOOP_YAW_RATE, extent=LOOP_EXTENT)
+    return seq, bench_replay_batch(seq, loop_mission_config())
 
 
 def hard_replay_inputs(cfg: Config = None, n_scans: int = HARD_SCANS,

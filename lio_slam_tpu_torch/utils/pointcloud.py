@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from lio_slam_tpu_torch.utils.resident import constant
+
 _I32_MAX = 0x7FFFFFFF
 
 
@@ -70,8 +72,8 @@ def filter_points(cloud: Cloud, min_range: float, max_range: float,
     r = torch.linalg.norm(cloud.xyz, dim=-1)
     keep = cloud.mask & (r >= min_range) & (r <= max_range)
     if crop_min is not None:
-        cmin = torch.tensor(crop_min, dtype=torch.float32, device=cloud.xyz.device)
-        cmax = torch.tensor(crop_max, dtype=torch.float32, device=cloud.xyz.device)
+        cmin = constant(crop_min, torch.float32, cloud.xyz.device)
+        cmax = constant(crop_max, torch.float32, cloud.xyz.device)
         inside = torch.all((cloud.xyz >= cmin) & (cloud.xyz <= cmax), dim=-1)
         keep = keep & ~inside
     return cloud._replace(mask=keep)
@@ -138,7 +140,7 @@ def _segment_centroids(keys_sorted: torch.Tensor, mask_s: torch.Tensor,
 def voxel_downsample(cloud: Cloud, leaf_size: float, max_out: int) -> Cloud:
     """Centroid voxel-grid downsample (pcl::VoxelGrid) into a fixed-capacity
     output: sort by hashed voxel id -> run detection -> segment mean."""
-    leaf = torch.tensor(leaf_size, dtype=torch.float32, device=cloud.xyz.device)
+    leaf = constant(leaf_size, torch.float32, cloud.xyz.device)
     vid = _voxel_ids(cloud.xyz, cloud.mask, leaf)
     vid_s, order = torch.sort(vid, stable=True)
     out, out_mask = _segment_centroids(vid_s, cloud.mask[order],
@@ -158,7 +160,7 @@ def packed_voxel_downsample(cloud: Cloud, leaf_size: float,
     permutation instead of the TPU's packed payload lanes.
     """
     dev = cloud.xyz.device
-    leaf = torch.tensor(leaf_size, dtype=torch.float32, device=dev)
+    leaf = constant(leaf_size, torch.float32, dev)
     coords = torch.floor(cloud.xyz / leaf).to(torch.int32)            # (N, 3)
     big = torch.full_like(coords, 1 << 20)
     cmin = torch.min(torch.where(cloud.mask[:, None], coords, big), dim=0).values

@@ -620,3 +620,78 @@ def test_corrupt_scans_on_the_card(cuda, case, monkeypatch):
         assert fc.KERNEL_LAUNCHES == before + 1
         if not keep.any():
             assert int(out[2]) == 0 and float(out[0].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_graph_replay_matches_the_eager_replay(cuda):
+    """`make_pipeline_replay(loop_every=4)` on the card, each scan two
+    captured CUDA graphs, against `HostDrivenReplay` on the card over 10
+    scans at tests/test_replay.py's config: poses, GN iterations and
+    degenerate flags bit-equal, TransformFusion within 1e-6; the replay
+    loop under `torch.cuda.set_sync_debug_mode("error")` but for the
+    cadence calls; the kernel counted where it runs, at each replay of the
+    graph that holds it, not at its capture; a second call reuses the
+    graphs and repeats the poses."""
+    from lio_slam_tpu_torch.config import (RegistrationConfig,
+                                           StaticConfig)
+    from lio_slam_tpu_torch.pipeline import replay
+
+    cfg = Config(static=StaticConfig(max_raw_points=2048, max_scan_points=2048,
+                                     max_map_points=8192, max_keyframes=16,
+                                     max_keyframe_points=1024, max_loop_queue=2,
+                                     max_gps_queue=2, window_size=8,
+                                     max_imu_window=16),
+                 registration=RegistrationConfig(degeneracy_eig_thresh=10.0))
+    n_scans = 10
+    seq = synthetic.make_sequence(n_scans=n_scans, n_points=2048, seed=0)
+    acc, gyr, dts, rel_t, imask = synthetic.make_imu_windows(
+        seq, 16, samples_per_scan=8, gravity=cfg.imu.gravity)
+    batch = replay.ReplayBatch(
+        xyz=seq.scans, ptime=np.zeros((n_scans, 2048), np.float32),
+        pmask=seq.scan_masks, ring=np.zeros((n_scans, 2048), np.int32),
+        acc=acc, gyr=gyr, dts=dts, rel_t=rel_t, imask=imask, stamp=seq.stamps)
+    hd = replay.HostDrivenReplay(cfg, loop_every=4, device=cuda)
+    _, _, eager = hd.run(*hd.init(), hd.split(batch))
+
+    run = replay.make_pipeline_replay(cfg, loop_every=4, device=cuda)
+    staged = run.stage(batch)
+    state, fes = run.init()
+    R = cfg.registration.max_iterations
+    fc.KERNEL_LAUNCHES = 0
+    run.capture(state, fes, staged)
+    assert run.capture_seconds is not None
+    # the warm-up's two eager scans launch the kernel at every GN pass; the
+    # capture only records graph (a)'s R launches
+    assert fc.KERNEL_LAUNCHES == 2 * R
+    assert run.program.graph_launches == (R, 0)
+
+    def quiet(fn):
+        def wrapped(*a, **k):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return wrapped
+
+    run.detector, run.full_correct = quiet(run.detector), quiet(run.full_correct)
+    outs = []
+    fc.KERNEL_LAUNCHES = 0
+    for _ in range(2):
+        state, fes = run.init()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(run(state, fes, staged)[2])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    graph = outs[0]
+    for name in ("poses", "iters", "degenerate"):
+        assert torch.equal(getattr(graph, name), getattr(eager, name)), name
+    torch.testing.assert_close(graph.fused_last, eager.fused_last, rtol=0,
+                               atol=1e-6)
+    assert torch.equal(outs[1].poses, graph.poses)
+    # each replay of graph (a) launches the kernel R times; the cadence
+    # calls' loop verifications (none here: no candidate) would add theirs
+    assert fc.KERNEL_LAUNCHES == 2 * n_scans * R

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 torch.set_num_threads(1)
 
@@ -347,3 +348,55 @@ def spawn_ranks(world: int, workdir, cases: list,
 def rank_results(run: RankRun, case: str) -> list:
     """Every rank's results of `case`."""
     return [res[case] for res in run.results()]
+
+
+class HostReadGuard(TorchFunctionMode):
+    """Raises where code under it would read the device from the host or
+    copy host data to it, were its tensors on the card: `Tensor.__bool__`,
+    `item`, `tolist`, `__int__` / `__float__` / `__index__`, `cpu`,
+    `numpy`, `nonzero` (and the other ops whose output size depends on the
+    data), indexing with a boolean mask or with a 0-dim integer tensor
+    (which torch turns into a host integer with `item`), and tensors built
+    from host data (`torch.tensor`, `as_tensor`, `from_numpy`, a host
+    number assigned into a slot).  On the
+    CPU none of these wait for anything; the guard finds them there for
+    the device-resident replay, which a CUDA graph captures."""
+
+    READS = {"__bool__", "item", "tolist", "__int__", "__float__",
+             "__index__", "cpu", "numpy", "nonzero", "argwhere",
+             "masked_select", "unique", "unique_consecutive", "bincount",
+             "repeat_interleave", "tensor", "as_tensor", "from_numpy"}
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    @staticmethod
+    def _host_index(index) -> bool:
+        items = index if isinstance(index, tuple) else (index,)
+        for x in items:
+            if isinstance(x, torch.Tensor) and (
+                    x.dtype == torch.bool
+                    or (x.dim() == 0 and not x.is_floating_point())):
+                return True
+        return False
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", str(func))
+        bad = name in self.READS
+        if name == "repeat_interleave":
+            # an int count is static; a tensor of counts sizes the output
+            reps = args[1] if len(args) > 1 else kwargs.get("repeats")
+            bad = isinstance(reps, torch.Tensor)
+        if name == "where" and len(args) == 1 and not kwargs:
+            bad = True
+        if name in ("__getitem__", "__setitem__", "index_put_", "index_put"):
+            bad = self._host_index(args[1])
+        if name == "__setitem__" and not isinstance(args[2], torch.Tensor):
+            # a host number becomes a CPU tensor copied into the slot
+            bad = True
+        if bad:
+            raise AssertionError(f"host read or host data on the resident "
+                                 f"path: {name}")
+        return func(*args, **kwargs)

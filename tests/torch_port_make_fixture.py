@@ -67,6 +67,21 @@ CPU over exactly those missions and saves what the smoke run compares:
   GN iterations, the keyframe count before and after, the scan of the
   correction, and each device's rows in use at the end.
 
+- `pipeline_replay_jax.npz`: the JAX `make_pipeline_replay(loop_every=10)`
+  (the whole pipeline in one `lax.scan`) over bench.py part 1b's inputs
+  (`pipeline_replay_inputs()`: `bench_config()`, 120 scans of 32768
+  points, 64-sample IMU windows): the inputs' sha256, per-scan poses, GN
+  iterations, degenerate flags and TransformFusion output, the loop and
+  keyframe counts, the IMU front-end state each scan starts from and each
+  scan's GN trace as in `hard_replay_jax.npz` (both recorded by
+  `jax.debug.callback` in the scan body, which leaves the replay's numbers
+  bit-equal).
+- `loop_replay_jax.npz`: the JAX `ChunkedReplay(loop_every=10)` over the
+  loop mission's circle (`loop_replay_inputs()`: `loop_mission_config()`,
+  130 scans, no GPS in a replay): the same per-scan keys, the loop count
+  after each chunk, each detector cycle's accepted flags and the scans of
+  the full corrections (a chunk's last scan, where the flag was up).
+
 On the CPU the JAX registration takes its unfused path, which finds fresh
 correspondences at every GN iteration whatever `corr_refresh_every` says
 (`registration._maybe_fused` returns None there).  The mission runs
@@ -75,10 +90,11 @@ path it takes off the CPU, with the Pallas kernel in interpret mode and the
 candidate block held between refreshes, as the port does.
 
 Run by hand from the repository root (`smoke`, `loop`, `archive`, `bag`,
-`corner`, `hard`, `sharded`, or all seven when no argument is given):
+`corner`, `hard`, `sharded`, `replay`, or all eight when no argument
+is given):
 
     python tests/torch_port_make_fixture.py \
-        [smoke|loop|archive|bag|corner|hard|sharded]
+        [smoke|loop|archive|bag|corner|hard|sharded|replay]
 
 It is not a test (pytest does not collect it).
 """
@@ -123,6 +139,8 @@ CORNER_OUT = os.path.join(FIXTURES, "corner_mission_jax.npz")
 REBUILD_OUT = os.path.join(FIXTURES, "rebuild_mission_jax.npz")
 HARD_OUT = os.path.join(FIXTURES, "hard_replay_jax.npz")
 SHARDED_OUT = os.path.join(FIXTURES, "sharded_mission_jax.npz")
+PIPELINE_OUT = os.path.join(FIXTURES, "pipeline_replay_jax.npz")
+LOOP_REPLAY_OUT = os.path.join(FIXTURES, "loop_replay_jax.npz")
 
 
 def count_iterations(runner):
@@ -464,23 +482,47 @@ def corner_missions():
 def recording_gn_loop(gn_loop, scans):
     """`registration._gn_loop` for a trace that calls back with the pose
     and the inlier count each GN iteration starts from, then the final
-    pose, into `scans[-1]` (the fused path without candidate refresh,
-    `corr_refresh_every=1`)."""
+    pose, into `scans[-1]` (the fused path, with or without the candidate
+    refresh of `corr_refresh_every > 1`)."""
     def note(pose, n_inl):
         scans[-1].append((np.array(pose), int(n_inl)))
 
     def wrapped(scan, scan_mask, corr_fn, init_pose6, cfg, runnable,
                 min_correspondences, ne_fn=None):
-        def noting(pose):
-            ne = ne_fn(pose)
-            jax.debug.callback(note, pose, ne[2], ordered=True)
-            return ne
+        if isinstance(ne_fn, tuple):
+            gather_fn, from_cand_fn, refresh = ne_fn
+
+            def from_cand_noting(cand, hh, pose):
+                ne = from_cand_fn(cand, hh, pose)
+                jax.debug.callback(note, pose, ne[2], ordered=True)
+                return ne
+            noting = (gather_fn, from_cand_noting, refresh)
+        else:
+            def noting(pose):
+                ne = ne_fn(pose)
+                jax.debug.callback(note, pose, ne[2], ordered=True)
+                return ne
 
         res = gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg, runnable,
                       min_correspondences, ne_fn=noting)
         jax.debug.callback(note, res.pose, -1, ordered=True)
         return res
     return wrapped
+
+
+def padded_traces(gn, iters, cap):
+    """Each scan's mapping GN trace of `gn` (its first loop), padded:
+    (poses (S, cap + 1, 6), the pose each iteration started from, then the
+    final pose, NaN after; inliers (S, cap) of each iteration, -1 after)."""
+    gn_poses = np.full((len(gn), cap + 1, 6), np.nan, np.float32)
+    gn_inliers = np.full((len(gn), cap), -1, np.int32)
+    for k, loops in enumerate(gn):
+        trace = loops[:iters[k] + 1]
+        assert len(trace) == iters[k] + 1 and trace[-1][1] == -1, (
+            k, len(trace), iters[k])
+        gn_poses[k, :len(trace)] = [p for p, _ in trace]
+        gn_inliers[k, :iters[k]] = [c for _, c in trace[:-1]]
+    return gn_poses, gn_inliers
 
 
 def jax_replay(cfg, batch, loop_every, gn=None):
@@ -541,15 +583,8 @@ def hard_replay():
     state, outs, cycles, imu = jax_replay(cfg, batch, sm.HARD_LOOP_EVERY, gn)
     poses = np.asarray(outs.poses, np.float32)
     iters = np.asarray(outs.iters, np.int32)
-    # each scan's GN trace, padded: the pose each iteration started from,
-    # then the final pose; the inliers of each iteration
-    cap = cfg.registration.max_iterations
-    gn_poses = np.full((len(gn), cap + 1, 6), np.nan, np.float32)
-    gn_inliers = np.full((len(gn), cap), -1, np.int32)
-    for k, trace in enumerate(gn):
-        assert len(trace) == iters[k] + 1, (k, len(trace), iters[k])
-        gn_poses[k, :len(trace)] = [p for p, _ in trace]
-        gn_inliers[k, :iters[k]] = [c for _, c in trace[:-1]]
+    gn_poses, gn_inliers = padded_traces(gn, iters,
+                                         cfg.registration.max_iterations)
     ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
     cyc = lambda k: np.stack([c[k] for c in cycles])
     stack = lambda get: np.stack([get(f) for f in imu])
@@ -649,10 +684,124 @@ def sharded_mission():
     print(f"wrote {SHARDED_OUT}")
 
 
+def replay_outputs(outs) -> dict:
+    """The per-scan keys a replay fixture holds."""
+    return dict(poses=np.asarray(outs.poses, np.float32),
+                registration_iters=np.asarray(outs.iters, np.int32),
+                degenerate=np.asarray(outs.degenerate),
+                fused_last=np.asarray(outs.fused_last, np.float32))
+
+
+def pipeline_replays():
+    """The JAX scan programs over phase 19's inputs; writes PIPELINE_OUT
+    and LOOP_REPLAY_OUT."""
+    import jax.numpy as jnp
+
+    from lio_slam_tpu.pipeline import imu_frontend as jfe
+    from lio_slam_tpu.pipeline import lio as jlio
+    from lio_slam_tpu.pipeline import replay as jreplay
+
+    t0 = time.time()
+    cfg = sm.bench_config()
+    seq, batch = sm.pipeline_replay_inputs()
+    jcfg = to_jax_config(cfg, jax_config)
+    imu, gn = [], []
+
+    def note(fes):
+        imu.append(jax.tree.map(np.array, fes))
+        gn.append([])
+
+    def recording_frontend(imu_cfg):
+        correct, predict_rate, transform_fusion = make_frontend(imu_cfg)
+
+        def predicting(fes, *args):
+            jax.debug.callback(note, fes, ordered=True)
+            return predict_rate(fes, *args)
+        return correct, predicting, transform_fusion
+
+    make_frontend = jreplay.fe.make_frontend
+    jreplay.fe.make_frontend = recording_frontend
+    gn_loop, jreg._gn_loop = jreg._gn_loop, recording_gn_loop(jreg._gn_loop,
+                                                              gn)
+    try:
+        run = jreplay.make_pipeline_replay(jcfg, loop_every=sm.LOOP_EVERY)
+        state, _, outs = run(jlio.init_state(jcfg), jfe.init_state(),
+                             jreplay.ReplayBatch(*(jnp.asarray(a)
+                                                   for a in batch)))
+        jax.effects_barrier()
+    finally:
+        jreplay.fe.make_frontend = make_frontend
+        jreg._gn_loop = gn_loop
+    assert len(imu) == len(batch.stamp), len(imu)
+    stack = lambda get: np.stack([get(f) for f in imu])
+    out = replay_outputs(outs)
+    gn_poses, gn_inliers = padded_traces(gn, out["registration_iters"],
+                                         cfg.registration.max_iterations)
+    truth = sm.relative_truth(seq)
+    drift = float(np.linalg.norm(out["poses"][-1, 3:] - truth[-1, 3:]))
+    np.savez(PIPELINE_OUT, batch_sha256=np.array(sm.batch_sha256(batch)),
+             loop_count=np.int32(state.loop_count),
+             keyframes=np.int32(state.store.count), drift_m=np.float32(drift),
+             ate_rmse_m=np.float32(synthetic.ate_rmse(out["poses"], truth)),
+             imu_R=stack(lambda f: f.nav.R), imu_p=stack(lambda f: f.nav.p),
+             imu_v=stack(lambda f: f.nav.v),
+             imu_bias_gyr=stack(lambda f: f.bias_gyr),
+             imu_bias_acc=stack(lambda f: f.bias_acc),
+             imu_cov=stack(lambda f: f.cov),
+             imu_initialized=stack(lambda f: f.initialized),
+             imu_failure=stack(lambda f: f.failure),
+             gn_poses=gn_poses, gn_inliers=gn_inliers, **out)
+    print(f"wrote {PIPELINE_OUT}: {len(out['poses'])} scans, "
+          f"{int(state.store.count)} keyframes, {int(state.loop_count)} loops, "
+          f"drift {drift:.4f} m, {int(out['registration_iters'].sum())} GN "
+          f"iterations, degenerate at "
+          f"{np.nonzero(out['degenerate'])[0].tolist()}, {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    cfg = sm.loop_mission_config()
+    seq, batch = sm.loop_replay_inputs()
+    cr = jreplay.ChunkedReplay(to_jax_config(cfg, jax_config),
+                               loop_every=sm.LOOP_EVERY)
+    cycles, corrected, loops = [], [], []
+    detector, full_correct = cr.detector, cr.full_correct
+
+    def watching_detector(state):
+        state, aux = detector(state)
+        cycles.append({k: np.array(v) for k, v in aux.items()})
+        return state, aux
+
+    def watching_correct(state):
+        if bool(state.needs_full_solve):
+            corrected.append(len(cycles) * sm.LOOP_EVERY - 1)
+        state = full_correct(state)
+        loops.append(int(state.loop_count))
+        return state
+
+    cr.detector, cr.full_correct = watching_detector, watching_correct
+    state, fes = cr.init()
+    state, _, outs = cr.run(state, fes, cr.split(jreplay.ReplayBatch(
+        *(jnp.asarray(a) for a in batch))))
+    out = replay_outputs(outs)
+    cyc = lambda k: np.stack([c[k] for c in cycles])
+    np.savez(LOOP_REPLAY_OUT, batch_sha256=np.array(sm.batch_sha256(batch)),
+             loop_count=np.array(loops, np.int32),
+             keyframes=np.int32(state.store.count),
+             full_correction_scans=np.array(corrected, np.int32),
+             loop_accepted=cyc("loop_accepted"),
+             loop_fitness=cyc("loop_fitness"),
+             ate_rmse_m=np.float32(synthetic.ate_rmse(
+                 out["poses"], sm.relative_truth(seq))), **out)
+    print(f"wrote {LOOP_REPLAY_OUT}: {len(out['poses'])} scans, "
+          f"{int(state.store.count)} keyframes, loops after each chunk "
+          f"{loops}, full corrections at scans {corrected}, accepted "
+          f"{cyc('loop_accepted').tolist()}, {int(out['registration_iters'].sum())} "
+          f"GN iterations, {time.time() - t0:.1f} s")
+
+
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("smoke", "loop", "archive", "bag", "corner", "hard",
-                     "sharded", "all"):
+                     "sharded", "replay", "all"):
         sys.exit(__doc__)
     jreg._maybe_fused = jax_fused_interpret
     if which in ("smoke", "all"):
@@ -670,6 +819,8 @@ def main():
         hard_replay()
     if which in ("sharded", "all"):
         sharded_mission()
+    if which in ("replay", "all"):
+        pipeline_replays()
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--profile-dir DIR]
 
 1. Builds the port's CUDA kernel library from the sources in this checkout
-   (nvcc, sm_90a) and prints the build time and ptxas's register report.
+   (nvcc, sm_90a) and prints the build time and ptxas's register report
+   for each instantiation of the kernel (1, 3, 9 and 27 bucket ids a
+   point).
 2. Kernel phase: at the main path's shapes (an 8192-point scan against a
    65536-point map in a 32768 x 24 bucket grid, halo "z") holds the fused
    correspondence kernel to its plain PyTorch version on the card — inlier
@@ -201,10 +203,33 @@ ms a scan beside those of the sequential form.
    the masked keyframe saves cost a scan (the mapping step captured alone
    at 30 passes and at the mean rounded up; with the keyframe gate forced
    down, with and without the save).
+20. The grid's gather layouts, at bench.py's widths: (a), run right after
+   phase 2 (torch.profiler keeps every record there; after phase 19 it
+   drops most of them), the kernel at the instantiations phase 2 does not
+   reach, on phase 2's scan and map in
+   grids of 32768 buckets: halo "xy" at a cap of 72 (3 bucket ids a
+   point), "full" at 128 (1), "none" at 24 (27), and "z" at 24 on the scan
+   sorted by cell (`registration._cell_sorted`); each held to the plain
+   version as phase 12 holds a launch (the float64 arbiter on entries that
+   cancel), repeated launches bit-identical, device ms warm and with a cold
+   L2, per-call ms, the plain version's device ms and the bound.  (b) The
+   40-scan mission through `Runner(device="cuda")` under each of
+   `synthetic_mission.LAYOUT_MISSIONS` ("xy"/72, "full"/128, "none"/24,
+   and "z"/24 with `sort_scan_by_cell=True` and `scan_downsample="hash"`),
+   held to fixtures/layout_missions_jax.npz (the JAX Runner of the same
+   configs): launches equal to the GN iterations, within 0.02 m / 0.1 deg,
+   the keyframe count, the ATE within 10 % of the reference's; then with
+   the reference's IMU state carried in, GN iterations within 1 a scan.
+   Prints scans/s over scans 5-39 of each beside phase 3's.  (c) 20 scans
+   of `make_pipeline_replay` under the
+   sorted, hash-downsampled config: bit-equal to `HostDrivenReplay` in the
+   same process, no synchronization under "error" mode (the argsort and
+   the downsample's scatter capture), the launches 30 a scan.
 Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line describing the
-kernel (its launches on every path driven, apart), and last
+kernel (its launches on every path driven, apart; a `layouts` object with
+each instantiation's offsets, cap, times, bound and error), and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, without
 that line, if there is no CUDA device or any check fails.
 """
@@ -654,7 +679,7 @@ def mission_phase(dev, profile_dir):
 
     carried_phase(dev, cfg, scans, imus, fixture)
     profiled_phase(dev, cfg, scans, imus, profile_dir)
-    return launches
+    return launches, steady
 
 
 def fixture_imu_state(fixture, i, dev):
@@ -3598,6 +3623,244 @@ def resident_replay_phase():
     return a, graph_launches, b, err
 
 
+# phase 20 (a): (name, grid_halo, bucket cap, scan sorted by cell), each
+# against the kernel phase's scan and map
+LAYOUT_KERNELS = (("xy", "xy", 72, False), ("full", "full", 128, False),
+                  ("none", "none", 24, False), ("sorted", "z", 24, True))
+LAYOUT_REPLAY_SCANS = 20       # phase 20 (c)
+LAYOUT_MAX_ATE_REL = 0.10      # phase 20 (b): ATE within 10 % of the reference's
+
+
+def layout_kernel_phase(dev):
+    """Phase 20 (a): the kernel at each instantiation phase 2 does not run
+    (3 bucket ids a point at "xy", 1 at "full", 27 at "none") and at "z"
+    on the cell-sorted scan, on phase 2's scan and map: held to the plain
+    version (`bag_kernel_check`: the float64 arbiter on entries that
+    cancel), repeated launches bit-identical, device ms warm and with a
+    cold L2, per-call ms, the plain version's device ms and the bound.
+    Returns the JSON line's `layouts` object."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import registration as reg
+    from lio_slam_tpu_torch.ops import voxel_grid as vg
+    from lio_slam_tpu_torch.utils import se3
+
+    map_pts, body, pose0 = scene_points()
+    points = torch.from_numpy(map_pts).to(dev)
+    scan0 = torch.from_numpy(body).to(dev)
+    mask0 = torch.ones(N_SCAN, dtype=torch.bool, device=dev)
+    pose = torch.from_numpy(pose0 + np.array([2e-3, -1e-3, 4e-3, 0.05, -0.04,
+                                              0.02], np.float32)).to(dev)
+    kw = dict(nn_radius=1.0, plane_dist_thresh=0.2, robust_weight_floor=0.1)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    layouts = {}
+    for name, halo, cap, srt in LAYOUT_KERNELS:
+        grid = vg.build_grid(points, torch.ones(N_MAP, dtype=torch.bool,
+                                                device=dev),
+                             1.0, TABLE, cap, halo=halo)
+        scan, mask = (reg._cell_sorted(scan0, mask0, 1.0) if srt
+                      else (scan0, mask0))
+        hh = vg.bucket_ids(se3.transform_points(*se3.pose6_to_Rt(pose), scan),
+                           grid.cell_size, TABLE, halo)
+        label = (f"layout {name} ({halo}/{cap}, {hh.shape[0]} ids a point"
+                 f"{', scan sorted by cell' if srt else ''})")
+        err = bag_kernel_check(label, ((grid.table, hh, scan, mask, pose), kw))
+        out = fc.fused_normal_equations(grid, scan, mask, pose, halo=halo, **kw)
+        again = fc.fused_normal_equations(grid, scan, mask, pose, halo=halo,
+                                          **kw)
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            fail(f"{label}: repeated launches are not bit-identical")
+        if int(out[2]) < N_SCAN // 4:
+            fail(f"{label}: only {int(out[2])} inliers on a scan drawn from "
+                 "the map")
+        kernel = lambda: fc.fused_ne_from_bucket_ids(grid.table, hh, scan,
+                                                     mask, pose, **kw)
+        plain = lambda: fc.fused_ne_from_bucket_ids_ref(grid.table, hh, scan,
+                                                        mask, pose, **kw)
+        # in turns; the kernel's device time is its one kernel's mean
+        # duration (`named_kernel_ms`), which a record the tracer drops
+        # does not bias (at 27 ids it drops 3 of 20 in every pass)
+        on_device = [device_ms(plain),
+                     named_kernel_ms(kernel, "fused_corr_groups"),
+                     named_kernel_ms(kernel, "fused_corr_groups"),
+                     device_ms(plain)]
+        per_call = call_ms(kernel)
+        cold = named_kernel_ms(kernel, "fused_corr_groups",
+                               between=lambda: flush.fill_(1.0))
+        bound_ms, bound_by, n_bytes, flop, n_rows = kernel_bound(grid.table, hh,
+                                                                 scan, mask)
+        ms = min(on_device[1:3])
+        print(f"{label} ({SMI}): {int(grid.counts.sum())} slots filled; "
+              f"inliers {int(out[2])}; device ms per call (torch.profiler; "
+              f"the kernel's own launch) plain, kernel, kernel, plain = "
+              f"{', '.join(f'{x:.4f}' for x in on_device)}; cold L2 "
+              f"{cold:.4f}; per call as the caller "
+              f"sees it {per_call:.4f}; bound {bound_ms:.5f} ms by {bound_by} "
+              f"({n_rows} distinct bucket rows, {n_bytes} bytes, {flop} FLOP), "
+              f"time over bound {ms / bound_ms:.2f}", flush=True)
+        layouts[name] = {"halo": halo, "offsets": int(hh.shape[0]), "cap": cap,
+                         "sorted_scan": srt, "ms": ms,
+                         "plain_ms": min(on_device[0], on_device[3]),
+                         "cold_ms": cold, "call_ms": per_call,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "max_abs_err": err}
+    return layouts
+
+
+def layout_mission(dev, cfg, scans, imus, carried_from=None):
+    """(results, kernel launches, steady scans/s over scans 5-39) of
+    `Runner(cfg)` on the card over the scans; with `carried_from` each scan
+    starts from that fixture's IMU front-end state."""
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline.runner import Runner
+
+    runner = Runner(cfg, device=dev)
+    results, stamps = [], []
+    fc.KERNEL_LAUNCHES = 0
+    for i in range(len(scans)):
+        if carried_from is not None:
+            runner.imu_state = fixture_imu_state(carried_from, i, dev)
+        results.append(runner.process_scan(scans[i], imu=imus[i]))
+        stamps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    launches = fc.KERNEL_LAUNCHES
+    return (results, launches, (len(scans) - 5) / (stamps[-1] - stamps[4]),
+            int(runner.state.store.count))
+
+
+def layout_missions_phase(dev, default_rate):
+    """Phase 20 (b): the 40-scan smoke mission through `Runner(device=
+    "cuda")` under each of `synthetic_mission.LAYOUT_MISSIONS`, held to
+    fixtures/layout_missions_jax.npz (the JAX Runner of the same config):
+    launches equal to the GN iterations, the deviation within the mapping
+    limits, the keyframe count, the ATE within 10 % of the reference's;
+    then with the reference's IMU state carried in, GN iterations within 1
+    a scan.  Each rate is printed beside `default_rate`, phase 3's.
+    Returns each mission's launches."""
+    import numpy as np
+
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "layout_missions_jax.npz"))
+    seq = synthetic.make_sequence(n_scans=sm.SMOKE_SCANS, n_points=sm.SMOKE_POINTS,
+                                  seed=sm.SMOKE_SEED, speed=sm.SMOKE_SPEED)
+    truth = sm.relative_truth(seq)
+    launches, failures = {}, []
+    for name, halo, cap, srt, ds in sm.LAYOUT_MISSIONS:
+        label = f"layout mission {name}"
+        ref = {k[len(name) + 1:]: fixture[k] for k in fixture.files
+               if k.startswith(name + "_")}
+        cfg = sm.layout_mission_config(halo, cap, srt, ds)
+        scans, imus = sm.synthetic_inputs(seq, cfg)
+        results, n_launch, rate, kf = layout_mission(dev, cfg, scans, imus)
+        launches[name] = n_launch
+        poses = np.stack([r.pose for r in results])
+        iters = np.array([r.registration_iters for r in results])
+        ate = synthetic.ate_rmse(poses, truth)
+        ate_ref = float(ref["ate_rmse_m"])
+        print(f"{label} ({halo}/{cap}, sort_scan_by_cell={srt}, "
+              f"scan_downsample={ds!r}; {SMI}): {rate:.3f} scans/s over scans "
+              f"5-39 (phase 3's default mission {default_rate:.3f}); "
+              f"launches {n_launch}, GN "
+              f"iterations {int(iters.sum())} (JAX "
+              f"{int(ref['registration_iters'].sum())}); keyframes {kf} (JAX "
+              f"{int(ref['keyframes'])}); ATE {ate:.5f} m (JAX {ate_ref:.5f} m)",
+              flush=True)
+        failures += deviation_spans(label, poses, ref["poses"], (
+            ("free-running", slice(None), MAX_DEV_M, MAX_DEV_RAD),))
+        if n_launch != int(iters.sum()) or n_launch == 0:
+            failures.append(f"{label}: {n_launch} launches, {int(iters.sum())} "
+                            "GN iterations")
+        if kf != int(ref["keyframes"]):
+            failures.append(f"{label}: {kf} keyframes, JAX {int(ref['keyframes'])}")
+        if not abs(ate - ate_ref) <= LAYOUT_MAX_ATE_REL * ate_ref:
+            failures.append(f"{label}: ATE {ate} m against the reference's "
+                            f"{ate_ref} m")
+        carried, _, _, _ = layout_mission(dev, cfg, scans, imus, carried_from=ref)
+        c_poses = np.stack([r.pose for r in carried])
+        d_it = np.array([r.registration_iters for r in carried]) \
+            - ref["registration_iters"]
+        print(f"{label}, carried IMU state: max deviation "
+              f"{np.abs(c_poses[:, 3:] - ref['poses'][:, 3:]).max():.3e} m, "
+              f"{math.degrees(np.abs(c_poses[:, :3] - ref['poses'][:, :3]).max()):.3e} "
+              f"deg; GN iterations differ at scans {np.nonzero(d_it)[0].tolist()} "
+              f"(sums {int(d_it.sum()):+d})", flush=True)
+        if np.abs(d_it).max() > CARRIED_MAX_ITER_DIFF:
+            failures.append(f"{label}, carried: GN iterations differ by "
+                            f"{np.abs(d_it).max()} on a scan")
+    if failures:
+        fail("; ".join(failures))
+    return launches
+
+
+def layout_replay_phase():
+    """Phase 20 (c): `make_pipeline_replay` over the first
+    LAYOUT_REPLAY_SCANS scans of phase 19's inputs under the cell-sorted,
+    hash-downsampled mission's config (`LAYOUT_MISSIONS`' last): poses, GN
+    iterations and degenerate flags bit-equal to `HostDrivenReplay`'s in
+    the same process, no synchronization under
+    `set_sync_debug_mode("error")`, the launches counted over the graphs'
+    run 30 a scan plus the loop verifications'.  Returns those launches."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import replay
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    label = "layout replay (sorted scan, hash downsample)"
+    name, halo, cap, srt, ds = sm.LAYOUT_MISSIONS[-1]
+    cfg = sm.layout_mission_config(halo, cap, srt, ds)
+    _, batch = sm.pipeline_replay_inputs(n_scans=LAYOUT_REPLAY_SCANS)
+    hd = replay.HostDrivenReplay(cfg, loop_every=sm.LOOP_EVERY)
+    _, _, eager = hd.run(*hd.init(), hd.split(batch))
+    run = replay.make_pipeline_replay(cfg, loop_every=sm.LOOP_EVERY)
+    staged = run.stage(batch)
+    run.capture(*run.init(), staged)
+    cycles = []
+    restore = sync_free(run) + [watched_detector(run, cycles)]
+    try:
+        fc.KERNEL_LAUNCHES = 0
+        _, _, outs = no_sync(run, *run.init(), staged)
+        launches = fc.KERNEL_LAUNCHES
+        torch.cuda.synchronize()
+    finally:
+        for undo in reversed(restore):
+            undo()
+    failures = check_replay_launches(label, launches, LAYOUT_REPLAY_SCANS,
+                                     cfg.registration.max_iterations, cycles)[1]
+    same = {k: torch.equal(getattr(outs, k), getattr(eager, k))
+            for k in ("poses", "iters", "degenerate")}
+    d = float((outs.poses - eager.poses).abs().max())
+    print(f"{label}: {LAYOUT_REPLAY_SCANS} scans as CUDA graphs (capture "
+          f"{run.capture_seconds:.3f} s) against HostDrivenReplay in the same "
+          f"process: bit-equal {same} (poses within {d:.3e}); GN iterations "
+          f"{int(outs.iters.sum())}; no synchronization under 'error' mode",
+          flush=True)
+    if not all(same.values()):
+        failures.append(f"{label}: not bit-equal to the host-driven replay "
+                        f"{same}")
+    if not np.isfinite(outs.poses.cpu().numpy()).all():
+        failures.append(f"{label}: non-finite poses")
+    if failures:
+        fail("; ".join(failures))
+    return launches
+
+
+def layout_paths_phase(dev, default_rate):
+    """Phase 20 (b) and (c); (a) runs beside phase 2, where the tracer
+    still keeps every record (after phase 19 it drops most of them)."""
+    launches = layout_missions_phase(dev, default_rate)
+    launches["replay"] = layout_replay_phase()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-dir", default=None,
@@ -3653,8 +3916,10 @@ def main():
 
     warm_profiler(dev)
     k = phase("phase 2 (kernel)", kernel_phase, dev)
-    launches = phase("phases 3-5 (mission, carried, profiled)", mission_phase,
-                     dev, args.profile_dir)
+    layouts = phase("phase 20 (a) (the kernel at every gather layout)",
+                    layout_kernel_phase, dev)
+    launches, default_rate = phase("phases 3-5 (mission, carried, profiled)",
+                                   mission_phase, dev, args.profile_dir)
     loop_map, loop_ver, loop_err = phase("phases 6-8 (loop mission, kernel "
                                          "check, solvers)", loop_mission_phase,
                                          args.profile_dir)
@@ -3674,6 +3939,9 @@ def main():
     phase("phase 18 (sharded mission)", sharded_phase)
     pipe, pipe_graph, loop_replay, pipe_err = phase(
         "phase 19 (device-resident replay programs)", resident_replay_phase)
+    layout_launches = phase("phase 20 (b)-(c) (gather-layout missions, "
+                            "graph replay)", layout_paths_phase, dev,
+                            default_rate)
     paths = {"mission": launches, "loop_mapping": loop_map,
              "loop_verification": loop_ver, **arch, "resume": resumed,
              "bag_mapping": bag_map, "bag_loop_verification": bag_ver,
@@ -3681,7 +3949,8 @@ def main():
              "rebuild_mapping": rebuilt, "hard_replay_mapping": hard_map,
              "hard_replay_verification": hard_ver,
              "deskew_replay": deskewed, "pipeline_replay": pipe,
-             "loop_replay": loop_replay}
+             "loop_replay": loop_replay,
+             **{f"layout_{k}": v for k, v in layout_launches.items()}}
     print(json.dumps({"kernels": [{
         "name": "fused_corr", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/fused_corr.cu",
@@ -3691,10 +3960,16 @@ def main():
         "launches_pipeline_replay_graph_profiled": pipe_graph,
         "max_abs_err": max(k["max_abs_err"], loop_err, arch_err, bag_err,
                            hostile_err, corner_err, rebuild_err, hard_err,
-                           pipe_err),
+                           pipe_err,
+                           *(v["max_abs_err"] for v in layouts.values())),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None, "cold_ms": k["cold_ms"],
-        "entry_ms": k["entry_ms"], "entry_plain_ms": k["entry_plain_ms"]}]}),
+        "entry_ms": k["entry_ms"], "entry_plain_ms": k["entry_plain_ms"],
+        "layouts": {"z": {"halo": "z", "offsets": 9, "cap": CAP,
+                          "sorted_scan": False, "ms": k["ms"],
+                          "plain_ms": k["plain_ms"], "cold_ms": k["cold_ms"],
+                          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                          "max_abs_err": k["max_abs_err"]}, **layouts}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -150,10 +150,10 @@ class RegistrationConfig:
     # halo bucket layout (ops/voxel_grid.py): "none" = insert once, query 27
     # cells; "z" = insert under z+-1 too, query 9 cells; "xy" = insert under
     # the xy 3x3, query 3 cells (z+-1) — fewest, widest gather rows; "full" =
-    # insert under all 27 neighbour cells, query exactly ONE contiguous bucket — the
-    # layout the fused Pallas registration kernel consumes (gathers on TPU
-    # are granularity-bound, so one wide row beats 9-27 narrow ones).
-    # max_per_cell must scale with the layout: ~24 for "z", ~128 for "full"
+    # insert under all 27 neighbour cells, query exactly ONE contiguous bucket.
+    # The CUDA kernel has one instantiation a layout (27, 9, 3 or 1 buckets a
+    # point).  max_per_cell must scale with the layout: ~24 for "z", ~72 for
+    # "xy", ~128 for "full"
     grid_halo: str = "z"
     # local-map maintenance: "incremental" keeps one persistent voxel map
     # updated on keyframe insertion (iVox-style; no per-scan rebuild, the
@@ -165,9 +165,9 @@ class RegistrationConfig:
     # one kernel.  In the port: the CUDA kernel on CUDA tensors, its plain
     # PyTorch version on CPU tensors.
     use_fused_kernel: bool = True
-    # sort scan points by voxel cell before registration: permutation-
-    # invariant result with a more local bucket gather in the JAX package's
-    # TPU kernel; off by default, and not ported (the port raises)
+    # sort scan points by voxel cell before registration: the same normal
+    # equations up to rounding, neighbouring points reading the same buckets
+    # one after another; off by default
     sort_scan_by_cell: bool = False
     # correspondence refresh period for the fused path: 1 = re-gather the
     # candidate buckets every GN iteration (the reference re-runs its kd-tree

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel lio_slam_tpu/ops/fused_corr.py:_make_kernel
 // (launched by fused_ne_from_candidates).  Per scan point at pose6: squared
-// distances to the candidates of the 9 buckets around the point (halo "z",
-// C slots each), duplicate buckets skipped, 5-NN, covariance plane fit with
+// distances to the candidates of the O buckets the grid's halo layout has a
+// point scan (C slots each; O = 27 for "none", 9 for "z", 3 for "xy", 1 for
+// "full"), duplicate buckets skipped, 5-NN, covariance plane fit with
 // the closed-form trigonometric 3x3 eigensolver, the gates of
 // registration.find_correspondences, the Jacobian row [n.(dR/dth_k p), n],
 // and the 6x6 normal-equation sums.
@@ -27,15 +28,27 @@
 //   LANES = 8, WARPS = 16 that is 128 blocks of 64 points for a scan of
 //   8192: one block on each SM (a point in flight holds a 2.6 KB stage of
 //   shared memory, 170 KB a block), every point of the scan in flight.
-// - Every lane of a group loads the point, its mask bit and its 9 bucket
+// - The kernel is a template on O, one instantiation a layout (O = 1, 3, 9,
+//   27); the launcher refuses any other O.  A point's ids live in registers
+//   (h[O]) and the duplicate check is unrolled whole (O(O-1)/2 compares: 36
+//   at O = 9, 351 at O = 27), once a point a batch.  A point's stage is
+//   O * C * 3 floats: 2.6 KB at z/24 and xy/72, 1.5 KB at full/128, 7.8 KB
+//   at none/24, where the launcher's halving of the warps (see lio_fused_corr)
+//   leaves 4 warps, 16 points a block and 124 KB: right, one block an SM,
+//   every scan point still in flight at 8192 points (512 blocks over 132
+//   SMs), but a quarter of the lanes a block: 0.105 ms a call against z's
+//   0.014 on an H100 (PERF.md).  A stage streamed offset by offset, each
+//   lane's best 5 kept across the chunks, would lift that.
+// - Every lane of a group loads the point, its mask bit and its O bucket
 //   ids (one transaction a group, one round trip for all of them) and marks
 //   a bucket skipped if it repeats an earlier offset's id or lies outside
 //   [0, T), so a bad id never reads outside the table.  The TPU kernel adds
 //   1e30 to a repeated bucket's candidates instead; either way they never
-//   reach the 5-NN, because the offset-0 bucket alone holds C >= 5 slots.
+//   reach the 5-NN, because the offset-0 bucket alone holds C >= 5 slots
+//   (the launcher refuses C < 5).
 //   A point that is masked out is not staged or ranked at all: it
 //   contributes nothing whatever its neighbours are.
-// - Rows come in whole.  The group copies the 9 rows of its point (C x 12 B
+// - Rows come in whole.  The group copies the O rows of its point (C x 12 B
 //   each, 288 B at C = 24) into the point's stage in shared memory with
 //   16-byte cp.async (4-byte where C is not a multiple of 4), neighbouring
 //   lanes on neighbouring addresses.  A skipped bucket is not copied: its
@@ -114,7 +127,6 @@
 namespace {
 
 constexpr int KNN = 5;
-constexpr int MAX_O = 9;
 constexpr int N_OUT = 30;        // AtA upper triangle (21), Atb (6), 3 sums
 constexpr float BIG_D2 = 3.0e38f;
 constexpr float VALID_MAX = 1e10f;
@@ -353,9 +365,10 @@ __device__ __forceinline__ void rank_point(const float* rows, int R, float ux,
   }
 }
 
+template <int O>
 __global__ void __launch_bounds__(WARPS * 32)
 fused_corr_groups(const float* __restrict__ table, int T, int C,
-                  const int* __restrict__ hh, int O,
+                  const int* __restrict__ hh,
                   const float* __restrict__ scan,
                   const unsigned char* __restrict__ mask, int N,
                   const float* __restrict__ pose6, float nn_radius,
@@ -395,22 +408,20 @@ fused_corr_groups(const float* __restrict__ table, int T, int C,
     unsigned live = 0;            // bit o: bucket o is copied and ranked
     if (n < N && mask[n] != 0) {
       px = scan[3 * n + 0]; py = scan[3 * n + 1]; pz = scan[3 * n + 2];
-      int h[MAX_O];
+      int h[O];
 #pragma unroll
-      for (int o = 0; o < MAX_O; ++o) h[o] = (o < O) ? hh[(size_t)o * N + n] : -1;
+      for (int o = 0; o < O; ++o) h[o] = hh[(size_t)o * N + n];
 #pragma unroll
-      for (int o = 0; o < MAX_O; ++o) {
+      for (int o = 0; o < O; ++o) {
         // an id outside [0, T) reads as an empty bucket, never out of bounds
         bool dup = h[o] < 0 || h[o] >= T;
 #pragma unroll
-        for (int p = 0; p < MAX_O; ++p)
-          if (p < o && h[p] == h[o]) dup = true;
+        for (int p = 0; p < o; ++p) dup = dup || h[p] == h[o];
         if (!dup) live |= 1u << o;
       }
       if (live != 0) {
 #pragma unroll
-        for (int o = 0; o < MAX_O; ++o) {
-          if (o >= O) break;
+        for (int o = 0; o < O; ++o) {
           float* dst = rows + o * row_floats;
           if (!((live >> o) & 1u)) {
             // a skipped bucket ranks as an empty one: slots no query is near
@@ -517,6 +528,22 @@ extern "C" int lio_fused_corr_scratch_floats() {
   return SCRATCH_HEAD + MAX_BLOCKS * N_OUT;
 }
 
+// The instantiation for O ids a point (O = 1, 3, 9 or 27) and its slot in
+// the launcher's grant table, or nullptr for any other O.
+using KernelFn = void (*)(const float*, int, int, const int*, const float*,
+                          const unsigned char*, int, const float*, float, float,
+                          float, int, int, unsigned*, float*, float*);
+
+static KernelFn kernel_for(int O, int* which) {
+  switch (O) {
+    case 1: *which = 0; return fused_corr_groups<1>;
+    case 3: *which = 1; return fused_corr_groups<3>;
+    case 9: *which = 2; return fused_corr_groups<9>;
+    case 27: *which = 3; return fused_corr_groups<27>;
+    default: return nullptr;
+  }
+}
+
 // Launches the kernel on `stream`; returns the cudaError_t (0 = ok).  `out`
 // takes 45 words: AtA (6x6, symmetric), Atb (6), sum s, sum s|pd2| as
 // floats, then n_inliers as an int32.
@@ -527,7 +554,9 @@ extern "C" int lio_fused_corr(const float* table, int T, int C, const int* hh,
                               float plane_dist_thresh, float weight_floor,
                               float* scratch, int scratch_floats, float* out,
                               void* stream) {
-  if (O < 1 || O > MAX_O || T < 1 || C < 1 || N < 1 || N > (1 << 24) ||
+  int which = 0;
+  const KernelFn kernel = kernel_for(O, &which);
+  if (kernel == nullptr || T < 1 || C < KNN || N < 1 || N > (1 << 24) ||
       scratch_floats < SCRATCH_HEAD + MAX_BLOCKS * N_OUT ||
       (reinterpret_cast<uintptr_t>(table) & 15u) != 0 ||
       (reinterpret_cast<uintptr_t>(scratch) & 15u) != 0)
@@ -547,26 +576,25 @@ extern "C" int lio_fused_corr(const float* table, int T, int C, const int* hh,
   if (smem > MAX_STAGE_BYTES) return (int)cudaErrorInvalidValue;
   const int n_batches = (N + warps * PPW - 1) / (warps * PPW);
   const int blocks = n_batches < MAX_BLOCKS ? n_batches : MAX_BLOCKS;
-  // above 48 KB a kernel has to be granted its dynamic shared memory, once a
-  // device: the current one, which the wrapper makes the table's.  Host
-  // threads take turns from the grant to the launch.
+  // above 48 KB a kernel has to be granted its dynamic shared memory, once an
+  // instantiation a device: the current one, which the wrapper makes the
+  // table's.  Host threads take turns from the grant to the launch.
   static std::mutex launching;
-  static size_t granted[64] = {0};
+  static size_t granted[4][64] = {};
   std::lock_guard<std::mutex> turn(launching);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   if (device < 0 || device >= 64) return (int)cudaErrorInvalidValue;
-  if (smem > granted[device]) {
-    err = cudaFuncSetAttribute(fused_corr_groups,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (smem > granted[which][device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    granted[device] = smem;
+    granted[which][device] = smem;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fused_corr_groups<<<blocks, warps * 32, smem, s>>>(
-      table, T, C, hh, O, scan, mask, N, pose6, nn_radius, plane_dist_thresh,
+  kernel<<<blocks, warps * 32, smem, s>>>(
+      table, T, C, hh, scan, mask, N, pose6, nn_radius, plane_dist_thresh,
       weight_floor, stage_floats, C % 4 == 0, reinterpret_cast<unsigned*>(scratch),
       scratch + SCRATCH_HEAD, out);
   return (int)cudaGetLastError();

@@ -3,7 +3,8 @@ its plain PyTorch version.
 
 Port of `lio_slam_tpu/ops/fused_corr.py`, the one Pallas kernel of the JAX
 package.  Per scan point at pose6: squared distances to the R = O*C
-candidates of the 9 buckets around the point (halo "z"), duplicate buckets
+candidates of the O buckets the grid's halo layout has a point scan (27
+for "none", 9 for "z", 3 for "xy", 1 for "full"), duplicate buckets
 suppressed, 5-NN, a covariance plane fit with the closed-form 3x3
 eigensolver, every gate of `registration.find_correspondences`, the
 Jacobian row [n·(∂R/∂θ_k p), n], and the 6x6 normal-equation sums.
@@ -54,7 +55,9 @@ from lio_slam_tpu_torch.ops import voxel_grid as vg
 from lio_slam_tpu_torch.utils import se3
 
 KNN = 5
-MAX_OFFSETS = 9               # bucket ids per point the kernel holds
+# bucket ids a point, one kernel instantiation each: the halo layouts
+# "full", "xy", "z" and "none"
+KERNEL_OFFSETS = (1, 3, 9, 27)
 # the kernel's output words: AtA (6x6, symmetric), Atb (6), Σs, Σs·|pd2| as
 # float32, then n_inliers as an int32
 OUT_WORDS = 45
@@ -252,9 +255,12 @@ def _check_cuda_inputs(table, hh, scan, scan_mask, pose6):
     if hh.shape[1] != N or scan_mask.shape[0] != N or N == 0:
         raise ValueError(f"hh {tuple(hh.shape)} / scan_mask "
                          f"{tuple(scan_mask.shape)} do not match N={N}")
-    if not 1 <= hh.shape[0] <= MAX_OFFSETS:
-        raise ValueError(f"the kernel scans 1 to {MAX_OFFSETS} buckets per "
+    if hh.shape[0] not in KERNEL_OFFSETS:
+        raise ValueError(f"the kernel scans {KERNEL_OFFSETS} buckets per "
                          f"point, hh has {hh.shape[0]} rows")
+    if table.shape[1] < KNN:
+        raise ValueError(f"the kernel needs {KNN} slots a bucket, the table "
+                         f"has {table.shape[1]}")
     if N > 2 ** 24:
         raise ValueError(f"the kernel counts inliers in float32: N={N} > 2^24")
     if table.data_ptr() % 16:

@@ -219,6 +219,22 @@ def _degeneracy_projection(AtA: torch.Tensor, eig_thresh: float):
     return P, torch.any(eigval < eig_thresh)
 
 
+def _cell_sorted(scan: torch.Tensor, scan_mask: torch.Tensor,
+                 cell_size: float):
+    """The scan's points in the order of their body-frame cell (masked
+    points last), so that neighbouring points read the same buckets; the
+    normal equations are a sum over points, so only their rounding
+    changes.  Cell coordinates are clipped to 10 bits a axis after adding
+    512 and packed (c0 << 20) | (c1 << 10) | c2; a masked point's key is
+    1 << 30; the sort is stable, as `jnp.argsort` is."""
+    c = torch.clamp(torch.floor(scan / cell_size).to(torch.int32) + 512,
+                    0, 1023)
+    key = (c[:, 0] << 20) | (c[:, 1] << 10) | c[:, 2]
+    key = torch.where(scan_mask, key, torch.full_like(key, 1 << 30))
+    order = torch.argsort(key, stable=True)
+    return scan[order], scan_mask[order]
+
+
 def _maybe_fused(scan, scan_mask, grid, cfg: RegistrationConfig):
     """The fused-pass ne_fn when enabled (grid backend, use_fused_kernel).
     The wrapper picks the kernel or its plain version by the tensors'
@@ -349,9 +365,9 @@ def register_with_grid(scan: torch.Tensor, scan_mask: torch.Tensor,
     Skips (returns the initial pose) below 31 scan or 51 map points
     (:1841).  `resident` runs `_gn_loop_resident`: no read of the device,
     the same results."""
-    if cfg.sort_scan_by_cell:
-        raise NotImplementedError("sort_scan_by_cell is not ported")
     scan = scan.to(torch.float32)
+    if cfg.sort_scan_by_cell:
+        scan, scan_mask = _cell_sorted(scan, scan_mask, cfg.nn_radius)
 
     def corr_fn(pose):
         return find_correspondences(scan, scan_mask, None, None, pose, cfg,
@@ -378,10 +394,10 @@ def register(scan: torch.Tensor, scan_mask: torch.Tensor,
     neighbourhood covers the gate) and the fused pass; with "brute" the
     exact k-NN over the cloud at every iteration.  Skips (returns the
     initial pose) below 31 scan or 51 map points (:1841, :1724)."""
-    if cfg.sort_scan_by_cell:
-        raise NotImplementedError("sort_scan_by_cell is not ported")
     scan = scan.to(torch.float32)
     map_pts = map_pts.to(torch.float32)
+    if cfg.sort_scan_by_cell:
+        scan, scan_mask = _cell_sorted(scan, scan_mask, cfg.nn_radius)
     grid = _map_grid(map_pts, map_mask, cfg)
 
     def corr_fn(pose):

@@ -1,14 +1,23 @@
 """Spatial hash-grid neighbour search (port of `lio_slam_tpu/ops/voxel_grid.py`).
 
 Points live in a bucket-major (T buckets x C slots x 3) table; empty slots
-hold SENTINEL coordinates so a query needs no occupancy read.  Two halo
-layouts are ported: "z" (the registration map's, config.py `grid_halo`:
-each point inserted under its own cell and its z±1 cells, a query scans the
-9 xy-neighbour cells) and "none" (the map products' outlier removal: each
-point inserted once, a query scans the 27 surrounding cells, in the row
-order of the JAX package's `jnp.meshgrid(..., indexing="ij")`, which
-decides the neighbour a tie goes to).  "xy" and "full" raise
-NotImplementedError.
+hold SENTINEL coordinates so a query needs no occupancy read.  The halo
+layout (config.py `grid_halo`) trades insert rows a point against buckets
+a query scans:
+
+- "none": each point inserted once; a query scans the 27 surrounding cells
+  (also the map products' outlier removal).
+- "z" (the default): each point inserted under its own cell and its z±1
+  cells; a query scans the 9 xy-neighbour cells.
+- "xy": each point inserted under its 9 xy-neighbour cells; a query scans
+  its own cell and z±1 (3 buckets, a bucket cap about 3x "z"'s).
+- "full": each point inserted under all 27 neighbour cells; a query reads
+  its own bucket alone (`gather_candidates`).
+
+Offsets are listed in the JAX package's order (`jnp.meshgrid(...,
+indexing="ij")`, the z offsets as written there): a query's rows follow
+them, and that order decides the neighbour a tie goes to.  Any other
+layout name raises ValueError.
 
 Bucket ids must equal the JAX package's bit for bit: the int32 hash wraps
 on overflow in both (torch's int32 multiply wraps like jnp's), `abs` of
@@ -32,9 +41,12 @@ _OFFSETS_Z3 = ((0, 0, 0), (0, 0, -1), (0, 0, 1))
 _OFFSETS_XY9 = tuple((i, j, 0) for i in (-1, 0, 1) for j in (-1, 0, 1))
 _OFFSETS_27 = tuple((i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
                     for k in (-1, 0, 1))
+_OFFSETS_1 = ((0, 0, 0),)
 # insert multiplicity / cells a query scans, per layout
-_INSERT_OFFSETS = {"none": ((0, 0, 0),), "z": _OFFSETS_Z3}
-_QUERY_OFFSETS = {"none": _OFFSETS_27, "z": _OFFSETS_XY9}
+_INSERT_OFFSETS = {"none": _OFFSETS_1, "z": _OFFSETS_Z3, "xy": _OFFSETS_XY9,
+                   "full": _OFFSETS_27}
+_QUERY_OFFSETS = {"none": _OFFSETS_27, "z": _OFFSETS_XY9, "xy": _OFFSETS_Z3,
+                  "full": _OFFSETS_1}
 
 
 class HashGrid(NamedTuple):
@@ -53,9 +65,8 @@ class NeighborResult(NamedTuple):
 
 def _check_halo(halo: str):
     if halo not in _QUERY_OFFSETS:
-        raise NotImplementedError(
-            f"grid_halo={halo!r}: the port implements the 'z' and 'none' "
-            "layouts")
+        raise ValueError(f"grid_halo={halo!r}: the layouts are "
+                         f"{sorted(_QUERY_OFFSETS)}")
 
 
 def insert_offsets(device, halo: str = "z") -> torch.Tensor:
@@ -158,10 +169,19 @@ def insert_points(grid: HashGrid, points: torch.Tensor, mask: torch.Tensor,
     return HashGrid(table=table, counts=counts, cell_size=grid.cell_size)
 
 
+def gather_candidates(grid: HashGrid, queries: torch.Tensor) -> torch.Tensor:
+    """The "full" layout's single-bucket candidate fetch, planar as the JAX
+    package's: (3C, N) with rows [x_0..x_{C-1}, y_*, z_*]."""
+    T, C, _ = grid.table.shape
+    coords = torch.floor(queries / grid.cell_size).to(torch.int32)
+    hh = _cell_hash(coords, T).to(torch.int64)                      # (N,)
+    return grid.table[hh].permute(2, 1, 0).reshape(3 * C, queries.shape[0])
+
+
 def query_knn(grid: HashGrid, queries: torch.Tensor, query_mask: torch.Tensor,
               k: int = 5, halo: str = "z") -> NeighborResult:
-    """Exact k-NN among the candidates of the cells around each query (the
-    9 xy cells for halo "z", the 27 surrounding ones for "none").
+    """Exact k-NN among the candidates of the buckets a query scans under
+    `halo` (27 for "none", 9 for "z", 3 for "xy", its own for "full").
 
     Iterative masked argmin over the R = O*C candidate rows; ties go to the
     lowest row, as `jnp.argmin` breaks them."""

@@ -537,9 +537,6 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
     carry no GPS fix."""
     s = cfg.static
     r = cfg.registration
-    if r.scan_downsample not in ("packed", "voxel"):
-        raise NotImplementedError(f"scan_downsample={r.scan_downsample!r} is "
-                                  "not ported")
     if resident and (r.use_corner_features or r.local_map_mode != "incremental"):
         raise NotImplementedError("the resident step serves the surface-only "
                                   "incremental-map path")
@@ -553,7 +550,10 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
 
     def lio_step(state: LioState, inp: ScanInput):
         pose_guess = _update_initial_guess(state, inp)
-        if r.scan_downsample == "packed":
+        if r.scan_downsample == "hash":
+            scan_ds = pc.hash_downsample(inp.cloud, r.mapping_surf_leaf_size,
+                                         s.max_scan_points)
+        elif r.scan_downsample == "packed":
             scan_ds = pc.packed_voxel_downsample(
                 inp.cloud, r.mapping_surf_leaf_size, s.max_scan_points)
         else:

@@ -148,6 +148,25 @@ def sharded_mission_config(n_devices: int) -> Config:
             grid_table_size=SHARDED_MAP_BUCKETS // n_devices))
 
 
+# chip_smoke.py phase 20's gather layouts: (name, grid_halo, bucket cap,
+# sort_scan_by_cell, scan_downsample), each a 40-scan smoke mission
+LAYOUT_MISSIONS = (("xy", "xy", 72, False, "packed"),
+                   ("full", "full", 128, False, "packed"),
+                   ("none", "none", 24, False, "packed"),
+                   ("sorted_hash", "z", 24, True, "hash"))
+
+
+def layout_mission_config(halo: str, cap: int, sort_scan_by_cell: bool = False,
+                          scan_downsample: str = "packed") -> Config:
+    """`bench_config()` on another halo layout and bucket cap, optionally
+    with the scan sorted by cell and the hash downsample: the smoke
+    mission's shapes through another of the kernel's instantiations."""
+    base = bench_config()
+    return dataclasses.replace(base, registration=dataclasses.replace(
+        base.registration, grid_halo=halo, grid_max_per_cell=cap,
+        sort_scan_by_cell=sort_scan_by_cell, scan_downsample=scan_downsample))
+
+
 def loop_mission_config() -> Config:
     """`bench_config()` with loop closure (keyframe archive off) and GPS
     on.  A mission of 12.5 s cannot meet the default 30 s gap between the

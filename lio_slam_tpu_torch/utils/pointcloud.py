@@ -178,6 +178,32 @@ def packed_voxel_downsample(cloud: Cloud, leaf_size: float,
     return Cloud(xyz=out, mask=out_mask)
 
 
+def hash_downsample(cloud: Cloud, leaf_size: float, max_out: int) -> Cloud:
+    """Sort-free voxel downsample: one representative point a hash slot
+    (the voxel id modulo `max_out`), cheaper than a centroid downsample at
+    the cost of representatives instead of centroids and of distinct voxels
+    merging in a slot.
+
+    The JAX package scatters every point into its slot and the last write
+    wins on XLA's CPU backend; a scatter with repeated indices has no
+    defined winner on CUDA, so the winner is made explicit: the largest
+    point index a slot (`scatter_reduce` "amax"), then a gather.  No host
+    read, so the resident step captures it."""
+    dev = cloud.xyz.device
+    n = cloud.capacity
+    leaf = constant(leaf_size, torch.float32, dev)
+    vid = _voxel_ids(cloud.xyz, cloud.mask, leaf)
+    slot = torch.where(cloud.mask, vid % max_out,
+                       torch.full_like(vid, max_out)).to(torch.int64)
+    winner = torch.full((max_out + 1,), -1, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, slot, torch.arange(n, device=dev), "amax")
+    winner = winner[:max_out]
+    hit = winner >= 0
+    xyz = cloud.xyz[torch.clamp(winner, min=0)]
+    return Cloud(xyz=torch.where(hit[:, None], xyz, torch.zeros_like(xyz)),
+                 mask=hit)
+
+
 def merge_clouds(a: Cloud, b: Cloud, capacity: int) -> Cloud:
     """Concatenate two masked clouds into a fixed capacity (valid first)."""
     merged = compact(Cloud(xyz=torch.cat([a.xyz, b.xyz]),

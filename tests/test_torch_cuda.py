@@ -83,6 +83,50 @@ def test_kernel_any_capacity_and_ragged_scan(cuda, cap, n_scan):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("halo,cap", [("full", 64), ("full", 128), ("xy", 72),
+                                      ("none", 24)])
+def test_kernel_at_every_layout(cuda, halo, cap):
+    """The instantiations at 1, 3 and 27 bucket ids a point against the
+    plain version; repeated launches bit-identical."""
+    map_pts, scan = planar_scene(6, n_map=8192, n_scan=1000)
+    grid = vg.build_grid(t(map_pts).to(cuda),
+                         torch.ones(len(map_pts), dtype=torch.bool, device=cuda),
+                         1.0, 4096, cap, halo=halo)
+    scan = t(scan).to(cuda)
+    mask = torch.ones(len(scan), dtype=torch.bool, device=cuda)
+    mask[3::11] = False
+    pose = t(POSE).to(cuda)
+    before = fc.KERNEL_LAUNCHES
+    out = fc.fused_normal_equations(grid, scan, mask, pose, halo=halo, **KW)
+    torch.cuda.synchronize()
+    assert fc.KERNEL_LAUNCHES == before + 1
+    ref = fc.fused_normal_equations_ref(grid, scan, mask, pose, halo=halo, **KW)
+    assert int(out[2]) > 100
+    assert_ne_close(out, ref)
+    again = fc.fused_normal_equations(grid, scan, mask, pose, halo=halo, **KW)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_other_offset_counts_and_narrow_buckets(cuda):
+    """No instantiation for 2 or 10 ids a point, none for fewer than 5
+    slots a bucket: the wrapper raises, it never runs the plain version."""
+    grid, scan = scene_on(cuda)
+    mask = torch.ones(len(scan), dtype=torch.bool, device=cuda)
+    pose = t(POSE).to(cuda)
+    hh = vg.bucket_ids(scan, grid.cell_size, grid.table.shape[0])
+    before = fc.KERNEL_LAUNCHES
+    for ids in (hh[:2], torch.cat([hh, hh[:1]])):
+        with pytest.raises(ValueError, match="buckets per point"):
+            fc.fused_ne_from_bucket_ids(grid.table, ids.contiguous(), scan,
+                                        mask, pose, **KW)
+    with pytest.raises(ValueError, match="slots a bucket"):
+        fc.fused_ne_from_bucket_ids(grid.table[:, :4].contiguous(), hh, scan,
+                                    mask, pose, **KW)
+    assert fc.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.cuda
 def test_kernel_ignores_non_finite_points(cuda):
     """Non-finite points, masked or not, contribute nothing, in the kernel
     as in the plain version on the same tensors."""

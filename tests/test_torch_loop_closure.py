@@ -139,12 +139,16 @@ def test_detect_rejects_recent_and_unknown_places():
 # the rebuild-form register
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("refresh,n_scan", [(1, 640), (2, 896)])
-def test_register_matches(monkeypatch, refresh, n_scan):
+@pytest.mark.parametrize("refresh,n_scan,halo,sort", [
+    pytest.param(1, 640, "z", False, id="1-640"),
+    pytest.param(2, 896, "z", False, id="2-896"),
+    pytest.param(2, 768, "full", True, id="2-768-full-sorted")])
+def test_register_matches(monkeypatch, refresh, n_scan, halo, sort):
     """JAX through its fused path (the Pallas kernel in interpret mode, as
     off the CPU; it takes scans of a multiple of 128 points), the port
     through the fused pass's plain version.  The scan sizes are this test's
-    own, so no other test's compiled `register` is reused."""
+    own, so no other test's compiled `register` is reused.  The last case
+    builds the "full" grid over the map and sorts the scan by cell."""
     monkeypatch.setattr(jreg, "_maybe_fused", jax_fused_interpret)
     map_pts, scan = planar_scene(5, n_map=4096, n_scan=n_scan)
     mmask = np.ones(len(map_pts), bool)
@@ -152,7 +156,9 @@ def test_register_matches(monkeypatch, refresh, n_scan):
     smask = np.ones(n_scan, bool)
     smask[::11] = False
     init = np.array([0.01, -0.02, 0.05, 0.3, -0.2, 0.05], np.float32)
-    kw = dict(corr_refresh_every=refresh, grid_table_size=4096)
+    kw = dict(corr_refresh_every=refresh, grid_table_size=4096,
+              grid_halo=halo, grid_max_per_cell=128 if halo == "full" else 24,
+              sort_scan_by_cell=sort)
     ra = jreg.register(jnp.asarray(scan), jnp.asarray(smask), jnp.asarray(map_pts),
                        jnp.asarray(mmask), jnp.asarray(init),
                        jax_config.RegistrationConfig(**kw))
@@ -196,9 +202,10 @@ def test_register_gates_and_refusals():
     assert rp.iterations == int(rj.iterations) > 1
     assert int(rp.num_inliers) == int(rj.num_inliers)
     np.testing.assert_allclose(n(rp.pose), np.asarray(rj.pose), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="sort_scan_by_cell"):
-        treg.register(t(scan), t(few), t(map_pts), t(few_map), init,
+    # the cell-sorted scan passes the same gates
+    r = treg.register(t(scan), t(few), t(map_pts), t(np.ones(1024, bool)), init,
                       dataclasses.replace(cfg, sort_scan_by_cell=True))
+    assert r.iterations == 0 and torch.equal(r.pose, init)
 
 
 # --------------------------------------------------------------------------

@@ -225,9 +225,9 @@ class TestHaloNone:
         np.testing.assert_array_equal(n(rb.neighbors)[n(ra.valid)],
                                       n(ra.neighbors)[n(ra.valid)])
 
-    def test_xy_and_full_still_refused(self):
-        for halo in ("xy", "full"):
-            with pytest.raises(NotImplementedError):
+    def test_unknown_halo_refused(self):
+        for halo in ("", "xyz"):
+            with pytest.raises(ValueError, match="grid_halo"):
                 tvg.build_grid(t(np.zeros((4, 3), np.float32)),
                                t(np.ones(4, bool)), 1.0, 64, 4, halo=halo)
 

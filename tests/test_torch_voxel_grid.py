@@ -83,7 +83,7 @@ def test_query_knn_matches():
     np.testing.assert_allclose(n(rb.neighbors)[v], n(ra.neighbors)[v], atol=1e-6)
 
 
-def test_other_halos_refused():
-    with pytest.raises(NotImplementedError):
+def test_unknown_halo_refused():
+    with pytest.raises(ValueError, match="grid_halo"):
         tvg.bucket_ids(t(np.zeros((4, 3), np.float32)),
-                       tvg.empty_grid(1.0, 64, 4).cell_size, 64, halo="full")
+                       tvg.empty_grid(1.0, 64, 4).cell_size, 64, halo="zz")

@@ -45,6 +45,20 @@ def small_config(config_module):
         loop=m.LoopClosureConfig(enabled=False))
 
 
+def small_layout_config(name):
+    """The port's `small_config` under the gather layout `name` of
+    `synthetic_mission.LAYOUT_MISSIONS` (tests/test_torch_gather_layouts.py's
+    missions; `torch_port_make_fixture.py layouts` records the JAX runs)."""
+    from lio_slam_tpu_torch import config as port_config
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    base = small_config(port_config)
+    _, halo, cap, srt, ds = next(x for x in sm.LAYOUT_MISSIONS if x[0] == name)
+    return dataclasses.replace(base, registration=dataclasses.replace(
+        base.registration, grid_halo=halo, grid_max_per_cell=cap,
+        sort_scan_by_cell=srt, scan_downsample=ds))
+
+
 def t(x, dtype=None):
     """numpy -> CPU tensor (copy)."""
     out = torch.from_numpy(np.array(x))

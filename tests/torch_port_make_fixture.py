@@ -82,6 +82,18 @@ CPU over exactly those missions and saves what the smoke run compares:
   after each chunk, each detector cycle's accepted flags and the scans of
   the full corrections (a chunk's last scan, where the flag was up).
 
+- `layout_missions_jax.npz`: the JAX `Runner` over the smoke mission's 40
+  scans under each of chip_smoke.py phase 20's configurations
+  (`synthetic_mission.LAYOUT_MISSIONS` through `layout_mission_config`:
+  halo "xy" at a cap of 72, "full" at 128, "none" at 24, and "z" at 24 with
+  the cell-sorted scan and the hash downsample), keys prefixed with the
+  mission's name: what `smoke_mission_jax.npz` holds.  Beside them, keys
+  prefixed `small_<name>_`, the same configurations at the narrow widths of
+  `torch_port_helpers.small_config` over 5 scans of 2048 points
+  (tests/test_torch_gather_layouts.py): per-scan poses, keyframe flags, GN
+  iterations, the IMU front-end state each scan starts from, the keyframe
+  count and the grid's counts at the end.
+
 On the CPU the JAX registration takes its unfused path, which finds fresh
 correspondences at every GN iteration whatever `corr_refresh_every` says
 (`registration._maybe_fused` returns None there).  The mission runs
@@ -90,11 +102,11 @@ path it takes off the CPU, with the Pallas kernel in interpret mode and the
 candidate block held between refreshes, as the port does.
 
 Run by hand from the repository root (`smoke`, `loop`, `archive`, `bag`,
-`corner`, `hard`, `sharded`, `replay`, or all eight when no argument
-is given):
+`corner`, `hard`, `sharded`, `replay`, `layouts`, or all nine when no
+argument is given):
 
     python tests/torch_port_make_fixture.py \
-        [smoke|loop|archive|bag|corner|hard|sharded|replay]
+        [smoke|loop|archive|bag|corner|hard|sharded|replay|layouts]
 
 It is not a test (pytest does not collect it).
 """
@@ -127,7 +139,8 @@ from lio_slam_tpu_torch.io import synthetic  # noqa: E402
 from lio_slam_tpu_torch.pipeline import synthetic_mission as sm  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
-from torch_port_helpers import (jax_fused_interpret, repaired_jax_feed,  # noqa: E402
+from torch_port_helpers import (jax_fused_interpret, record_imu_states,  # noqa: E402
+                                repaired_jax_feed, small_layout_config,
                                 to_jax_config)
 
 FIXTURES = os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures")
@@ -141,6 +154,9 @@ HARD_OUT = os.path.join(FIXTURES, "hard_replay_jax.npz")
 SHARDED_OUT = os.path.join(FIXTURES, "sharded_mission_jax.npz")
 PIPELINE_OUT = os.path.join(FIXTURES, "pipeline_replay_jax.npz")
 LOOP_REPLAY_OUT = os.path.join(FIXTURES, "loop_replay_jax.npz")
+LAYOUT_OUT = os.path.join(FIXTURES, "layout_missions_jax.npz")
+SMALL_LAYOUT_SCANS = 5          # tests/test_torch_gather_layouts.py's missions
+SMALL_LAYOUT_POINTS = 2048
 
 
 def count_iterations(runner):
@@ -417,38 +433,70 @@ def bag_missions():
     print(f"wrote {BAG_OUT}")
 
 
-def smoke_mission():
-    """The JAX `Runner` over the 40-scan smoke mission; writes OUT."""
-    cfg = sm.bench_config()
-    seq = synthetic.make_sequence(n_scans=sm.SMOKE_SCANS,
-                                  n_points=sm.SMOKE_POINTS,
-                                  seed=sm.SMOKE_SEED, speed=sm.SMOKE_SPEED)
+def runner_mission(cfg, seq) -> tuple:
+    """(keys, runner): the JAX `Runner` over `seq` with `cfg`: per-scan
+    poses, keyframe flags, GN iterations and the IMU front-end state each
+    scan starts from, the keyframe count and the ATE against truth."""
     scans, imus = sm.synthetic_inputs(seq, cfg)
     runner = Runner(to_jax_config(cfg, jax_config))
     iters = count_iterations(runner)
-    t0 = time.time()
-    results, imu_states = [], []
-    for i in range(len(scans)):
-        imu_states.append(jax.tree.map(np.array, runner.imu_state))
-        results.append(runner.process_scan(scans[i], imu=imus[i]))
+    imu_states = record_imu_states(runner)
+    results = [runner.process_scan(scans[i], imu=imus[i])
+               for i in range(len(scans))]
     poses = np.stack([r.pose for r in results]).astype(np.float32)
-    ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
     stack = lambda f: np.stack([f(s) for s in imu_states])
-    np.savez(OUT, poses=poses,
-             is_keyframe=np.array([r.is_keyframe for r in results]),
-             registration_iters=np.array(iters, np.int32),
-             keyframes=np.int32(int(runner.state.store.count)),
-             ate_rmse_m=np.float32(ate),
-             imu_R=stack(lambda s: s.nav.R), imu_p=stack(lambda s: s.nav.p),
-             imu_v=stack(lambda s: s.nav.v),
-             imu_bias_gyr=stack(lambda s: s.bias_gyr),
-             imu_bias_acc=stack(lambda s: s.bias_acc),
-             imu_cov=stack(lambda s: s.cov),
-             imu_initialized=stack(lambda s: s.initialized),
-             imu_failure=stack(lambda s: s.failure))
-    print(f"wrote {OUT}: {len(results)} scans, "
-          f"{int(runner.state.store.count)} keyframes, ATE {ate:.5f} m, "
-          f"{sum(iters)} GN iterations, {time.time() - t0:.1f} s")
+    return dict(poses=poses,
+                is_keyframe=np.array([r.is_keyframe for r in results]),
+                registration_iters=np.array(iters, np.int32),
+                keyframes=np.int32(int(runner.state.store.count)),
+                ate_rmse_m=np.float32(synthetic.ate_rmse(
+                    poses, sm.relative_truth(seq))),
+                imu_R=stack(lambda s: s.nav.R), imu_p=stack(lambda s: s.nav.p),
+                imu_v=stack(lambda s: s.nav.v),
+                imu_bias_gyr=stack(lambda s: s.bias_gyr),
+                imu_bias_acc=stack(lambda s: s.bias_acc),
+                imu_cov=stack(lambda s: s.cov),
+                imu_initialized=stack(lambda s: s.initialized),
+                imu_failure=stack(lambda s: s.failure)), runner
+
+
+def smoke_sequence():
+    return synthetic.make_sequence(n_scans=sm.SMOKE_SCANS,
+                                   n_points=sm.SMOKE_POINTS,
+                                   seed=sm.SMOKE_SEED, speed=sm.SMOKE_SPEED)
+
+
+def smoke_mission():
+    """The JAX `Runner` over the 40-scan smoke mission; writes OUT."""
+    t0 = time.time()
+    out, _ = runner_mission(sm.bench_config(), smoke_sequence())
+    np.savez(OUT, **out)
+    print(f"wrote {OUT}: {len(out['poses'])} scans, {int(out['keyframes'])} "
+          f"keyframes, ATE {float(out['ate_rmse_m']):.5f} m, "
+          f"{int(out['registration_iters'].sum())} GN iterations, "
+          f"{time.time() - t0:.1f} s")
+
+
+def layout_missions():
+    """The JAX `Runner` over phase 20's missions at full width and at the
+    narrow widths of the CPU tests; writes LAYOUT_OUT."""
+    keys = {}
+    small_seq = synthetic.make_sequence(n_scans=SMALL_LAYOUT_SCANS,
+                                        n_points=SMALL_LAYOUT_POINTS, seed=0)
+    for name, halo, cap, srt, ds in sm.LAYOUT_MISSIONS:
+        t0 = time.time()
+        cfg = sm.layout_mission_config(halo, cap, srt, ds)
+        out, _ = runner_mission(cfg, smoke_sequence())
+        keys.update({f"{name}_{k}": v for k, v in out.items()})
+        print(f"{name}: {int(out['keyframes'])} keyframes, ATE "
+              f"{float(out['ate_rmse_m']):.5f} m, "
+              f"{int(out['registration_iters'].sum())} GN iterations, "
+              f"{time.time() - t0:.1f} s", flush=True)
+        out, runner = runner_mission(small_layout_config(name), small_seq)
+        out["grid_counts"] = np.array(runner.state.map_grid.counts)
+        keys.update({f"small_{name}_{k}": v for k, v in out.items()})
+    np.savez_compressed(LAYOUT_OUT, **keys)
+    print(f"wrote {LAYOUT_OUT}")
 
 
 def corner_missions():
@@ -801,7 +849,7 @@ def pipeline_replays():
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("smoke", "loop", "archive", "bag", "corner", "hard",
-                     "sharded", "replay", "all"):
+                     "sharded", "replay", "layouts", "all"):
         sys.exit(__doc__)
     jreg._maybe_fused = jax_fused_interpret
     if which in ("smoke", "all"):
@@ -821,6 +869,8 @@ def main():
         sharded_mission()
     if which in ("replay", "all"):
         pipeline_replays()
+    if which in ("layouts", "all"):
+        layout_missions()
 
 
 if __name__ == "__main__":

@@ -224,7 +224,25 @@ ms a scan beside those of the sequential form.
    of `make_pipeline_replay` under the
    sorted, hash-downsampled config: bit-equal to `HostDrivenReplay` in the
    same process, no synchronization under "error" mode (the argsort and
-   the downsample's scatter capture), the launches 30 a scan.
+   the downsample's scatter capture), the launches 30 a scan.  (a) prints
+   each instantiation's warps a block beside its times.
+21. The resident replays at the other configs the JAX scan programs run:
+   (a) the first 40 scans of phase 19's inputs at `rebuild_replay_config()`
+   (the rebuild-mode map, a local map of 131072 points assembled and its
+   grid built inside graph (a) every scan) through
+   `make_pipeline_replay(loop_every=10)` and `HostDrivenReplay` in the same
+   process: bit-equal, no synchronization under "error" mode, launches 30
+   a scan plus the loop verifications'; against the JAX monolith
+   (fixtures/pipeline_replay_jax.npz, keys `rebuild_`, sha256 checked
+   first) within 0.02 m / 0.1 deg with equal degenerate flags and
+   keyframes, and with the reference's IMU state carried in, GN iterations
+   within 1 a scan; the kernel on one launch tapped inside graph (a)
+   against its plain version; scans/s of the graphs and of the host-driven
+   replay, the capture time, and from a profiled chunk (scans 20-24) the
+   device ms a scan and the idle share.  (b) The first 10 scans under the
+   corner config (`corner_mission_config()`) and under `bench_config()`
+   as graphs: bit for bit (a replay feeds no corner cloud, so the corner
+   config takes the surface path, as in JAX), launches 30 a scan each.
 Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line describing the
@@ -345,12 +363,14 @@ def call_ms(fn, reps=50, runs=5, warmup=5):
     return times[len(times) // 2]
 
 
-def device_busy_ms(prof) -> float:
-    """Device time (kernels and copies) recorded by a torch.profiler run;
-    the device-side spans of record_function ranges are not work."""
+def device_busy_ms(averages) -> float:
+    """Device time (kernels and copies) in a torch.profiler run's
+    `key_averages()` (computed once by the caller: over a long trace it is
+    the slow part); the device-side spans of record_function ranges are not
+    work."""
     import torch
 
-    return 1e-3 * sum(e.self_device_time_total for e in prof.key_averages()
+    return 1e-3 * sum(e.self_device_time_total for e in averages
                       if e.device_type == torch.autograd.DeviceType.CUDA
                       and not getattr(e, "is_user_annotation", False))
 
@@ -407,25 +427,33 @@ def warm_profiler(dev):
 
 def named_kernel_ms(fn, name_part, reps=20, between=None):
     """Device time per launch of the kernels whose name holds `name_part`,
-    from torch.profiler; `between` runs before every call (not counted)."""
+    from torch.profiler; `between` runs before every call (not counted).
+    The tracer may drop records, now and then all of a pass's: a pass that
+    kept fewer than half of its `reps` launches is made again, as
+    `device_ms` makes its passes again, five at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if between is not None:
-                between()
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and name_part in e.key]
-    seen = sum(e.count for e in rows)
-    if not reps // 2 <= seen <= reps:      # the tracer may drop a record
-        fail(f"profiler saw {seen} launches of *{name_part}*, expected {reps}")
-    return 1e-3 * sum(e.self_device_time_total for e in rows) / seen
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name_part in e.key]
+        seen = sum(e.count for e in rows)
+        if reps // 2 <= seen <= reps:
+            return 1e-3 * sum(e.self_device_time_total for e in rows) / seen
+        print(f"named_kernel_ms: the profiler saw {seen} launches of "
+              f"*{name_part}* for {reps} calls; profiling again", flush=True)
+    fail(f"profiler saw {seen} launches of *{name_part}*, expected {reps}, "
+         "in five passes")
 
 
 def kernel_bound(table, hh, scan, mask):
@@ -752,8 +780,8 @@ def profiled_phase(dev, cfg, scans, imus, profile_dir):
             runner.process_scan(scans[i], imu=imus[i])
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_ms = device_busy_ms(prof)
     rows = prof.key_averages()
+    busy_ms = device_busy_ms(rows)
     cuda = torch.autograd.DeviceType.CUDA
     n_dev = sum(e.count for e in rows if e.device_type == cuda
                 and not getattr(e, "is_user_annotation", False))
@@ -807,10 +835,11 @@ def profiled_once(fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    n_dev = sum(e.count for e in prof.key_averages()
+    rows = prof.key_averages()
+    n_dev = sum(e.count for e in rows
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False))
-    return out, device_busy_ms(prof), n_dev, wall_ms
+    return out, device_busy_ms(rows), n_dev, wall_ms
 
 
 def lever_graph(K, n_loops, dev):
@@ -2334,7 +2363,7 @@ def hard_replay_phase():
     host_ms = {span: round(1e3 * sum(v[20:25] if span != "correct_fuse"
                                      else v[40:50]) / 5, 3)
                for span, v in host.items()}
-    busy = device_busy_ms(prof)
+    busy = device_busy_ms(rows)
     n_dev = sum(e.count for e in rows if e.device_type == cuda
                 and not getattr(e, "is_user_annotation", False))
     print(f"{label} profiled scans 20-24 ({SMI}): host ms a scan "
@@ -3215,6 +3244,75 @@ def check_replay_launches(label, launches, n_scans, R, cycles):
     return verify, []
 
 
+def host_driven_run(hd, scans):
+    """(outputs, steady scans/s over the scans from the fifth on) of
+    `HostDrivenReplay` `hd` over `scans`, a CUDA event recorded after each
+    scan's TransformFusion."""
+    import torch
+
+    events = []
+
+    def after_fusion(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            return out
+        return wrapped
+
+    undo = run_wrapped(hd, "transform_fusion", after_fusion)
+    try:
+        _, _, outs = hd.run(*hd.init(), scans)
+    finally:
+        undo()
+    return outs, steady_rate(events, 4, len(events) - 1)
+
+
+def profiled_chunk(run, staged, lo, hi):
+    """(device busy ms, wall ms, fused_corr kernels and all device kernels
+    and copies in the profile, kernel launches counted) of scans lo..hi-1
+    of a resident replay under torch.profiler, after an unprofiled replay
+    of scans 0..lo-1.  A pass whose trace kept fewer than 95 % of the
+    fused_corr launches counted (the tracer drops records, now and then a
+    whole pass's) is made again, three times at most; the caller checks
+    the last."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import replay
+
+    part = lambda a, b: replay.ReplayBatch(*(x[a:b] for x in staged))
+    for _ in range(3):
+        restore = sync_free(run)
+        try:
+            st, fs, o = run(*run.init(), part(0, lo))
+            last = o.poses[-1].clone()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fc.KERNEL_LAUNCHES = 0
+                run(st, fs, part(lo, hi), last)
+                counted = fc.KERNEL_LAUNCHES
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            for undo in reversed(restore):
+                undo()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        fused = sum(e.count for e in rows if "fused_corr" in e.key)
+        if 0.95 * counted <= fused <= counted:
+            break
+        print(f"profiled_chunk: the profiler saw {fused} of {counted} "
+              "fused_corr launches; profiling again", flush=True)
+    return (device_busy_ms(rows), wall_ms, fused, sum(e.count for e in rows),
+            counted)
+
+
 def pipeline_replay_phase():
     """Phase 19 (a): bench.py part 1b's inputs (`bench_config()`, 120 scans
     of 32768 points, 64-sample IMU windows) through
@@ -3225,7 +3323,6 @@ def pipeline_replay_phase():
     kernel check's largest difference)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from lio_slam_tpu_torch.ops import fused_corr as fc
     from lio_slam_tpu_torch.pipeline import replay
@@ -3247,24 +3344,8 @@ def pipeline_replay_phase():
     # the eager replay, on the same inputs
     hd = replay.HostDrivenReplay(cfg, loop_every=sm.LOOP_EVERY)
     scans = hd.split(batch)
-    hd_events = []
-
-    def after_fusion(fn):
-        def wrapped(*a, **k):
-            out = fn(*a, **k)
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            hd_events.append(ev)
-            return out
-        return wrapped
-
-    undo = run_wrapped(hd, "transform_fusion", after_fusion)
-    try:
-        mark("inputs made and staged")
-        _, _, eager = hd.run(*hd.init(), scans)
-    finally:
-        undo()
-    hd_rate = steady_rate(hd_events, 4, len(hd_events) - 1)
+    mark("inputs made and staged")
+    eager, hd_rate = host_driven_run(hd, scans)
     mark("host-driven replay")
 
     run = replay.make_pipeline_replay(cfg, loop_every=sm.LOOP_EVERY)
@@ -3367,29 +3448,8 @@ def pipeline_replay_phase():
     mark("kernel checks")
 
     # a profiled chunk: scans 20-24 after a replay of scans 0-19
-    part = lambda lo, hi: replay.ReplayBatch(*(a[lo:hi] for a in staged))
-    restore = sync_free(run)
-    try:
-        st, fs, o = run(*run.init(), part(0, 20))
-        last = o.poses[-1].clone()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fc.KERNEL_LAUNCHES = 0
-            run(st, fs, part(20, 20 + PROFILED_SCANS), last)
-            counted = fc.KERNEL_LAUNCHES
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-    finally:
-        for undo in reversed(restore):
-            undo()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    busy = device_busy_ms(prof)
-    fused = sum(e.count for e in rows if "fused_corr" in e.key)
-    n_dev = sum(e.count for e in rows)
+    busy, wall_ms, fused, n_dev, counted = profiled_chunk(
+        run, staged, 20, 20 + PROFILED_SCANS)
     # no keyframe is evicted at K=256: the store holds every keyframe saved
     mark("profiled chunk")
     pass_ms, save_ms, dead_ms, masked_ms = resident_costs(
@@ -3642,6 +3702,7 @@ def layout_kernel_phase(dev):
     import numpy as np
     import torch
 
+    from lio_slam_tpu_torch.ops import _build
     from lio_slam_tpu_torch.ops import fused_corr as fc
     from lio_slam_tpu_torch.ops import registration as reg
     from lio_slam_tpu_torch.ops import voxel_grid as vg
@@ -3692,7 +3753,10 @@ def layout_kernel_phase(dev):
         bound_ms, bound_by, n_bytes, flop, n_rows = kernel_bound(grid.table, hh,
                                                                  scan, mask)
         ms = min(on_device[1:3])
-        print(f"{label} ({SMI}): {int(grid.counts.sum())} slots filled; "
+        warps = _build.load_fused_corr().lio_fused_corr_block_warps(
+            int(hh.shape[0]), cap)
+        print(f"{label} ({SMI}): {warps} warps a block; "
+              f"{int(grid.counts.sum())} slots filled; "
               f"inliers {int(out[2])}; device ms per call (torch.profiler; "
               f"the kernel's own launch) plain, kernel, kernel, plain = "
               f"{', '.join(f'{x:.4f}' for x in on_device)}; cold L2 "
@@ -3701,7 +3765,7 @@ def layout_kernel_phase(dev):
               f"({n_rows} distinct bucket rows, {n_bytes} bytes, {flop} FLOP), "
               f"time over bound {ms / bound_ms:.2f}", flush=True)
         layouts[name] = {"halo": halo, "offsets": int(hh.shape[0]), "cap": cap,
-                         "sorted_scan": srt, "ms": ms,
+                         "warps": warps, "sorted_scan": srt, "ms": ms,
                          "plain_ms": min(on_device[0], on_device[3]),
                          "cold_ms": cold, "call_ms": per_call,
                          "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3861,6 +3925,217 @@ def layout_paths_phase(dev, default_rate):
     return launches
 
 
+# ---- phase 21: the resident replays at the rebuild-mode map and corner configs ----
+
+REBUILD_PROFILED = (20, 25)     # phase 21 (a): the profiled chunk's scans
+
+
+def rebuild_replay_phase():
+    """Phase 21 (a): the first REBUILD_REPLAY_SCANS scans of phase 19's
+    inputs at `rebuild_replay_config()` (the rebuild-mode map, a local map
+    of 131072 points assembled and its grid built each scan) through
+    `make_pipeline_replay(loop_every=10)` as CUDA graphs and through
+    `HostDrivenReplay` in the same process: bit-equal, no synchronization
+    inside the replay, launches 30 a scan plus the loop verifications';
+    against the JAX monolith (`pipeline_replay_jax.npz`, keys `rebuild_`)
+    within the mapping limits with equal degenerate flags, and with the
+    reference's IMU state carried in, GN iterations within 1 a scan; the
+    kernel on the arguments of one launch inside graph (a), on the grid
+    built there, against its plain version.  Returns (the launches of the
+    timed run, the kernel check's largest difference)."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.io import synthetic
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import replay
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    label = "rebuild replay"
+    mark = step_clock(label)
+    fixture = np.load(os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures",
+                                   "pipeline_replay_jax.npz"))
+    ref = {k[len("rebuild_"):]: fixture[k] for k in fixture.files
+           if k.startswith("rebuild_")}
+    cfg = sm.rebuild_replay_config()
+    n = sm.REBUILD_REPLAY_SCANS
+    seq, batch = sm.pipeline_replay_inputs(n_scans=n)
+    if sm.batch_sha256(batch) != str(ref["batch_sha256"]):
+        fail(f"{label}: the inputs differ from those the reference replayed")
+
+    hd = replay.HostDrivenReplay(cfg, loop_every=sm.LOOP_EVERY)
+    eager, hd_rate = host_driven_run(hd, hd.split(batch))
+    mark("host-driven replay")
+
+    run = replay.make_pipeline_replay(cfg, loop_every=sm.LOOP_EVERY)
+    staged = run.stage(batch)
+    R = cfg.registration.max_iterations
+    tapped = []
+    undo = run_wrapped(fc, "fused_ne_from_bucket_ids",
+                       graph_tap(2 * R + PIPELINE_TAP_PASS, tapped))
+    try:
+        run.capture(*run.init(), staged)
+    finally:
+        undo()
+    mark("capture")
+    events, undo_ev = scan_events(run.program)
+    cycles = []
+    restore = sync_free(run) + [undo_ev, watched_detector(run, cycles)]
+    try:
+        fc.KERNEL_LAUNCHES = 0
+        state, _, outs = no_sync(run, *run.init(), staged)
+        launches = fc.KERNEL_LAUNCHES
+        torch.cuda.synchronize()
+    finally:
+        for undo in reversed(restore):
+            undo()
+    graph_rate = steady_rate(events, 4, n - 1)
+    mark("graph replay")
+
+    _, failures = check_replay_launches(label, launches, n, R, cycles)
+    same = {k: torch.equal(getattr(outs, k), getattr(eager, k))
+            for k in ("poses", "iters", "degenerate")}
+    poses = outs.poses.cpu().numpy()
+    iters = outs.iters.cpu().numpy()
+    degen = outs.degenerate.cpu().numpy()
+    ate = synthetic.ate_rmse(poses, sm.relative_truth(seq))
+    print(f"{label} ({SMI}): {n} scans at max_map_points "
+          f"{cfg.static.max_map_points}; capture {run.capture_seconds:.3f} s "
+          f"(warm-up included); scans 5-{n - 1} {graph_rate:.3f} scans/s as "
+          f"CUDA graphs, {hd_rate:.3f} scans/s host-driven (the same "
+          f"process); bit-equal to the host-driven replay {same}; GN "
+          f"iterations {int(iters.sum())} (JAX "
+          f"{int(ref['registration_iters'].sum())}); keyframes "
+          f"{int(state.store.count)} (JAX {int(ref['keyframes'])}); ATE "
+          f"{ate:.5f} m (JAX {float(ref['ate_rmse_m']):.5f} m); fused_corr "
+          f"nodes of graphs (a), (b): {run.program.graph_launches}",
+          flush=True)
+    if not all(same.values()):
+        failures.append(f"{label}: not bit-equal to the host-driven replay "
+                        f"{same}")
+    if not np.isfinite(poses).all():
+        failures.append(f"{label}: non-finite poses")
+    if (degen != ref["degenerate"]).any():
+        failures.append(f"{label}: degenerate flags differ from JAX's")
+    if int(state.store.count) != int(ref["keyframes"]):
+        failures.append(f"{label}: {int(state.store.count)} keyframes")
+    failures += deviation_spans(label, poses, ref["poses"], (
+        ("free-running", slice(None), MAX_DEV_M, MAX_DEV_RAD),))
+    if not tapped:
+        failures.append(f"{label}: no launch tapped in the capture")
+
+    # with the reference's IMU state carried into each scan
+    prog = run.program
+    ref_fes = [fixture_imu_state(ref, i, run.device) for i in range(n)]
+
+    def substituting(map_scan):
+        def wrapped(b, i):
+            replay._copy_into(prog.fes, ref_fes[i])
+            return map_scan(b, i)
+        return wrapped
+
+    restore = sync_free(run) + [run_wrapped(prog, "map_scan", substituting)]
+    try:
+        _, _, carried = no_sync(run, *run.init(), staged)
+        torch.cuda.synchronize()
+    finally:
+        for undo in reversed(restore):
+            undo()
+    c_iters = carried.iters.cpu().numpy()
+    d_it = c_iters.astype(int) - ref["registration_iters"]
+    c_poses = carried.poses.cpu().numpy()
+    print(f"{label}, carried IMU state: GN iterations differ from JAX's at "
+          f"scans {np.nonzero(d_it)[0].tolist()} (by up to "
+          f"{np.abs(d_it).max()}); free-running at "
+          f"{np.nonzero(iters != ref['registration_iters'])[0].tolist()}",
+          flush=True)
+    if np.abs(d_it).max() > CARRIED_MAX_ITER_DIFF:
+        failures.append(f"{label}, carried: GN iterations differ by "
+                        f"{np.abs(d_it).max()} on a scan")
+    failures += deviation_spans(f"{label}, carried", c_poses, ref["poses"], (
+        ("carried", slice(None), MAX_DEV_M, MAX_DEV_RAD),))
+    if failures:
+        fail("; ".join(failures))
+    mark("carried graph replay")
+
+    args, kw, graph_out = tapped[0]
+    err = bag_kernel_check(f"{label} graph (a), pass {PIPELINE_TAP_PASS} of "
+                           "the last scan (the grid built in the graph)",
+                           (args, kw))
+    check_ne(f"{label} graph (a)'s own results of that launch", graph_out,
+             fc.fused_ne_from_bucket_ids_ref(*args, **kw))
+    lo, hi = REBUILD_PROFILED
+    busy, wall_ms, fused, _, counted = profiled_chunk(run, staged, lo, hi)
+    k = hi - lo
+    print(f"{label} profiled chunk, scans {lo}-{hi - 1} ({SMI}): device "
+          f"{busy / k:.3f} ms a scan, busy {busy:.3f} ms of {wall_ms:.3f} ms "
+          f"wall (idle share {1.0 - busy / wall_ms:.3f}); fused_corr "
+          f"launches {fused} in the profile, {counted} counted ({R} a scan "
+          f"by design); unprofiled, the graphs ran scans 5-{n - 1} at "
+          f"{1e3 / graph_rate:.3f} ms a scan", flush=True)
+    if counted != R * k or not 0.95 * counted <= fused <= counted:
+        fail(f"{label}: {counted} fused_corr launches counted over the "
+             f"chunk and {fused} in the profile, {R * k} by design")
+    mark("kernel check and profiled chunk")
+    return launches, err
+
+
+def corner_replay_phase():
+    """Phase 21 (b): the first CORNER_REPLAY_SCANS scans of phase 19's
+    inputs through `make_pipeline_replay(loop_every=10)` as CUDA graphs
+    under the corner config (`corner_mission_config()`: the LOAM corner
+    term on; a replay feeds no corner cloud, so the step takes the surface
+    path, as the JAX step does) and under `bench_config()`: the outputs bit
+    for bit, no synchronization, launches 30 a scan each.  Returns the
+    corner run's launches."""
+    import torch
+
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.pipeline import replay
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    label = "corner replay"
+    n = sm.CORNER_REPLAY_SCANS
+    _, batch = sm.pipeline_replay_inputs(n_scans=n)
+    outs, launches, failures = {}, {}, []
+    for name, cfg in (("surface", sm.bench_config()),
+                      ("corner", sm.corner_mission_config())):
+        run = replay.make_pipeline_replay(cfg, loop_every=sm.LOOP_EVERY)
+        staged = run.stage(batch)
+        run.capture(*run.init(), staged)
+        cycles = []
+        restore = sync_free(run) + [watched_detector(run, cycles)]
+        try:
+            fc.KERNEL_LAUNCHES = 0
+            _, _, outs[name] = no_sync(run, *run.init(), staged)
+            launches[name] = fc.KERNEL_LAUNCHES
+            torch.cuda.synchronize()
+        finally:
+            for undo in reversed(restore):
+                undo()
+        failures += check_replay_launches(
+            f"{label} ({name} config)", launches[name], n,
+            cfg.registration.max_iterations, cycles)[1]
+    same = {k: torch.equal(getattr(outs["corner"], k),
+                           getattr(outs["surface"], k))
+            for k in ("poses", "iters", "degenerate", "fused_last")}
+    print(f"{label} ({SMI}): {n} scans as CUDA graphs under the corner "
+          f"config and the surface config: bit-equal {same}; GN iterations "
+          f"{int(outs['corner'].iters.sum())}", flush=True)
+    if not all(same.values()):
+        failures.append(f"{label}: the corner config parts from the surface "
+                        f"config {same}")
+    if failures:
+        fail("; ".join(failures))
+    return launches["corner"]
+
+
+def resident_modes_phase():
+    """Phase 21: (a) `rebuild_replay_phase`, (b) `corner_replay_phase`."""
+    rebuilt, err = rebuild_replay_phase()
+    return rebuilt, corner_replay_phase(), err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-dir", default=None,
@@ -3942,6 +4217,9 @@ def main():
     layout_launches = phase("phase 20 (b)-(c) (gather-layout missions, "
                             "graph replay)", layout_paths_phase, dev,
                             default_rate)
+    rebuild_replay, corner_replay, rebuild_err = phase(
+        "phase 21 (resident replays at the rebuild-mode map and the corner "
+        "config)", resident_modes_phase)
     paths = {"mission": launches, "loop_mapping": loop_map,
              "loop_verification": loop_ver, **arch, "resume": resumed,
              "bag_mapping": bag_map, "bag_loop_verification": bag_ver,
@@ -3950,7 +4228,8 @@ def main():
              "hard_replay_verification": hard_ver,
              "deskew_replay": deskewed, "pipeline_replay": pipe,
              "loop_replay": loop_replay,
-             **{f"layout_{k}": v for k, v in layout_launches.items()}}
+             **{f"layout_{k}": v for k, v in layout_launches.items()},
+             "rebuild_replay": rebuild_replay, "corner_replay": corner_replay}
     print(json.dumps({"kernels": [{
         "name": "fused_corr", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/fused_corr.cu",
@@ -3960,12 +4239,14 @@ def main():
         "launches_pipeline_replay_graph_profiled": pipe_graph,
         "max_abs_err": max(k["max_abs_err"], loop_err, arch_err, bag_err,
                            hostile_err, corner_err, rebuild_err, hard_err,
-                           pipe_err,
+                           pipe_err, rebuild_err,
                            *(v["max_abs_err"] for v in layouts.values())),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None, "cold_ms": k["cold_ms"],
         "entry_ms": k["entry_ms"], "entry_plain_ms": k["entry_plain_ms"],
         "layouts": {"z": {"halo": "z", "offsets": 9, "cap": CAP,
+                          "warps": _build.load_fused_corr(
+                              ).lio_fused_corr_block_warps(9, CAP),
                           "sorted_scan": False, "ms": k["ms"],
                           "plain_ms": k["plain_ms"], "cold_ms": k["cold_ms"],
                           "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -90,6 +90,8 @@ def load_fused_corr() -> ctypes.CDLL:
     lib.lio_fused_corr.restype = ci
     lib.lio_fused_corr_scratch_floats.argtypes = []
     lib.lio_fused_corr_scratch_floats.restype = ci
+    lib.lio_fused_corr_block_warps.argtypes = [ci, ci]
+    lib.lio_fused_corr_block_warps.restype = ci
     _lib = lib
     return lib
 

@@ -29,16 +29,27 @@
 //   8192: one block on each SM (a point in flight holds a 2.6 KB stage of
 //   shared memory, 170 KB a block), every point of the scan in flight.
 // - The kernel is a template on O, one instantiation a layout (O = 1, 3, 9,
-//   27); the launcher refuses any other O.  A point's ids live in registers
-//   (h[O]) and the duplicate check is unrolled whole (O(O-1)/2 compares: 36
-//   at O = 9, 351 at O = 27), once a point a batch.  A point's stage is
-//   O * C * 3 floats: 2.6 KB at z/24 and xy/72, 1.5 KB at full/128, 7.8 KB
-//   at none/24, where the launcher's halving of the warps (see lio_fused_corr)
-//   leaves 4 warps, 16 points a block and 124 KB: right, one block an SM,
-//   every scan point still in flight at 8192 points (512 blocks over 132
-//   SMs), but a quarter of the lanes a block: 0.105 ms a call against z's
-//   0.014 on an H100 (PERF.md).  A stage streamed offset by offset, each
-//   lane's best 5 kept across the chunks, would lift that.
+//   27); the launcher refuses any other O.  At O <= 9 a point's ids live in
+//   registers (h[O]), the duplicate check is unrolled whole (O(O-1)/2
+//   compares, 36 at O = 9) and the point's O rows are staged whole: O * C * 3
+//   floats, 2.6 KB at z/24 and xy/72, 1.5 KB at full/128.
+// - At O = 27 (halo "none") the whole stage would be 7.8 KB a point at
+//   C = 24: the launcher's halving of the warps left 4 warps, 16 points a
+//   block and one block an SM, so 512 blocks ran in four waves on a quarter
+//   of the lanes (0.105 ms a call against z's 0.014 on an H100, PERF.md).
+//   So the rows stream through a stage of CHUNK_O = 9 offsets, the stage of
+//   z: three chunks, each staged, ranked into the lanes' best 5 (which
+//   carry over, rows keeping their global index, a lane meeting its rows in
+//   ascending order across the chunks) and freed; the five merge rounds
+//   run once, after the last chunk, and lane 0 reads the winners'
+//   coordinates back from the table (row o * C + slot, bucket id of offset
+//   o), all five loads in flight together.  The 27 ids go to shared memory
+//   behind the stage (27 registers less than h[27]): lane l loads offsets
+//   l, l + LANES, ..., checks them against the earlier ids there and the
+//   group ORs the live bits.  That gives 16 warps and 64 points a block
+//   (178 KB at C = 24), 128 blocks, every point of an 8192 scan in flight in
+//   one wave, as at z.  The other instantiations keep their code path (a
+//   compile-time branch on O).
 // - Every lane of a group loads the point, its mask bit and its O bucket
 //   ids (one transaction a group, one round trip for all of them) and marks
 //   a bucket skipped if it repeats an earlier offset's id or lies outside
@@ -49,9 +60,9 @@
 //   A point that is masked out is not staged or ranked at all: it
 //   contributes nothing whatever its neighbours are.
 // - Rows come in whole.  The group copies the O rows of its point (C x 12 B
-//   each, 288 B at C = 24) into the point's stage in shared memory with
-//   16-byte cp.async (4-byte where C is not a multiple of 4), neighbouring
-//   lanes on neighbouring addresses.  A skipped bucket is not copied: its
+//   each, 288 B at C = 24; at O = 27 a chunk's 9) into the point's stage in
+//   shared memory with 16-byte cp.async (4-byte where C is not a multiple
+//   of 4), neighbouring lanes on neighbouring addresses.  A skipped bucket is not copied: its
 //   stage row is filled with empty slots.  The TPU's planar candidate copy
 //   (gather_planar) exists only to fill VMEM lanes and has no counterpart.
 // - Lane l of the group takes rows l, l + LANES, ... of the R = O*C (a
@@ -67,7 +78,8 @@
 // - Five rounds of a group-wide minimum over the lanes' heads merge the
 //   lists: xor shuffles of a 64-bit key (bits of d, then the row; d >= 0, so
 //   the float's bits order like the float).  The group's first lane keeps
-//   each winner's distance and coordinates in registers.
+//   each winner's distance and row, and reads its coordinates from the
+//   stage (at O = 27 from the table) into registers.
 // - That lane then runs the plane fit, the gates and the Jacobian row
 //   (plane_terms, the arithmetic of registration.find_correspondences with
 //   acosf in place of the TPU kernel's Newton iteration, which only works
@@ -118,6 +130,14 @@
 // - LANES 4 / 8 / 16 / 32 (at 8, 16, 16, 16 warps): 0.0175 / 0.0145 /
 //   0.0219 / 0.0362 ms; WARPS 4 / 8 / 16 at LANES 8: 0.0205 / 0.0157 /
 //   0.0145 ms.
+// - O = 27 (none/24) staged whole, 4 warps a block, four waves of blocks:
+//   0.1044-0.1051 ms warm, 0.1211-0.1216 with a cold L2; streamed in three
+//   9-offset chunks at 16 warps, one wave: 0.0262-0.0263 / 0.0283-0.0285 ms
+//   in the same call, where z/24, xy/72 and full/128 kept their times
+//   within 2 % (PERF.md).  A ring of two chunk stages (the next chunk in
+//   flight while one is ranked) was not tried: two 2.6 KB stages a point
+//   halve the warps again, which the ring of points above showed to lose
+//   on z.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,6 +156,9 @@ constexpr float TWO_PI_3 = 2.0943951023931953f;
 constexpr int LANES = 8;         // lanes that rank one point together
 constexpr int WARPS = 16;        // warps a block
 constexpr int PPW = 32 / LANES;              // points a warp ranks at a time
+// offsets a point's stage holds: above it (O = 27) the rows stream through
+// the stage in chunks of CHUNK_O offsets
+constexpr int CHUNK_O = 9;
 constexpr int MAX_BLOCKS = 1024;
 constexpr size_t MAX_STAGE_BYTES = 200 * 1024;   // of an SM's 227 KB
 constexpr int SCRATCH_HEAD = 4;  // floats before the partials: the ticket
@@ -309,58 +332,92 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The group's LANES lanes rank the staged candidates of one point (R rows of
-// 3 floats at `rows`); lane 0 of the group gets the five nearest, nearest
-// first, in bd / bx / by / bz, which the caller set to (BIG_D2, 0, 0, 0).
-__device__ __forceinline__ void rank_point(const float* rows, int R, float ux,
-                                           float uy, float uz, int l,
-                                           unsigned gmask, float* bd, float* bx,
-                                           float* by, float* bz) {
-  // this lane's best 5 of rows l, l + LANES, ..., ascending by (d, row).  A
-  // candidate enters only if strictly nearer than the lane's fifth and moves
-  // up only past strictly farther ones: rows come in ascending order, so at
-  // equal d the earlier row stays ahead.  An empty slot (d = inf) or a
-  // non-finite query (d = NaN) fails the first comparison.
-  float d0 = BIG_D2, d1 = BIG_D2, d2 = BIG_D2, d3 = BIG_D2, d4 = BIG_D2;
-  int r0 = -1, r1 = -1, r2 = -1, r3 = -1, r4 = -1;
+// One bucket row of a point into its stage: C slots of 3 floats, copied
+// with cp.async by the group's lanes (16 bytes each where C is a multiple
+// of 4), or, for a skipped bucket, filled with empty slots.
+__device__ __forceinline__ void stage_row(float* dst, const float* table,
+                                          int h, bool live, int row_floats,
+                                          int l, bool vec16) {
+  if (!live) {
+    // a skipped bucket ranks as an empty one: slots no query is near
+    for (int j = l; j < row_floats; j += LANES) dst[j] = EMPTY_SLOT;
+    return;
+  }
+  const float* src = table + (size_t)h * row_floats;
+  if (vec16) {
+    for (int j = 4 * l; j < row_floats; j += 4 * LANES) cp_async16(dst + j, src + j);
+  } else {
+    for (int j = l; j < row_floats; j += LANES) cp_async4(dst + j, src + j);
+  }
+}
+
+// A lane's best 5 candidates, ascending by (d, row); row -1 is none.
+struct Best5 {
+  float d0, d1, d2, d3, d4;
+  int r0, r1, r2, r3, r4;
+};
+
+__device__ __forceinline__ void best5_init(Best5& b) {
+  b.d0 = b.d1 = b.d2 = b.d3 = b.d4 = BIG_D2;
+  b.r0 = b.r1 = b.r2 = b.r3 = b.r4 = -1;
+}
+
+// This lane's share of `n` staged rows (3 floats each at `rows`, row r of
+// the stage being candidate row0 + r of the point): rows l, l + LANES, ...
+// into its best 5.  A candidate enters only if strictly nearer than the
+// lane's fifth and moves up only past strictly farther ones: a lane meets
+// its rows in ascending order (across the chunks of a streamed stage too),
+// so at equal d the earlier row stays ahead.  An empty slot (d = inf) or a
+// non-finite query (d = NaN) fails the first comparison.
+__device__ __forceinline__ void rank_rows(const float* rows, int n, int row0,
+                                          float ux, float uy, float uz, int l,
+                                          Best5& b) {
   const float* p = rows + 3 * l;
 #pragma unroll 3
-  for (int r = l; r < R; r += LANES, p += 3 * LANES) {
+  for (int r = l; r < n; r += LANES, p += 3 * LANES) {
     const float d = (sq(p[0] - ux) + sq(p[1] - uy)) + sq(p[2] - uz);
-    if (d < d4) {
-      d4 = d; r4 = r;
+    if (d < b.d4) {
+      b.d4 = d; b.r4 = row0 + r;
       bool up;
       float td; int tr;
-      up = d4 < d3; td = d3; tr = r3;
-      d3 = up ? d4 : d3; r3 = up ? r4 : r3; d4 = up ? td : d4; r4 = up ? tr : r4;
-      up = d3 < d2; td = d2; tr = r2;
-      d2 = up ? d3 : d2; r2 = up ? r3 : r2; d3 = up ? td : d3; r3 = up ? tr : r3;
-      up = d2 < d1; td = d1; tr = r1;
-      d1 = up ? d2 : d1; r1 = up ? r2 : r1; d2 = up ? td : d2; r2 = up ? tr : r2;
-      up = d1 < d0; td = d0; tr = r0;
-      d0 = up ? d1 : d0; r0 = up ? r1 : r0; d1 = up ? td : d1; r1 = up ? tr : r1;
+      up = b.d4 < b.d3; td = b.d3; tr = b.r3;
+      b.d3 = up ? b.d4 : b.d3; b.r3 = up ? b.r4 : b.r3;
+      b.d4 = up ? td : b.d4; b.r4 = up ? tr : b.r4;
+      up = b.d3 < b.d2; td = b.d2; tr = b.r2;
+      b.d2 = up ? b.d3 : b.d2; b.r2 = up ? b.r3 : b.r2;
+      b.d3 = up ? td : b.d3; b.r3 = up ? tr : b.r3;
+      up = b.d2 < b.d1; td = b.d1; tr = b.r1;
+      b.d1 = up ? b.d2 : b.d1; b.r1 = up ? b.r2 : b.r1;
+      b.d2 = up ? td : b.d2; b.r2 = up ? tr : b.r2;
+      up = b.d1 < b.d0; td = b.d0; tr = b.r0;
+      b.d0 = up ? b.d1 : b.d0; b.r0 = up ? b.r1 : b.r0;
+      b.d1 = up ? td : b.d1; b.r1 = up ? tr : b.r1;
     }
   }
+}
 
-  // merge: five times the group's least (d, row) among the lanes' heads, as
-  // a 64-bit key (d >= 0, so the float's bits order like the float)
+// The merge, once a point: five times the group's least (d, row) among the
+// lanes' heads, as a 64-bit key (d >= 0, so the float's bits order like
+// the float).  Lane 0 of the group gets the five nearest, nearest first, in
+// bd / br, which the caller set to (BIG_D2, -1).
+__device__ __forceinline__ void merge_best5(Best5& b, int l, unsigned gmask,
+                                            float* bd, int* br) {
 #pragma unroll
   for (int j = 0; j < KNN; ++j) {
     const unsigned long long head =
-        r0 < 0 ? NO_KEY
-               : (((unsigned long long)__float_as_uint(d0) << 32) | (unsigned)r0);
+        b.r0 < 0 ? NO_KEY
+                 : (((unsigned long long)__float_as_uint(b.d0) << 32) | (unsigned)b.r0);
     unsigned long long m = head;
 #pragma unroll
     for (int off = LANES / 2; off > 0; off >>= 1)
       m = min(m, __shfl_xor_sync(gmask, m, off));
     if (head == m) {
-      d0 = d1; d1 = d2; d2 = d3; d3 = d4; d4 = BIG_D2;
-      r0 = r1; r1 = r2; r2 = r3; r3 = r4; r4 = -1;
+      b.d0 = b.d1; b.d1 = b.d2; b.d2 = b.d3; b.d3 = b.d4; b.d4 = BIG_D2;
+      b.r0 = b.r1; b.r1 = b.r2; b.r2 = b.r3; b.r3 = b.r4; b.r4 = -1;
     }
     if (l == 0 && m != NO_KEY) {
-      const float* w = rows + 3 * (unsigned)m;
       bd[j] = __uint_as_float((unsigned)(m >> 32));
-      bx[j] = w[0]; by[j] = w[1]; bz[j] = w[2];
+      br[j] = (int)(unsigned)m;
     }
   }
 }
@@ -387,7 +444,7 @@ fused_corr_groups(const float* __restrict__ table, int T, int C,
   const int group = warp * PPW + lane / LANES; // the block point it ranks
   const unsigned gmask = ((1u << LANES) - 1u) << (lane / LANES * LANES);
   const bool vec16 = vec16_flag != 0;
-  const int R = O * C, row_floats = 3 * C;
+  const int row_floats = 3 * C;
   float* rows = stage_mem + (size_t)group * stage_floats;
 
   // the last warp makes the pose tables while the others load ids and start
@@ -400,41 +457,72 @@ fused_corr_groups(const float* __restrict__ table, int T, int C,
 
   const int n_batches = (N + BP - 1) / BP;
   bool first = true;
+  // O = 27: the point's ids in shared memory behind its stage
+  int* ids = O > CHUNK_O ? reinterpret_cast<int*>(rows + CHUNK_O * row_floats)
+                         : nullptr;
   for (int batch = blockIdx.x; batch < n_batches; batch += gridDim.x) {
-    // every lane of the group loads the point and its ids (one transaction a
-    // group) and marks the skipped buckets; a masked-out point is dead
+    // every lane of the group loads the point and marks the skipped
+    // buckets, then the group stages its rows; a masked-out point is dead
     const int n = batch * BP + group;
     float px = 0.f, py = 0.f, pz = 0.f;
     unsigned live = 0;            // bit o: bucket o is copied and ranked
     if (n < N && mask[n] != 0) {
       px = scan[3 * n + 0]; py = scan[3 * n + 1]; pz = scan[3 * n + 2];
-      int h[O];
+      if constexpr (O <= CHUNK_O) {
+        // the ids in registers (one transaction a group), the duplicate
+        // check unrolled whole, the O rows staged whole
+        int h[O];
 #pragma unroll
-      for (int o = 0; o < O; ++o) h[o] = hh[(size_t)o * N + n];
-#pragma unroll
-      for (int o = 0; o < O; ++o) {
-        // an id outside [0, T) reads as an empty bucket, never out of bounds
-        bool dup = h[o] < 0 || h[o] >= T;
-#pragma unroll
-        for (int p = 0; p < o; ++p) dup = dup || h[p] == h[o];
-        if (!dup) live |= 1u << o;
-      }
-      if (live != 0) {
+        for (int o = 0; o < O; ++o) h[o] = hh[(size_t)o * N + n];
 #pragma unroll
         for (int o = 0; o < O; ++o) {
-          float* dst = rows + o * row_floats;
-          if (!((live >> o) & 1u)) {
-            // a skipped bucket ranks as an empty one: slots no query is near
-            for (int j = l; j < row_floats; j += LANES) dst[j] = EMPTY_SLOT;
-            continue;
-          }
-          const float* src = table + (size_t)h[o] * row_floats;
-          if (vec16) {
-            for (int j = 4 * l; j < row_floats; j += 4 * LANES)
-              cp_async16(dst + j, src + j);
-          } else {
-            for (int j = l; j < row_floats; j += LANES) cp_async4(dst + j, src + j);
-          }
+          // an id outside [0, T) reads as an empty bucket, never out of bounds
+          bool dup = h[o] < 0 || h[o] >= T;
+#pragma unroll
+          for (int p = 0; p < o; ++p) dup = dup || h[p] == h[o];
+          if (!dup) live |= 1u << o;
+        }
+        if (live != 0) {
+#pragma unroll
+          for (int o = 0; o < O; ++o)
+            stage_row(rows + o * row_floats, table, h[o], (live >> o) & 1u,
+                      row_floats, l, vec16);
+        }
+      } else {
+        // lane l loads offsets l, l + LANES, ... into shared memory and
+        // checks them against the earlier ids there; the group ORs the live
+        // bits and stages the first chunk
+        static_assert(O % CHUNK_O == 0, "a streamed stage takes whole chunks");
+        constexpr int IDS_A_LANE = (O + LANES - 1) / LANES;
+        int own[IDS_A_LANE];
+        bool dup[IDS_A_LANE];
+#pragma unroll
+        for (int k = 0; k < IDS_A_LANE; ++k) {
+          const int o = l + k * LANES;
+          own[k] = o < O ? hh[(size_t)o * N + n] : 0;
+          if (o < O) ids[o] = own[k];
+          // an id outside [0, T) reads as an empty bucket, never out of bounds
+          dup[k] = own[k] < 0 || own[k] >= T;
+        }
+        __syncwarp(gmask);          // the group's ids are in shared memory
+#pragma unroll
+        for (int p = 0; p < O - 1; ++p) {
+          const int v = ids[p];
+#pragma unroll
+          for (int k = 0; k < IDS_A_LANE; ++k)
+            dup[k] = dup[k] || (p < l + k * LANES && v == own[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < IDS_A_LANE; ++k)
+          if (l + k * LANES < O && !dup[k]) live |= 1u << (l + k * LANES);
+#pragma unroll
+        for (int off = LANES / 2; off > 0; off >>= 1)
+          live |= __shfl_xor_sync(gmask, live, off);
+        if (live != 0) {
+#pragma unroll
+          for (int o = 0; o < CHUNK_O; ++o)
+            stage_row(rows + o * row_floats, table, ids[o], (live >> o) & 1u,
+                      row_floats, l, vec16);
         }
       }
     }
@@ -447,12 +535,66 @@ fused_corr_groups(const float* __restrict__ table, int T, int C,
       const float qy = (sR[3] * px + sR[4] * py) + sR[5] * pz + st[1];
       const float qz = (sR[6] * px + sR[7] * py) + sR[8] * pz + st[2];
       float bd[KNN], bx[KNN], by[KNN], bz[KNN];
+      int br[KNN];
 #pragma unroll
-      for (int j = 0; j < KNN; ++j) { bd[j] = BIG_D2; bx[j] = by[j] = bz[j] = 0.f; }
-      cp_async_wait_all();        // this lane's copies have landed
-      __syncwarp(gmask);          // ... and those of the group's other lanes
-      rank_point(rows, R, qx, qy, qz, l, gmask, bd, bx, by, bz);
-      __syncwarp(gmask);          // the stage is free for the next batch
+      for (int j = 0; j < KNN; ++j) {
+        bd[j] = BIG_D2; br[j] = -1; bx[j] = by[j] = bz[j] = 0.f;
+      }
+      Best5 b;
+      best5_init(b);
+      if constexpr (O <= CHUNK_O) {
+        cp_async_wait_all();        // this lane's copies have landed
+        __syncwarp(gmask);          // ... and those of the group's other lanes
+        rank_rows(rows, O * C, 0, qx, qy, qz, l, b);
+        merge_best5(b, l, gmask, bd, br);
+        if (l == 0) {
+#pragma unroll
+          for (int j = 0; j < KNN; ++j) {
+            if (br[j] >= 0) {
+              const float* w = rows + 3 * br[j];
+              bx[j] = w[0]; by[j] = w[1]; bz[j] = w[2];
+            }
+          }
+        }
+        __syncwarp(gmask);          // the stage is free for the next batch
+      } else {
+        // chunk by chunk: ranked into the lanes' best 5, which carry over;
+        // one merge after the last; the winners' coordinates from the table
+        // (row o * C + slot of the bucket of offset o)
+        const int chunk_rows = CHUNK_O * C;
+#pragma unroll 1
+        for (int c = 0; c < O / CHUNK_O; ++c) {
+          if (c > 0) {
+#pragma unroll
+            for (int o = 0; o < CHUNK_O; ++o) {
+              const int og = c * CHUNK_O + o;
+              stage_row(rows + o * row_floats, table, ids[og], (live >> og) & 1u,
+                        row_floats, l, vec16);
+            }
+          }
+          cp_async_wait_all();      // this lane's copies have landed
+          __syncwarp(gmask);        // ... and those of the group's other lanes
+          rank_rows(rows, chunk_rows, c * chunk_rows, qx, qy, qz, l, b);
+          __syncwarp(gmask);        // the stage is free for the next chunk
+        }
+        merge_best5(b, l, gmask, bd, br);
+        int wh[KNN];
+        if (l == 0) {
+#pragma unroll
+          for (int j = 0; j < KNN; ++j) wh[j] = br[j] >= 0 ? ids[br[j] / C] : 0;
+        }
+        __syncwarp(gmask);          // the ids are free for the next batch
+        if (l == 0) {
+#pragma unroll
+          for (int j = 0; j < KNN; ++j) {
+            if (br[j] >= 0) {
+              const float* w =
+                  table + ((size_t)wh[j] * C + (size_t)(br[j] % C)) * 3;
+              bx[j] = w[0]; by[j] = w[1]; bz[j] = w[2];
+            }
+          }
+        }
+      }
       if (l == 0)
         plane_terms(bd, bx, by, bz, px, py, pz, qx, qy, qz, true, sdR, nn_radius,
                     plane_dist_thresh, weight_floor, acc);
@@ -544,6 +686,32 @@ static KernelFn kernel_for(int O, int* which) {
   }
 }
 
+// The warps of a block and the floats of a point's stage for O ids a point
+// and C slots a bucket.  A point's stage: its O rows (CHUNK_O rows and the
+// O bucket ids behind them where the rows stream through it), 16-byte
+// aligned, at a stride of 3 * LANES banks so that the 32 lanes of a warp, 3
+// floats apart within a group, read 32 different banks.  WARPS warps a
+// block, fewer where the rows are so wide that their stages would not fit
+// an SM's shared memory.
+static int block_shape(int O, int C, int* stage_floats_out) {
+  const int staged = O > CHUNK_O ? CHUNK_O : O;
+  int stage_floats = (staged * C * 3 + (O > CHUNK_O ? O : 0) + 3) & ~3;
+  while (stage_floats % 32 != (3 * LANES) % 32) stage_floats += 4;
+  int warps = WARPS;
+  while (warps > 1 &&
+         (size_t)warps * PPW * stage_floats * sizeof(float) > MAX_STAGE_BYTES)
+    warps /= 2;
+  *stage_floats_out = stage_floats;
+  return warps;
+}
+
+// The warps a block of lio_fused_corr holds at O ids a point and C slots a
+// bucket (what a caller prints beside the kernel's time).
+extern "C" int lio_fused_corr_block_warps(int O, int C) {
+  int stage_floats = 0;
+  return block_shape(O, C, &stage_floats);
+}
+
 // Launches the kernel on `stream`; returns the cudaError_t (0 = ok).  `out`
 // takes 45 words: AtA (6x6, symmetric), Atb (6), sum s, sum s|pd2| as
 // floats, then n_inliers as an int32.
@@ -561,17 +729,8 @@ extern "C" int lio_fused_corr(const float* table, int T, int C, const int* hh,
       (reinterpret_cast<uintptr_t>(table) & 15u) != 0 ||
       (reinterpret_cast<uintptr_t>(scratch) & 15u) != 0)
     return (int)cudaErrorInvalidValue;
-  // a point's stage: its O rows, 16-byte aligned, at a stride of 3 * LANES
-  // banks so that the 32 lanes of a warp, 3 floats apart within a group,
-  // read 32 different banks
-  int stage_floats = (O * C * 3 + 3) & ~3;
-  while (stage_floats % 32 != (3 * LANES) % 32) stage_floats += 4;
-  // WARPS warps a block, fewer where the rows are so wide that their stages
-  // would not fit an SM's shared memory
-  int warps = WARPS;
-  while (warps > 1 &&
-         (size_t)warps * PPW * stage_floats * sizeof(float) > MAX_STAGE_BYTES)
-    warps /= 2;
+  int stage_floats = 0;
+  const int warps = block_shape(O, C, &stage_floats);
   const size_t smem = (size_t)warps * PPW * stage_floats * sizeof(float);
   if (smem > MAX_STAGE_BYTES) return (int)cudaErrorInvalidValue;
   const int n_batches = (N + warps * PPW - 1) / (warps * PPW);

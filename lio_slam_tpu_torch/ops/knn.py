@@ -55,7 +55,7 @@ def knn(query: torch.Tensor, query_mask: torch.Tensor,
         ref_mask = torch.cat([ref_mask, torch.zeros(pad, dtype=torch.bool,
                                                     device=dev)])
     q2 = torch.sum(query * query, dim=-1, keepdim=True)          # (N, 1)
-    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    big = torch.full((), _BIG, dtype=torch.float32, device=dev)
     best_d = torch.full((N, k), _BIG, dtype=torch.float32, device=dev)
     best_i = torch.zeros((N, k), dtype=torch.int32, device=dev)
     for c in range(n_chunks):

@@ -7,15 +7,15 @@ brute-force k-NN of `knn_backend="brute"`); the LOAM surface + corner
 and `register_loam` (rebuild-mode map).
 
 `lax.while_loop` becomes a host loop with one device-to-host read per GN
-iteration (the convergence flag); `register_with_grid(resident=True)` runs
-every pass instead, with the iterations after convergence frozen on the
-device, and reads nothing back.  The stopping rule is the reference's:
-|Δrot| < 0.05 deg and |Δtrans| < 0.05 cm, at most 30 iterations, or fewer
-than 50 correspondences.  With the fused kernel enabled (the default) each
-iteration's surface term is one `fused_corr` pass; `corr_refresh_every > 1`
-holds the bucket ids computed at the refresh pose.  The corner term is
-plain PyTorch (an exact k-NN among at most a few thousand map corners) and
-adds no host read.
+iteration (the convergence flag); `register_with_grid(resident=True)` and
+`register(resident=True)` run every pass instead, with the iterations
+after convergence frozen on the device, and read nothing back.  The
+stopping rule is the reference's: |Δrot| < 0.05 deg and |Δtrans| < 0.05
+cm, at most 30 iterations, or fewer than 50 correspondences.  With the
+fused kernel enabled (the default) each iteration's surface term is one
+`fused_corr` pass; `corr_refresh_every > 1` holds the bucket ids computed
+at the refresh pose.  The corner term is plain PyTorch (an exact k-NN
+among at most a few thousand map corners) and adds no host read.
 """
 
 from __future__ import annotations
@@ -388,12 +388,16 @@ def register_with_grid(scan: torch.Tensor, scan_mask: torch.Tensor,
 def register(scan: torch.Tensor, scan_mask: torch.Tensor,
              map_pts: torch.Tensor, map_mask: torch.Tensor,
              init_pose6: torch.Tensor, cfg: RegistrationConfig,
-             min_correspondences: int = 50) -> RegistrationResult:
+             min_correspondences: int = 50,
+             resident: bool = False) -> RegistrationResult:
     """scan2MapOptimization against a map cloud: with `knn_backend="grid"`
     a fresh hash grid over `map_pts` (cell size nn_radius, so the queried
     neighbourhood covers the gate) and the fused pass; with "brute" the
     exact k-NN over the cloud at every iteration.  Skips (returns the
-    initial pose) below 31 scan or 51 map points (:1841, :1724)."""
+    initial pose) below 31 scan or 51 map points (:1841, :1724).
+    `resident` runs `_gn_loop_resident`, as `register_with_grid` does: no
+    read of the device (the grid is built on the device too), the same
+    results."""
     scan = scan.to(torch.float32)
     map_pts = map_pts.to(torch.float32)
     if cfg.sort_scan_by_cell:
@@ -406,10 +410,13 @@ def register(scan: torch.Tensor, scan_mask: torch.Tensor,
 
     n_scan = torch.sum(scan_mask.to(torch.int32))
     n_map = torch.sum(map_mask.to(torch.int32))
-    runnable = bool((n_scan > 30) & (n_map > 50))
-    return _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg, runnable,
-                    min_correspondences,
-                    ne_fn=_maybe_fused(scan, scan_mask, grid, cfg))
+    runnable = (n_scan > 30) & (n_map > 50)
+    ne_fn = _maybe_fused(scan, scan_mask, grid, cfg)
+    if resident:
+        return _gn_loop_resident(scan, scan_mask, corr_fn, init_pose6, cfg,
+                                 runnable, min_correspondences, ne_fn=ne_fn)
+    return _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg, bool(runnable),
+                    min_correspondences, ne_fn=ne_fn)
 
 
 def _map_grid(map_pts, map_mask, cfg: RegistrationConfig):

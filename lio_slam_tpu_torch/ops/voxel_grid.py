@@ -102,7 +102,10 @@ def empty_grid(cell_size: float, table_size: int = 32768,
         table=torch.full((table_size, max_per_cell, 3), SENTINEL, dtype=dtype,
                          device=device),
         counts=torch.zeros(table_size, dtype=torch.int32, device=device),
-        cell_size=torch.tensor(cell_size, dtype=torch.float32, device=device))
+        # a fill, not a copy from the host: `build_grid` runs inside the
+        # captured resident step on the rebuild-mode map
+        cell_size=torch.full((), cell_size, dtype=torch.float32,
+                             device=device))
 
 
 def _insert_core(table: torch.Tensor, counts: torch.Tensor,

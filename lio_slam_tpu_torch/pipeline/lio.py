@@ -13,8 +13,10 @@ here: one device-to-host read each.  `make_lio_step(cfg, resident=True)`
 builds the same step with those branches as device selects over the state
 (both sides computed, one kept) and the GN loop's passes all run
 (`registration._gn_loop_resident`): it reads nothing back, which is what
-lets `pipeline/replay.py` capture it as a CUDA graph.  It serves the
-surface-only incremental-map path without GPS, the JAX replay's path.
+lets `pipeline/replay.py` capture it as a CUDA graph.  It serves every
+config the JAX replay programs run (the incremental and the rebuild-mode
+map, either k-NN backend; a corner config on the surface path, as a replay
+feeds no corner cloud), without GPS, which no replay feeds.
 
 `local_map_mode="incremental"` registers against the persistent voxel map;
 "rebuild" assembles the local map from the nearby keyframes every scan
@@ -532,14 +534,18 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
     keyframe gate and the eviction are selects over the state (the save
     runs on every scan and is kept where the gate holds), the GN loop runs
     all its passes, and `out.is_keyframe` / `out.registration_iters` are
-    device tensors.  It serves the surface-only incremental-map path, and
-    it leaves the GPS factor out: it is built for the replay, whose inputs
-    carry no GPS fix."""
+    device tensors.  It is built for the replay programs and runs every
+    config the JAX package's replay programs run: the incremental map and
+    the rebuild-mode map (the local map assembled and its grid built inside
+    the step, or the brute-force k-NN of `knn_backend="brute"`); under
+    `use_corner_features` it takes the surface path, as the JAX step does
+    where the input holds no corner cloud (the JAX replay's `ScanInput`
+    has none).  It leaves the GPS factor out, which the replays of neither
+    package feed, and raises on a corner cloud: no JAX program hands its
+    step one, so a resident LOAM term would be a path the reference
+    lacks."""
     s = cfg.static
     r = cfg.registration
-    if resident and (r.use_corner_features or r.local_map_mode != "incremental"):
-        raise NotImplementedError("the resident step serves the surface-only "
-                                  "incremental-map path")
     if ops is None:
         ops = default_map_ops(cfg, device)
     elif r.use_corner_features or r.local_map_mode != "incremental":
@@ -549,6 +555,10 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
                   max_selected=cfg.output.local_map_keyframes)
 
     def lio_step(state: LioState, inp: ScanInput):
+        if resident and inp.corner is not None:
+            raise NotImplementedError(
+                "the resident step takes no corner cloud: the JAX replay "
+                "programs feed none, so their step runs the surface path")
         pose_guess = _update_initial_guess(state, inp)
         if r.scan_downsample == "hash":
             scan_ds = pc.hash_downsample(inp.cloud, r.mapping_surf_leaf_size,
@@ -596,7 +606,7 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
             else:
                 res = reg.register(scan_ds.xyz, scan_ds.mask & has_map,
                                    local_map.xyz, local_map.mask,
-                                   pose_guess, r)
+                                   pose_guess, r, resident=resident)
         pose = torch.where(has_map, res.pose, pose_guess)
         pose = reg.transform_update(pose, inp.imu_rpy, inp.imu_available,
                                     cfg.imu.imu_rpy_weight,

@@ -31,7 +31,13 @@ Two forms:
   all its passes with converged ones frozen on the device, and the
   keyframe gate and the eviction are device selects, as the front-end's
   two checks are on every path (`lax.while_loop` and `lax.cond` in the
-  reference; the GPS factor is left out: a replay feeds no GPS fix).  On
+  reference).  They run every config the JAX scan programs run: the
+  incremental map and the rebuild-mode map (the local map assembled from
+  the nearby keyframes each scan and registered through
+  `register(resident=True)`, its grid built inside the step, or the
+  brute-force k-NN), and `use_corner_features=True` on the surface path,
+  as the JAX step takes it where a replay feeds no corner cloud.  The GPS
+  factor is left out: neither package's replay feeds a GPS fix.  On
   the card each scan runs as two captured CUDA graphs
   (`torch.cuda.CUDAGraph`, the counterpart of `jax.jit`), (a)
   prep+predict+mapping step and (b) front-end correction + TransformFusion

@@ -82,6 +82,12 @@ DESKEW_SCANS = 20
 # second loop the detector accepts is corrected at a cadence scan
 PIPELINE_REPLAY_SCANS = 120
 LOOP_REPLAY_SCANS = 130
+# chip_smoke.py phase 21, the resident replays at the other configs the JAX
+# programs run: the first REBUILD_REPLAY_SCANS scans of phase 19's inputs
+# on the rebuild-mode map, the first CORNER_REPLAY_SCANS under the corner
+# config (which a replay, feeding no corner cloud, runs on the surface path)
+REBUILD_REPLAY_SCANS = 40
+CORNER_REPLAY_SCANS = 10
 
 # chip_smoke.py phase 18, the sharded mission: SHARDED_SCANS scans of the
 # smoke mission's sequence, then an injected loop and at most SHARDED_TAIL
@@ -219,6 +225,19 @@ def corner_mission_config(local_map_mode: str = "incremental") -> Config:
         base, registration=dataclasses.replace(
             base.registration, use_corner_features=True,
             local_map_mode=local_map_mode))
+
+
+def rebuild_replay_config() -> Config:
+    """`bench_config()` on the rebuild-mode map: every scan registers
+    against the nearby keyframes' clouds merged and voxel downsampled into
+    the default local-map capacity of 131072 points, over a grid built for
+    the scan (chip_smoke.py phase 21's replays)."""
+    base = bench_config()
+    return dataclasses.replace(
+        base,
+        static=dataclasses.replace(base.static, max_map_points=131072),
+        registration=dataclasses.replace(base.registration,
+                                         local_map_mode="rebuild"))
 
 
 def hard_replay_config() -> Config:

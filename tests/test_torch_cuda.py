@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import planar_scene, t
+from torch_port_helpers import planar_scene, streamed_stage_case, t
 from lio_slam_tpu_torch.config import Config, LoopClosureConfig
 from lio_slam_tpu_torch.io import synthetic
 from lio_slam_tpu_torch.ops import fused_corr as fc
@@ -84,10 +84,15 @@ def test_kernel_any_capacity_and_ragged_scan(cuda, cap, n_scan):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("halo,cap", [("full", 64), ("full", 128), ("xy", 72),
-                                      ("none", 24)])
+                                      ("none", 24), ("none", 22), ("none", 5),
+                                      ("none", 96)])
 def test_kernel_at_every_layout(cuda, halo, cap):
     """The instantiations at 1, 3 and 27 bucket ids a point against the
-    plain version; repeated launches bit-identical."""
+    plain version; repeated launches bit-identical.  At 27 ids the rows
+    stream through the stage in chunks of 9 offsets: a cap that is no
+    multiple of 4 takes the 4-byte copies (22; at 5 a chunk's 45 rows also
+    move a lane's rows from one chunk to the next), a wide one (96) a block
+    of fewer warps."""
     map_pts, scan = planar_scene(6, n_map=8192, n_scan=1000)
     grid = vg.build_grid(t(map_pts).to(cuda),
                          torch.ones(len(map_pts), dtype=torch.bool, device=cuda),
@@ -105,6 +110,28 @@ def test_kernel_at_every_layout(cuda, halo, cap):
     assert_ne_close(out, ref)
     again = fc.fused_normal_equations(grid, scan, mask, pose, halo=halo, **KW)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [24, 22])
+@pytest.mark.parametrize("case", ["tie", "last_chunk", "duplicates"])
+def test_kernel_streamed_stage_cases(cuda, case, cap):
+    """The 27-id instantiation against the plain version on the cases the
+    streamed stage makes new (`streamed_stage_case`), at a cap that is a
+    multiple of 4 and one that is not (the 4-byte copies): inliers exact,
+    sums as the kernel contract allows, repeated launches bit-identical.
+    Most points are inliers, so a wrong fifth neighbour would show."""
+    args = [x.to(cuda) for x in streamed_stage_case(case, cap)]
+    out = fc.fused_ne_from_bucket_ids(*args, **KW)
+    torch.cuda.synchronize()
+    ref = fc.fused_ne_from_bucket_ids_ref(*args, **KW)
+    assert int(ref[2]) > len(args[2]) // 2
+    assert_ne_close(out, ref)
+    again = fc.fused_ne_from_bucket_ids(*args, **KW)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    # the plain version on the CPU selects the same rows
+    cpu = fc.fused_ne_from_bucket_ids_ref(*(x.cpu() for x in args), **KW)
+    assert int(cpu[2]) == int(out[2])
 
 
 @pytest.mark.cuda
@@ -739,3 +766,72 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     # each replay of graph (a) launches the kernel R times; the cadence
     # calls' loop verifications (none here: no candidate) would add theirs
     assert fc.KERNEL_LAUNCHES == 2 * n_scans * R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rebuild_grid", "rebuild_brute", "corner"])
+def test_graph_replay_at_every_config(cuda, mode):
+    """The resident programs at the other configs the JAX programs run,
+    captured on the card: the rebuild-mode map (the local map assembled
+    and, with the grid backend, its grid built inside graph (a), the kernel
+    at every GN pass; the brute-force k-NN's chunked top-k captured too)
+    and the corner config (the surface path: a replay feeds no corner
+    cloud).  Against `HostDrivenReplay` on the card over 6 scans at
+    tests/test_replay.py's config: poses, GN iterations and degenerate
+    flags bit-equal, no synchronization inside the replay, the kernel's
+    launches those the graphs hold."""
+    from lio_slam_tpu_torch.config import RegistrationConfig, StaticConfig
+    from lio_slam_tpu_torch.pipeline import replay
+
+    reg = dict(degeneracy_eig_thresh=10.0)
+    if mode.startswith("rebuild"):
+        reg.update(local_map_mode="rebuild", knn_backend=mode.split("_")[1])
+    else:
+        reg.update(use_corner_features=True)
+    cfg = Config(static=StaticConfig(max_raw_points=2048, max_scan_points=2048,
+                                     max_map_points=8192, max_keyframes=16,
+                                     max_keyframe_points=1024, max_loop_queue=2,
+                                     max_gps_queue=2, window_size=8,
+                                     max_imu_window=16),
+                 registration=RegistrationConfig(**reg))
+    n_scans = 6
+    seq = synthetic.make_sequence(n_scans=n_scans, n_points=2048, seed=0)
+    acc, gyr, dts, rel_t, imask = synthetic.make_imu_windows(
+        seq, 16, samples_per_scan=8, gravity=cfg.imu.gravity)
+    batch = replay.ReplayBatch(
+        xyz=seq.scans, ptime=np.zeros((n_scans, 2048), np.float32),
+        pmask=seq.scan_masks, ring=np.zeros((n_scans, 2048), np.int32),
+        acc=acc, gyr=gyr, dts=dts, rel_t=rel_t, imask=imask, stamp=seq.stamps)
+    hd = replay.HostDrivenReplay(cfg, loop_every=3, device=cuda)
+    _, _, eager = hd.run(*hd.init(), hd.split(batch))
+
+    run = replay.make_pipeline_replay(cfg, loop_every=3, device=cuda)
+    staged = run.stage(batch)
+    run.capture(*run.init(), staged)
+    R = cfg.registration.max_iterations
+    fused = mode != "rebuild_brute"
+    assert run.program.graph_launches == ((R if fused else 0), 0)
+
+    def quiet(fn):
+        def wrapped(*a, **k):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return wrapped
+
+    run.detector, run.full_correct = quiet(run.detector), quiet(run.full_correct)
+    fc.KERNEL_LAUNCHES = 0
+    state, fes = run.init()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, graph = run(state, fes, staged)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for name in ("poses", "iters", "degenerate"):
+        assert torch.equal(getattr(graph, name), getattr(eager, name)), name
+    assert int(graph.iters.max()) >= 1
+    assert fc.KERNEL_LAUNCHES == (n_scans * R if fused else 0)

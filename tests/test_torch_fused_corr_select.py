@@ -5,9 +5,10 @@ kernel: `jnp.argmin` five times, first index on ties, 1e30 added to the
 candidates of a repeated bucket (`lio_slam_tpu/ops/fused_corr.py`,
 `_make_kernel`).
 
-The scheme is `select_lanes_ref` below, a torch model of what
-`rank_point` in `csrc/fused_corr.cu` does; these tests hold the scheme, not
-the CUDA source.  The kernel itself is held to the plain version only on a
+The scheme is `select_lanes_ref` below, a torch model of what `rank_rows`
+and `merge_best5` in `csrc/fused_corr.cu` do, with the whole stage or with
+the 27-id instantiation's rows streamed through it in chunks of 9 offsets;
+these tests hold the scheme, not the CUDA source.  The kernel itself is held to the plain version only on a
 GPU, by the `cuda` tests of tests/test_torch_cuda.py and by chip_smoke.py.
 
 The contract: wherever the argmin's pick is a real neighbour (d below the
@@ -33,14 +34,18 @@ NO_NEIGHBOUR_D2 = 3.0e38
 
 
 def select_lanes_ref(d2: torch.Tensor, skip: torch.Tensor, k: int = KNN,
-                     lanes: int = 8):
+                     lanes: int = 8, chunk_offsets: int = None):
     """The kernel's selection scheme in torch, for the tests.  `d2` (R, N)
     squared distances of the rows o*C + c, `skip` (O, N) buckets the kernel
     does not rank.  Lane l of a point's group of `lanes` walks rows l,
     l + lanes, ... and keeps its best k as keys (bits of d, then the row); a
-    candidate enters only if strictly nearer than the lane's k-th.  Then k
-    merges take the least key over the lanes' heads.  Returns (rows (k, N)
-    int64, -1 where nothing was selected; d (k, N), NO_NEIGHBOUR_D2 there)."""
+    candidate enters only if strictly nearer than the lane's k-th.  With
+    `chunk_offsets` the rows stream through the stage as the 27-id
+    instantiation streams them: chunk after chunk of that many offsets,
+    lane l walking rows l, l + lanes, ... of each chunk, its best k carried
+    from one chunk to the next.  Then k merges take the least key over the
+    lanes' heads.  Returns (rows (k, N) int64, -1 where nothing was
+    selected; d (k, N), NO_NEIGHBOUR_D2 there)."""
     R, N = d2.shape
     C = R // skip.shape[0]
     none = torch.iinfo(torch.int64).max
@@ -48,12 +53,20 @@ def select_lanes_ref(d2: torch.Tensor, skip: torch.Tensor, k: int = KNN,
     key_d = lambda key: (key >> 32).to(torch.int32).view(torch.float32)
     keys = (d2.view(torch.int32).to(torch.int64) << 32) | torch.arange(R)[:, None]
     live = ~skip.repeat_interleave(C, dim=0)
-    rounds = -(-R // lanes)
-    pad = rounds * lanes - R
-    keys = torch.cat([keys, torch.full((pad, N), none)]).view(rounds, lanes, N)
-    live = torch.cat([live, torch.zeros((pad, N), dtype=torch.bool)]
-                     ).view(rounds, lanes, N)
-    d2 = torch.cat([d2, torch.zeros((pad, N))]).view(rounds, lanes, N)
+    # the rows each round of the lanes meets (-1: none), chunk by chunk
+    chunk = R if chunk_offsets is None else chunk_offsets * C
+    order = []
+    for lo in range(0, R, chunk):
+        rows = torch.arange(lo, min(lo + chunk, R))
+        pad = -len(rows) % lanes
+        order.append(torch.cat([rows, torch.full((pad,), -1)]).view(-1, lanes))
+    order = torch.cat(order)                                  # (rounds, lanes)
+    rounds = order.shape[0]
+    at = order.clamp(min=0).reshape(-1)
+    real = (order >= 0).reshape(-1, 1)
+    keys = torch.where(real, keys[at], none).view(rounds, lanes, N)
+    live = (real & live[at]).view(rounds, lanes, N)
+    d2 = torch.where(real, d2[at], 0.0).view(rounds, lanes, N)
     best = [torch.full((lanes, N), none) for _ in range(k)]
     for key, ok, d in zip(keys, live, d2):
         fifth = torch.where(best[k - 1] == none,
@@ -92,9 +105,10 @@ def argmin_picks(d2, skip):
             torch.from_numpy(np.stack(dist)))
 
 
-def assert_same_selection(d2, skip, lanes=8):
+def assert_same_selection(d2, skip, lanes=8, chunk_offsets=None):
     want_rows, want_d = argmin_picks(d2, skip)
-    got_rows, got_d = select_lanes_ref(d2, skip, lanes=lanes)
+    got_rows, got_d = select_lanes_ref(d2, skip, lanes=lanes,
+                                       chunk_offsets=chunk_offsets)
     real = want_d < jax_fc._VALID_MAX
     np.testing.assert_array_equal(got_rows[real].numpy(), want_rows[real].numpy())
     np.testing.assert_array_equal(got_d[real].numpy(), want_d[real].numpy())
@@ -175,3 +189,62 @@ def test_one_lane_may_hold_all_five(lanes):
                                      lanes=lanes)
     assert rows[:, 0].tolist() == mine[::-1]
     assert_same_selection(d2, torch.zeros((9, 1), dtype=torch.bool), lanes)
+
+
+# the streamed stage of the 27-id instantiation: chunks of 9 offsets
+STREAM_O, CHUNK_O = 27, 9
+
+
+@st.composite
+def streamed_cases(draw):
+    C = draw(st.sampled_from([5, 7, 8, 22, 24]))
+    N = draw(st.integers(1, 4))
+    rs = np.random.RandomState(draw(st.integers(0, 2 ** 31 - 1)))
+    levels = draw(st.integers(1, 12))          # few distinct values: many ties
+    d2 = rs.randint(0, levels, (STREAM_O * C, N)).astype(np.float32) * 0.25
+    d2[rs.rand(STREAM_O * C, N) < draw(st.sampled_from([0.0, 0.5, 0.95]))] = np.inf
+    skip = rs.rand(STREAM_O, N) < draw(st.sampled_from([0.0, 0.3, 0.9]))
+    return (torch.from_numpy(d2), torch.from_numpy(skip),
+            draw(st.sampled_from([4, 8, 16, 32])))
+
+
+@settings(max_examples=60, deadline=None)
+@given(streamed_cases())
+def test_streamed_stage_picks_what_argmin_picks(case):
+    d2, skip, lanes = case
+    assert_same_selection(d2, skip, lanes, chunk_offsets=CHUNK_O)
+
+
+@pytest.mark.parametrize("C", [24, 22, 5])
+@pytest.mark.parametrize("boundary", [1, 2])
+def test_tie_straddling_a_chunk_boundary(C, boundary):
+    """Equal distances in the last row of a chunk and the first of the
+    next: the lower row wins, as `jnp.argmin` picks it."""
+    R = STREAM_O * C
+    d2 = torch.full((R, 1), 4.0)
+    last = boundary * CHUNK_O * C - 1
+    d2[[0, 1, 2, 3], 0] = torch.tensor([0.1, 0.2, 0.3, 0.4])
+    d2[[last, last + 1], 0] = 0.5
+    rows, _ = select_lanes_ref(d2, torch.zeros((STREAM_O, 1), dtype=torch.bool),
+                               chunk_offsets=CHUNK_O)
+    assert rows[:, 0].tolist() == [0, 1, 2, 3, last]
+    assert_same_selection(d2, torch.zeros((STREAM_O, 1), dtype=torch.bool),
+                          chunk_offsets=CHUNK_O)
+
+
+@pytest.mark.parametrize("lanes", [4, 8, 32])
+def test_five_nearest_in_the_last_chunk(lanes):
+    """The five nearest all in offsets 18-26 and nearer decoys than the
+    rest everywhere before: the lanes' lists carry the decoys until the last
+    chunk displaces them."""
+    C = 24
+    R = STREAM_O * C
+    d2 = torch.full((R, 1), 9.0)
+    d2[:2 * CHUNK_O * C:7, 0] = 0.8                         # decoys
+    mine = [2 * CHUNK_O * C + x for x in (5, 40, 41, 100, 200)]
+    d2[mine, 0] = torch.tensor([0.5, 0.1, 0.1, 0.3, 0.2])
+    rows, dist = select_lanes_ref(d2, torch.zeros((STREAM_O, 1), dtype=torch.bool),
+                                  lanes=lanes, chunk_offsets=CHUNK_O)
+    assert rows[:, 0].tolist() == [mine[1], mine[2], mine[4], mine[3], mine[0]]
+    assert_same_selection(d2, torch.zeros((STREAM_O, 1), dtype=torch.bool),
+                          lanes, chunk_offsets=CHUNK_O)

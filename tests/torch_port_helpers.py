@@ -127,6 +127,40 @@ def repaired_jax_feed():
         jlive.LiveFeed._window_for = original
 
 
+SMALL_REBUILD_SCANS = 8         # tests/test_torch_resident_modes.py's replays
+SMALL_REBUILD_LOOP_EVERY = 4
+
+
+def small_rebuild_inputs():
+    """(port Config, numpy ReplayBatch) of tests/test_torch_resident_modes.py's
+    replays against the JAX monolith: tests/test_replay.py's config on the
+    rebuild-mode map, SMALL_REBUILD_SCANS scans of 2048 points
+    (`torch_port_make_fixture.py rebuild` records the JAX run)."""
+    from lio_slam_tpu_torch import config as port_config
+    from lio_slam_tpu_torch.io import synthetic
+    from test_torch_replay import numpy_batch, replay_config
+
+    base = replay_config(port_config)
+    cfg = dataclasses.replace(base, registration=dataclasses.replace(
+        base.registration, local_map_mode="rebuild"))
+    seq = synthetic.make_sequence(n_scans=SMALL_REBUILD_SCANS, n_points=2048,
+                                  seed=0)
+    return cfg, numpy_batch(seq, cfg, SMALL_REBUILD_SCANS)
+
+
+def imu_state_of(ref, i, device=None):
+    """The JAX front-end's state at the start of scan i, from a fixture's
+    `imu_*` keys (`ref` maps the names without a prefix)."""
+    from lio_slam_tpu_torch.ops import preintegration as pre
+    from lio_slam_tpu_torch.pipeline import imu_frontend as fe
+
+    get = lambda k: torch.from_numpy(np.array(ref[f"imu_{k}"][i])).to(device)
+    return fe.ImuFrontendState(
+        nav=pre.NavState(R=get("R"), p=get("p"), v=get("v")),
+        bias_gyr=get("bias_gyr"), bias_acc=get("bias_acc"), cov=get("cov"),
+        initialized=get("initialized"), failure=get("failure"))
+
+
 def jax_fused_interpret(scan, scan_mask, grid, cfg):
     """The JAX `registration._maybe_fused` as it is off the CPU, with the
     Pallas kernel in interpret mode: patched in where a JAX run must hold
@@ -414,3 +448,69 @@ class HostReadGuard(TorchFunctionMode):
             raise AssertionError(f"host read or host data on the resident "
                                  f"path: {name}")
         return func(*args, **kwargs)
+
+
+def streamed_stage_case(case, cap, n_points=640, seed=0):
+    """A table and 27 bucket ids a point, built by hand, for the cases the
+    streamed stage (9 offsets a chunk) makes new.  Each point has 27
+    buckets of its own; its four nearest neighbours lie on the plane 0.25 m
+    below it and a fifth just off that plane, so the fifth's place decides
+    the fit:
+    - "tie": two candidates at exactly the fifth distance, one in the last
+      offset of a chunk and one in the first of the next (offsets 8/9, or
+      17/18 for odd points), in either order: the lower row wins.
+    - "last_chunk": the five nearest all in offsets 18-26, nearer decoys
+      than the rest of the map in offsets 0-17.
+    - "duplicates": offsets that repeat the bucket of one of the first four
+      offsets, ids below 0 and at or past the table's end, the five nearest
+      spread over those four buckets.
+    Returns (table, hh, scan, mask, pose) on the CPU (tests/test_torch_cuda.py
+    and tests/test_torch_fused_corr_emulated.py)."""
+    from lio_slam_tpu_torch.ops.voxel_grid import SENTINEL
+
+    rs = np.random.RandomState(seed)
+    O, N = 27, n_points
+    T = O * N + 1
+    table = np.full((T, cap, 3), SENTINEL, np.float32)
+    hh = (np.arange(O)[:, None] + O * np.arange(N)[None, :]).astype(np.int32)
+    # on a 1/8 m lattice, so that q + each offset below is exact and the
+    # tied distances are equal to the bit
+    scan = (rs.randint(-32, 33, (N, 3)) / 8.0).astype(np.float32)
+    near = np.array([[0.25, 0, -0.25], [-0.25, 0, -0.25], [0, 0.25, -0.25],
+                     [0, -0.375, -0.25]], np.float32)
+    tie = np.array([[0.5, 0, -0.125], [0, -0.5, -0.125]], np.float32)
+    fill = [0] * T
+
+    def put(bucket, offset_xyz, q):
+        table[bucket, fill[bucket] % cap] = q + offset_xyz
+        fill[bucket] += 1
+
+    for i in range(N):
+        q = scan[i]
+        b = hh[:, i]
+        if case == "tie":
+            for x in near:
+                put(b[rs.randint(0, O)], x, q)
+            lo, hi = (8, 9) if i % 2 == 0 else (17, 18)
+            first, second = (tie if rs.rand() < 0.5 else tie[::-1])
+            put(b[lo], first, q)
+            put(b[hi], second, q)
+        elif case == "last_chunk":
+            for x in np.concatenate([near, tie[:1]]):
+                put(b[rs.randint(18, O)], x, q)
+            for _ in range(8):       # nearer than the nn gate, farther than all five
+                put(b[rs.randint(0, 18)],
+                    np.array([0.6, 0.0, -0.25], np.float32)
+                    + rs.uniform(-0.05, 0.05, 3).astype(np.float32), q)
+        else:
+            repeat = rs.choice(np.arange(4, O), 18, replace=False)
+            src = rs.randint(0, 4, 18)
+            hh[repeat[:12], i] = hh[src[:12], i]          # duplicates
+            hh[repeat[12:15], i] = -1 - rs.randint(0, 5, 3)
+            hh[repeat[15:], i] = T + rs.randint(0, 5, 3)
+            for x in np.concatenate([near, tie[:1]]):
+                put(hh[rs.randint(0, 4), i], x, q)
+    mask = np.ones(N, bool)
+    mask[5::13] = False
+    return (t(table), torch.from_numpy(hh), t(scan), torch.from_numpy(mask),
+            torch.zeros(6))

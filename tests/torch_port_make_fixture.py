@@ -76,6 +76,13 @@ CPU over exactly those missions and saves what the smoke run compares:
   scan's GN trace as in `hard_replay_jax.npz` (both recorded by
   `jax.debug.callback` in the scan body, which leaves the replay's numbers
   bit-equal).
+  Beside them (`rebuild`), the monolith on the rebuild-mode map: keys
+  prefixed `rebuild_` over the first 40 of those scans at
+  `rebuild_replay_config()` (chip_smoke.py phase 21), and keys prefixed
+  `small_rebuild_`, 8 scans of 2048 points at tests/test_replay.py's
+  config (tests/test_torch_resident_modes.py): per-scan poses, GN iterations,
+  degenerate flags, TransformFusion output, the IMU front-end state each
+  scan starts from, the keyframe count (and at full width the GN traces).
 - `loop_replay_jax.npz`: the JAX `ChunkedReplay(loop_every=10)` over the
   loop mission's circle (`loop_replay_inputs()`: `loop_mission_config()`,
   130 scans, no GPS in a replay): the same per-scan keys, the loop count
@@ -102,11 +109,11 @@ path it takes off the CPU, with the Pallas kernel in interpret mode and the
 candidate block held between refreshes, as the port does.
 
 Run by hand from the repository root (`smoke`, `loop`, `archive`, `bag`,
-`corner`, `hard`, `sharded`, `replay`, `layouts`, or all nine when no
-argument is given):
+`corner`, `hard`, `sharded`, `replay`, `rebuild`, `layouts`, or all ten
+when no argument is given):
 
     python tests/torch_port_make_fixture.py \
-        [smoke|loop|archive|bag|corner|hard|sharded|replay|layouts]
+        [smoke|loop|archive|bag|corner|hard|sharded|replay|rebuild|layouts]
 
 It is not a test (pytest does not collect it).
 """
@@ -139,9 +146,10 @@ from lio_slam_tpu_torch.io import synthetic  # noqa: E402
 from lio_slam_tpu_torch.pipeline import synthetic_mission as sm  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
+import torch_port_helpers as H  # noqa: E402
 from torch_port_helpers import (jax_fused_interpret, record_imu_states,  # noqa: E402
                                 repaired_jax_feed, small_layout_config,
-                                to_jax_config)
+                                small_rebuild_inputs, to_jax_config)
 
 FIXTURES = os.path.join(ROOT, "lio_slam_tpu_torch", "fixtures")
 OUT = os.path.join(FIXTURES, "smoke_mission_jax.npz")
@@ -740,18 +748,20 @@ def replay_outputs(outs) -> dict:
                 fused_last=np.asarray(outs.fused_last, np.float32))
 
 
-def pipeline_replays():
-    """The JAX scan programs over phase 19's inputs; writes PIPELINE_OUT
-    and LOOP_REPLAY_OUT."""
+def jax_monolith(cfg, batch, loop_every, traces=True):
+    """(final state, outputs) of the JAX `make_pipeline_replay(loop_every)`
+    (the whole pipeline in one `lax.scan`) over a numpy `ReplayBatch` of
+    the port: `replay_outputs`' keys, the IMU front-end state each scan
+    starts from (`imu_*`) and, with `traces` (the fused path only), each
+    scan's GN trace (`gn_poses`, `gn_inliers`), all recorded by
+    `jax.debug.callback` in the scan body, which leaves the replay's
+    numbers bit-equal."""
     import jax.numpy as jnp
 
     from lio_slam_tpu.pipeline import imu_frontend as jfe
     from lio_slam_tpu.pipeline import lio as jlio
     from lio_slam_tpu.pipeline import replay as jreplay
 
-    t0 = time.time()
-    cfg = sm.bench_config()
-    seq, batch = sm.pipeline_replay_inputs()
     jcfg = to_jax_config(cfg, jax_config)
     imu, gn = [], []
 
@@ -769,10 +779,11 @@ def pipeline_replays():
 
     make_frontend = jreplay.fe.make_frontend
     jreplay.fe.make_frontend = recording_frontend
-    gn_loop, jreg._gn_loop = jreg._gn_loop, recording_gn_loop(jreg._gn_loop,
-                                                              gn)
+    gn_loop = jreg._gn_loop
+    if traces:
+        jreg._gn_loop = recording_gn_loop(gn_loop, gn)
     try:
-        run = jreplay.make_pipeline_replay(jcfg, loop_every=sm.LOOP_EVERY)
+        run = jreplay.make_pipeline_replay(jcfg, loop_every=loop_every)
         state, _, outs = run(jlio.init_state(jcfg), jfe.init_state(),
                              jreplay.ReplayBatch(*(jnp.asarray(a)
                                                    for a in batch)))
@@ -783,22 +794,45 @@ def pipeline_replays():
     assert len(imu) == len(batch.stamp), len(imu)
     stack = lambda get: np.stack([get(f) for f in imu])
     out = replay_outputs(outs)
-    gn_poses, gn_inliers = padded_traces(gn, out["registration_iters"],
-                                         cfg.registration.max_iterations)
+    out.update(imu_R=stack(lambda f: f.nav.R), imu_p=stack(lambda f: f.nav.p),
+               imu_v=stack(lambda f: f.nav.v),
+               imu_bias_gyr=stack(lambda f: f.bias_gyr),
+               imu_bias_acc=stack(lambda f: f.bias_acc),
+               imu_cov=stack(lambda f: f.cov),
+               imu_initialized=stack(lambda f: f.initialized),
+               imu_failure=stack(lambda f: f.failure))
+    if traces:
+        out["gn_poses"], out["gn_inliers"] = padded_traces(
+            gn, out["registration_iters"], cfg.registration.max_iterations)
+    return state, out
+
+
+def save_merged(path, keys: dict):
+    """Write `keys` into the npz at `path`, keeping its other keys."""
+    old = dict(np.load(path)) if os.path.exists(path) else {}
+    old.update(keys)
+    np.savez(path, **old)
+
+
+def pipeline_replays():
+    """The JAX scan programs over phase 19's inputs; writes PIPELINE_OUT
+    (its keys of `rebuild_replays` kept) and LOOP_REPLAY_OUT."""
+    import jax.numpy as jnp
+
+    from lio_slam_tpu.pipeline import replay as jreplay
+
+    t0 = time.time()
+    cfg = sm.bench_config()
+    seq, batch = sm.pipeline_replay_inputs()
+    state, out = jax_monolith(cfg, batch, sm.LOOP_EVERY)
     truth = sm.relative_truth(seq)
     drift = float(np.linalg.norm(out["poses"][-1, 3:] - truth[-1, 3:]))
-    np.savez(PIPELINE_OUT, batch_sha256=np.array(sm.batch_sha256(batch)),
-             loop_count=np.int32(state.loop_count),
-             keyframes=np.int32(state.store.count), drift_m=np.float32(drift),
-             ate_rmse_m=np.float32(synthetic.ate_rmse(out["poses"], truth)),
-             imu_R=stack(lambda f: f.nav.R), imu_p=stack(lambda f: f.nav.p),
-             imu_v=stack(lambda f: f.nav.v),
-             imu_bias_gyr=stack(lambda f: f.bias_gyr),
-             imu_bias_acc=stack(lambda f: f.bias_acc),
-             imu_cov=stack(lambda f: f.cov),
-             imu_initialized=stack(lambda f: f.initialized),
-             imu_failure=stack(lambda f: f.failure),
-             gn_poses=gn_poses, gn_inliers=gn_inliers, **out)
+    save_merged(PIPELINE_OUT, dict(
+        batch_sha256=np.array(sm.batch_sha256(batch)),
+        loop_count=np.int32(state.loop_count),
+        keyframes=np.int32(state.store.count), drift_m=np.float32(drift),
+        ate_rmse_m=np.float32(synthetic.ate_rmse(out["poses"], truth)),
+        **out))
     print(f"wrote {PIPELINE_OUT}: {len(out['poses'])} scans, "
           f"{int(state.store.count)} keyframes, {int(state.loop_count)} loops, "
           f"drift {drift:.4f} m, {int(out['registration_iters'].sum())} GN "
@@ -846,10 +880,45 @@ def pipeline_replays():
           f"GN iterations, {time.time() - t0:.1f} s")
 
 
+def rebuild_replays():
+    """The JAX monolith on the rebuild-mode map: phase 21's first
+    REBUILD_REPLAY_SCANS scans of phase 19's inputs at
+    `rebuild_replay_config()` (keys `rebuild_`), and the small replay of
+    tests/test_torch_resident_modes.py (keys `small_rebuild_`); merged into
+    PIPELINE_OUT."""
+    t0 = time.time()
+    cfg, batch = small_rebuild_inputs()
+    state, out = jax_monolith(cfg, batch, H.SMALL_REBUILD_LOOP_EVERY,
+                              traces=False)
+    keys = {"small_rebuild_" + k: v for k, v in out.items()}
+    keys.update(small_rebuild_keyframes=np.int32(state.store.count),
+                small_rebuild_batch_sha256=np.array(sm.batch_sha256(batch)))
+    print(f"small rebuild replay: {len(out['poses'])} scans, "
+          f"{int(state.store.count)} keyframes, GN iterations "
+          f"{out['registration_iters'].tolist()}, {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cfg = sm.rebuild_replay_config()
+    seq, batch = sm.pipeline_replay_inputs(n_scans=sm.REBUILD_REPLAY_SCANS)
+    state, out = jax_monolith(cfg, batch, sm.LOOP_EVERY)
+    truth = sm.relative_truth(seq)
+    keys.update({"rebuild_" + k: v for k, v in out.items()})
+    keys.update(rebuild_batch_sha256=np.array(sm.batch_sha256(batch)),
+                rebuild_keyframes=np.int32(state.store.count),
+                rebuild_loop_count=np.int32(state.loop_count),
+                rebuild_ate_rmse_m=np.float32(synthetic.ate_rmse(out["poses"],
+                                                                 truth)))
+    save_merged(PIPELINE_OUT, keys)
+    print(f"wrote the rebuild keys into {PIPELINE_OUT}: {len(out['poses'])} "
+          f"scans, {int(state.store.count)} keyframes, "
+          f"{int(out['registration_iters'].sum())} GN iterations, degenerate "
+          f"at {np.nonzero(out['degenerate'])[0].tolist()}, ATE "
+          f"{float(keys['rebuild_ate_rmse_m']):.5f} m, {time.time() - t0:.1f} s")
+
+
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("smoke", "loop", "archive", "bag", "corner", "hard",
-                     "sharded", "replay", "layouts", "all"):
+                     "sharded", "replay", "rebuild", "layouts", "all"):
         sys.exit(__doc__)
     jreg._maybe_fused = jax_fused_interpret
     if which in ("smoke", "all"):
@@ -869,6 +938,8 @@ def main():
         sharded_mission()
     if which in ("replay", "all"):
         pipeline_replays()
+    if which in ("rebuild", "all"):
+        rebuild_replays()
     if which in ("layouts", "all"):
         layout_missions()
 

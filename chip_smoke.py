@@ -149,9 +149,12 @@ calls of each; phases 3-5 also print the IMU front-end's host and device
 ms a scan beside those of the sequential form.
 18. Sharded mission (`lio_slam_tpu_torch/parallel/`), spawned (start
    method `spawn`) twice on cuda:0: world 1 on NCCL and world 2 on gloo
-   (NCCL refuses two ranks on one card), each rank a process with a
-   FileStore rendezvous and a deadline; a rank's failure or the deadline
-   fails the run.  Each world runs (a) the column-sharded sparse solver at
+   (NCCL refuses two ranks on one card), each rank a process that joins
+   through `parallel.distributed.initialize` from the LIO_* variables (a
+   TCP store served by rank 0 on a free port, spawned once more on a fresh
+   port only when a rank reports the address in use), under a deadline; a
+   rank's failure or the deadline fails the run.  Each world runs (a) the
+   column-sharded sparse solver at
    K=2048 against `solve_sparse` (the JAX slow test's gates: chain-only
    within 1e-4; with loops within 5e-2 and no farther from the truth than
    1.1x + 1e-3); (b) the map-sharded register on the kernel phase's scan
@@ -167,7 +170,19 @@ ms a scan beside those of the sequential form.
    k-NN with a cross-rank merge, as in JAX).  Prints scans/s over scans
    5-39, the mapping step's host and device ms a scan and the collectives'
    calls and ms a scan (torch.profiler over scans 40-41), the correction's
-   ms and the solver's.
+   ms and the solver's.  (d) The two-level mesh
+   (`parallel/multislice.py`) on `distributed.global_mesh(
+   devices_per_slice=1)`, one slice a process, (1, 1) and (2, 1):
+   `make_multislice_solver` at K=2048 under (a)'s gates against
+   `solve_sparse`; `make_multislice_register` on (b)'s scene (the scan
+   placed by `distributed.factor_sharded`, the map by `replicated`, a grid
+   of 32768 buckets x 24 on every rank) within 5e-3 of the single-device
+   register and 0.02 of the truth; `psum_staged` against one all_reduce
+   over the whole group on an integer-valued float32 tensor, bit-equal;
+   no fused_corr launch in (d).  Prints the solver's and the register's
+   ms, the register's iterations and its collective calls and ms
+   (torch.profiler over one call), and the ms of the staged reduction
+   against the flat one.
 19. Device-resident replay programs (`pipeline/replay.py`), each scan two
    captured CUDA graphs: (a) bench.py part 1b's inputs (`bench_config()`,
    120 scans of 32768 points, 64-sample IMU windows) through
@@ -2588,6 +2603,7 @@ SHARDED_AFTER_DEV_M = 0.05    # after it: the loop mission's GPS-era limits
 SHARDED_AFTER_DEV_RAD = math.radians(0.25)
 SHARDED_ROWS_REL = 0.005      # rows a shard against the reference's
 SHARDED_PROFILED = 2          # scans profiled after the injected loop
+SHARDED_REDUCE_REPS = 200     # (d): reductions timed, staged and flat
 
 
 def sharded_loop_graph(K, n_loops, dev):
@@ -2654,27 +2670,35 @@ def sharded_register_scene(dev):
             torch.ones(N_MAP, dtype=torch.bool, device=dev), on(init), pose0)
 
 
-def sharded_rank(rank, world, backend, store_path, queue):
+def rank_environment(rank, world, port):
+    """The LIO_* variables `distributed.initialize` reads for rank `rank`
+    of `world` meeting at 127.0.0.1:`port`; every rank's card is cuda:0."""
+    return {"LIO_COORDINATOR": f"127.0.0.1:{port}",
+            "LIO_NUM_PROCESSES": str(world), "LIO_PROCESS_ID": str(rank),
+            "LOCAL_RANK": "0"}
+
+
+def sharded_rank(rank, world, backend, port, queue):
     """One rank of phase 18, spawned: its results, or its traceback, go to
     `queue`."""
     import traceback
 
     try:
-        queue.put((rank, sharded_rank_work(rank, world, backend, store_path,
-                                           "cuda"), None))
+        os.environ.update(rank_environment(rank, world, port))
+        queue.put((rank, sharded_rank_work(backend, "cuda"), None))
     except BaseException:
         queue.put((rank, None, traceback.format_exc()))
         raise
 
 
-def sharded_rank_work(rank, world, backend, store_path, device_type):
+def sharded_rank_work(backend, device_type):
     """(a) the sharded sparse solver at K=2048 against `solve_sparse`,
     (b) the map-sharded register against the single-device one, (c) the
-    sharded `Runner` mission; every rank runs all three (their collectives
-    pair up), rank 0's numbers are reported.  Every tensor lives on
-    `device_type` ("cuda": cuda:0; "cpu" for a rehearsal)."""
-    from datetime import timedelta
-
+    sharded `Runner` mission, (d) the two-level mesh's solver, register and
+    staged reduction; every rank runs all four (their collectives pair
+    up), rank 0's numbers are reported.  The rank joins through
+    `distributed.initialize` from the LIO_* variables.  Every tensor lives
+    on `device_type` ("cuda": cuda:0; "cpu" for a rehearsal)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2682,15 +2706,14 @@ def sharded_rank_work(rank, world, backend, store_path, device_type):
 
     t_begin = time.perf_counter()
     sys.path.insert(0, ROOT)
+    from lio_slam_tpu_torch.parallel import distributed as pdist
+
     on_card = device_type == "cuda"
-    if on_card:
-        torch.cuda.set_device(0)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if on_card else [])
-    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
-                            rank=rank, world_size=world,
-                            timeout=timedelta(seconds=120))
+    pdist.initialize(device_type=device_type, backend=backend, timeout_s=120)
+    rank, world = dist.get_rank(), dist.get_world_size()
     import dataclasses
     import zlib
 
@@ -2700,6 +2723,7 @@ def sharded_rank_work(rank, world, backend, store_path, device_type):
     from lio_slam_tpu_torch.ops import fused_corr as fc
     from lio_slam_tpu_torch.ops import registration as reg
     from lio_slam_tpu_torch.parallel import mesh as mesh_mod
+    from lio_slam_tpu_torch.parallel import multislice as ms
     from lio_slam_tpu_torch.parallel import registration as preg
     from lio_slam_tpu_torch.parallel import sparse as psparse
     from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
@@ -2877,26 +2901,114 @@ def sharded_rank_work(rank, world, backend, store_path, device_type):
                                 if k in by_key) / n_prof,
         "correction_ms": correction_ms,
         "table_shape": tuple(runner.state.map_grid.table.shape)}
+    # (d) the two-level mesh, one slice a process: the multislice solver on
+    # (a)'s graphs, the multislice register on (b)'s scene, the staged
+    # reduction against one over the whole group; none launches a kernel
+    gmesh = pdist.global_mesh(devices_per_slice=1, device_type=device_type)
+    fc.KERNEL_LAUNCHES = 0
+    ms_solve = ms.make_multislice_solver(gmesh)
+    ms_got0 = ms_solve(g0, g0.pose_mask, iterations=2).poses
+    ms_got, ms_solver_ms = synced_ms(
+        lambda: ms_solve(g, g.pose_mask, iterations=5).poses)
+    placed = (pdist.factor_sharded(gmesh, scan.cpu().numpy()),
+              pdist.factor_sharded(gmesh, np.ones(N_SCAN, bool)),
+              pdist.replicated(gmesh, mp.cpu().numpy()),
+              pdist.replicated(gmesh, np.ones(N_MAP, bool)),
+              pdist.replicated(gmesh, init.cpu().numpy()))
+    ms_register = ms.make_multislice_register(gmesh, cfg_r)
+    ms_register(*placed)                # warm
+    ms_res, ms_reg_ms = synced_ms(lambda: ms_register(*placed))
+    prof = profile(activities=activities)
+    prof.start()
+    ms_register(*placed)
+    sync()
+    prof.stop()
+    psum_rows = [e for e in prof.key_averages()
+                 if e.key == "collective:psum"
+                 and e.device_type != torch.autograd.DeviceType.CUDA]
+    x = torch.arange(45, dtype=torch.float32, device=dev) * (rank + 1)
+    staged = ms.psum_staged(x, gmesh)
+    flat = x.clone()
+    dist.all_reduce(flat)
+
+    def flat_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return y
+
+    reduce_ms = {}
+    for name, fn in (("staged", lambda: ms.psum_staged(x, gmesh)),
+                     ("flat", flat_reduce)):
+        fn()
+        _, t = synced_ms(lambda: [fn() for _ in range(SHARDED_REDUCE_REPS)])
+        reduce_ms[name] = t / SHARDED_REDUCE_REPS
+    d = {"mesh": tuple(gmesh.mesh.shape),
+         "shard_rows": int(placed[0].shape[0]),
+         "launches": fc.KERNEL_LAUNCHES,
+         "solver_ms": ms_solver_ms, "reg_ms": ms_reg_ms,
+         "iters": int(ms_res.iterations),
+         "psum_calls": psum_rows[0].count if psum_rows else 0,
+         "psum_host_ms": (psum_rows[0].cpu_time_total * 1e-3
+                          if psum_rows else 0.0),
+         "psum_device_ms": (psum_rows[0].device_time_total * 1e-3
+                            if psum_rows else 0.0),
+         "bit_equal": bool(torch.equal(staged, flat)),
+         "staged_ms": reduce_ms["staged"], "flat_ms": reduce_ms["flat"]}
+    if rank == 0:
+        d.update(chain_err=float((ms_got0 - ref0).abs().max()),
+                 loop_err=float((ms_got - ref).abs().max()),
+                 d_got=float((ms_got - truth).abs().max()),
+                 d_ref=float((ref - truth).abs().max()),
+                 single_ms=single_ms,
+                 reg_err=float((ms_res.pose - ref1.pose).abs().max()),
+                 truth_err=float(np.abs(ms_res.pose.cpu().numpy()
+                                        - truth6).max()),
+                 single_iters=int(ref1.iterations),
+                 single_reg_ms=single_reg_ms)
+    out["multislice"] = d
+    part_done("multislice (d)")
     out["parts"] = parts
     dist.barrier()
     dist.destroy_process_group()
     return out
 
 
+def free_port() -> int:
+    """A TCP port no socket holds now (another process may take it before
+    rank 0 binds it: `run_world` then spawns once more)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def run_world(world, backend):
     """Spawn `world` ranks of phase 18 on cuda:0 and return rank 0's
-    results; a rank's failure or the deadline fails the run."""
+    results; a rank's failure or the deadline fails the run.  A rendezvous
+    whose port another process took (the address in use) is spawned once
+    more on a fresh port, and says so."""
+    error, got = spawn_world(world, backend)
+    if error is not None and "address already in use" in error.lower():
+        print(f"phase 18, world {world}: the rendezvous port was taken; "
+              "spawning the ranks again on a fresh port", flush=True)
+        error, got = spawn_world(world, backend)
+    if error is not None:
+        fail(f"phase 18, world {world} on {backend}: {error}")
+    return got[0]
+
+
+def spawn_world(world, backend):
+    """(error or None, {rank: results}) of one spawn of `world` ranks."""
     import queue as queue_mod
-    import shutil
-    import tempfile
 
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    port = free_port()
     procs = [ctx.Process(target=sharded_rank,
-                         args=(r, world, backend, os.path.join(tmp, "store"), q))
+                         args=(r, world, backend, port, q))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -2926,10 +3038,7 @@ def run_world(world, backend):
             if p.is_alive():
                 p.kill()
                 p.join()
-        shutil.rmtree(tmp, ignore_errors=True)
-    if error is not None:
-        fail(f"phase 18, world {world} on {backend}: {error}")
-    return got[0]
+    return error, got
 
 
 def check_sharded(res, fixture):
@@ -3017,6 +3126,42 @@ def check_sharded(res, fixture):
         fail(f"{tag}: the ranks' replicated leaves differ")
     if m["launches"]:
         fail(f"{tag}: the sharded mapping path launched fused_corr")
+    d = res["multislice"]
+    print(f"{tag} (d): global_mesh {d['mesh']} (\"slice\", \"data\"); "
+          f"multislice solver K=2048: chain-only {d['chain_err']:.3e} from "
+          f"solve_sparse (limit 1e-4); with loops {d['loop_err']:.3e} (limit "
+          f"5e-2), {d['d_got']:.4f} from truth against {d['d_ref']:.4f}; 5 "
+          f"iterations {d['solver_ms']:.3f} ms ({d['single_ms']:.3f} ms "
+          f"solve_sparse) ({SMI})", flush=True)
+    print(f"{tag} (d): multislice register, {d['shard_rows']} of {N_SCAN} "
+          f"scan points a rank against the whole {N_MAP}-point map: "
+          f"{d['reg_err']:.3e} from the single-device register (limit 5e-3), "
+          f"{d['truth_err']:.3e} from truth (limit 0.02); {d['iters']} GN "
+          f"iterations ({d['single_iters']} single); {d['reg_ms']:.3f} ms "
+          f"({d['single_reg_ms']:.3f} ms single, fused kernel); staged "
+          f"reductions {d['psum_calls']} calls, {d['psum_host_ms']:.3f} host "
+          f"ms / {d['psum_device_ms']:.3f} device ms in one call of the register "
+          f"(torch.profiler) ({SMI})", flush=True)
+    print(f"{tag} (d): 45 float32 values reduced over the mesh, staged "
+          f"(\"data\" then \"slice\") {d['staged_ms']:.4f} ms against one "
+          f"all_reduce over the group {d['flat_ms']:.4f} ms (mean of "
+          f"{SHARDED_REDUCE_REPS}); bit-equal on integer values: "
+          f"{d['bit_equal']}; fused_corr launches in (d) {d['launches']} "
+          f"({SMI})", flush=True)
+    if d["mesh"] != (D, 1):
+        fail(f"{tag} (d): global_mesh {d['mesh']}, not ({D}, 1)")
+    if not (d["chain_err"] < 1e-4 and d["loop_err"] < 5e-2
+            and d["d_got"] <= d["d_ref"] * 1.1 + 1e-3):
+        fail(f"{tag} (d): multislice solver {d}")
+    if not (d["reg_err"] <= 5e-3 and d["truth_err"] < 0.02):
+        fail(f"{tag} (d): multislice register {d}")
+    if d["psum_calls"] != d["iters"]:
+        fail(f"{tag} (d): {d['psum_calls']} staged reductions in a register "
+             f"of {d['iters']} GN iterations")
+    if not d["bit_equal"]:
+        fail(f"{tag} (d): psum_staged differs from the flat reduction")
+    if d["launches"]:
+        fail(f"{tag} (d): the multislice paths launched fused_corr")
 
 
 def sharded_phase():

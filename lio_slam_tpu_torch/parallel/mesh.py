@@ -120,17 +120,18 @@ def flat_index(mesh: DeviceMesh, axes) -> int:
     return i
 
 
-def shard_points(mesh: DeviceMesh, arr: torch.Tensor, axis: str = "data",
+def shard_points(mesh: DeviceMesh, arr: torch.Tensor, axis="data",
                  dim: int = 0) -> torch.Tensor:
     """This rank's contiguous slice of `arr` along `dim`: the rows JAX's
-    P(axis) places on device d.  The size must divide by the mesh's."""
-    n = axis_size(mesh, axis)
+    P(axis) places on device d (over several axes, their flattened index,
+    the first the slowest).  The size must divide by the mesh's."""
+    n = flat_size(mesh, axis)
     size = arr.shape[dim]
     if size % n:
         raise ValueError(f"dim {dim} of size {size} does not divide by the "
                          f"mesh size {n}")
     chunk = size // n
-    return arr.narrow(dim, axis_index(mesh, axis) * chunk, chunk)
+    return arr.narrow(dim, flat_index(mesh, axis) * chunk, chunk)
 
 
 def replicate(mesh: DeviceMesh, tree):

@@ -16,6 +16,12 @@ over the ranks of a mesh (`parallel/mesh.py`):
   equations of its scan chunk and one `all_reduce` sums them.
 - `make_sharded_knn`: exact k-NN against a sharded point set.
 
+The reduction of the 45 normal-equation terms is an argument of
+`_reduced_terms` and of the scan-sharded body `scan_sharded_register`: one
+`mesh.psum` over an axis here, the staged ("data" then "slice") reduction
+of `parallel/multislice.py` there, so the 1-D and 2-D registers share one
+body.
+
 Sharded registration runs the plain PyTorch correspondence search
 (`voxel_grid.query_knn` + `registration.fit_planes`), as the JAX package
 runs plain XLA there: the global top-5 needs the cross-rank merge before the
@@ -30,6 +36,8 @@ on every rank, so every rank runs the same number of iterations.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from lio_slam_tpu_torch.config import RegistrationConfig
@@ -40,30 +48,30 @@ from lio_slam_tpu_torch.parallel import mesh as mesh_mod
 from lio_slam_tpu_torch.utils import se3
 
 
-def _reduced_terms(scan, corr: reg.Correspondences, pose, mesh, axis):
-    """(AtA, Atb, inliers, Σs, Σs|r|) of `corr` summed over the ranks of
-    `axis`: the 45 values go in one float32 all_reduce (the inlier count is
-    exact in float32 below 2^24)."""
+def _reduced_terms(scan, corr: reg.Correspondences, pose, reduce):
+    """(AtA, Atb, inliers, Σs, Σs|r|) of `corr` summed over the ranks by
+    `reduce` (a sum of a tensor over the ranks, the same bits on each): the
+    45 values go in one float32 tensor (the inlier count is exact in
+    float32 below 2^24)."""
     AtA, Atb = reg._normal_equations(scan, corr, pose)
     flat = torch.cat([AtA.reshape(-1), Atb,
                       torch.stack([torch.sum(corr.valid).to(torch.float32),
                                    torch.sum(corr.weight),
                                    torch.sum(corr.weight
                                              * torch.abs(corr.residual))])])
-    flat = mesh_mod.psum(flat, mesh, axis)
+    flat = reduce(flat)
     return (flat[:36].reshape(6, 6), flat[36:42], flat[42].to(torch.int32),
             flat[43], flat[44])
 
 
-def make_sharded_register(mesh, cfg: RegistrationConfig, axis: str = "data",
+def scan_sharded_register(cfg: RegistrationConfig, reduce,
                           min_correspondences: int = 50):
     """`register(scan_shard, scan_mask_shard, map_pts, map_mask, init_pose)`
-    with the scan sharded over `axis` (each rank passes its
-    `mesh.shard_points` slice) and the map replicated."""
+    with each rank's slice of the scan and the whole map: the map grid is
+    built once on every rank, each rank queries its slice against it, and
+    `reduce` sums the ranks' terms."""
 
     def register(scan, scan_mask, map_pts, map_mask, init_pose):
-        # the map grid is built once, replicated; each rank queries its
-        # scan slice against it
         grid = vg.build_grid(map_pts, map_mask, cfg.nn_radius,
                              cfg.grid_table_size, cfg.grid_max_per_cell,
                              halo=cfg.grid_halo)
@@ -71,11 +79,20 @@ def make_sharded_register(mesh, cfg: RegistrationConfig, axis: str = "data",
         def ne_fn(pose):
             corr = reg.find_correspondences(scan, scan_mask, None, None,
                                             pose, cfg, grid=grid)
-            return _reduced_terms(scan, corr, pose, mesh, axis)
+            return _reduced_terms(scan, corr, pose, reduce)
 
         return gn_loop(ne_fn, scan, init_pose, cfg, min_correspondences)
 
     return register
+
+
+def make_sharded_register(mesh, cfg: RegistrationConfig, axis: str = "data",
+                          min_correspondences: int = 50):
+    """`register(scan_shard, scan_mask_shard, map_pts, map_mask, init_pose)`
+    with the scan sharded over `axis` (each rank passes its
+    `mesh.shard_points` slice) and the map replicated."""
+    reduce = functools.partial(mesh_mod.psum, mesh=mesh, axis=axis)
+    return scan_sharded_register(cfg, reduce, min_correspondences)
 
 
 def gn_loop(ne_fn, scan, init_pose, cfg, min_correspondences):
@@ -112,6 +129,7 @@ def map_sharded_ne(grid: vg.HashGrid, scan: torch.Tensor,
     equations of the rank's contiguous scan chunk, summed over the ranks."""
     N = scan.shape[0]
     D = mesh_mod.axis_size(mesh, axis)
+    reduce = functools.partial(mesh_mod.psum, mesh=mesh, axis=axis)
     chunk = N // D
     lo = mesh_mod.axis_index(mesh, axis) * chunk
 
@@ -125,7 +143,7 @@ def map_sharded_ne(grid: vg.HashGrid, scan: torch.Tensor,
         corr = reg.plane_correspondences(scan, scan_mask, scan_w, neighbors,
                                          torch.isfinite(dist2), dist2, cfg)
         corr_c = reg.Correspondences(*[f[lo:lo + chunk] for f in corr])
-        return _reduced_terms(scan[lo:lo + chunk], corr_c, pose, mesh, axis)
+        return _reduced_terms(scan[lo:lo + chunk], corr_c, pose, reduce)
 
     return ne_fn
 

@@ -104,9 +104,11 @@ def test_replay_and_preintegration_modules_import_no_jax():
 
 
 def test_parallel_modules_import_no_jax():
-    """The sharded mission's modules by name, each at its JAX counterpart's
-    path; the spawned ranks' worker module imports no jax either."""
-    mods = ("mesh", "registration", "sparse", "graph", "mission")
+    """The sharded mission's modules, the two-level mesh and the
+    multi-process rendezvous by name, each at its JAX counterpart's path;
+    the spawned ranks' worker module imports no jax either."""
+    mods = ("mesh", "registration", "sparse", "graph", "mission",
+            "multislice", "distributed")
     out = _imports_no_jax(tuple(f"parallel.{m}" for m in mods))
     assert out.returncode == 0, out.stderr
     for m in mods:
@@ -122,6 +124,24 @@ def test_parallel_modules_import_no_jax():
                          env=dict(os.environ, PYTHONPATH=ROOT),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["mesh", "registration", "sparse", "graph",
+                                    "mission", "multislice", "distributed"])
+def test_parallel_modules_have_every_public_function(module):
+    """Each module of the JAX package's `parallel/` has its counterpart in
+    the port with every public function and class (read from the sources,
+    so neither package is imported)."""
+    import ast
+
+    def public(pkg):
+        path = os.path.join(ROOT, pkg, "parallel", f"{module}.py")
+        tree = ast.parse(open(path).read())
+        return {n.name for n in tree.body
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                and not n.name.startswith("_")}
+
+    assert public("lio_slam_tpu") <= public("lio_slam_tpu_torch")
 
 
 def test_sharded_mission_fixture_matches_its_configuration():

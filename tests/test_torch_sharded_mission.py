@@ -6,8 +6,10 @@ points with 512 buckets a shard, at D=2 and D=4.
 Each world size is one spawn of tests/torch_dist_workers.py running every
 case of this file; the JAX side runs here meanwhile.  The D=2 ranks also
 resume from the checkpoint the JAX Runner with a mesh writes here, and this
-side loads the one the port's sharded Runner writes."""
+side loads the one the port's sharded Runner writes.  One D=2 case runs
+the mission at halo "xy" against a recorded JAX run."""
 
+import os
 
 import jax
 import jax.numpy as jnp
@@ -33,9 +35,10 @@ N_RUNNER = 10           # scans before the checkpoint
 DEADLINE_S = 150.0
 
 
-def mission_config(m):
+def mission_config(m, halo="z", cap=8):
     """tests/test_sharded_mission.py's `_cfg(512)` in config module `m`,
-    with the sparse full solver so the correction runs the sharded one."""
+    with the sparse full solver so the correction runs the sharded one; at
+    another halo layout, `cap` slots a bucket."""
     return m.Config(
         static=m.StaticConfig(max_raw_points=2048, max_scan_points=2048,
                               max_map_points=8192, max_keyframes=16,
@@ -43,21 +46,34 @@ def mission_config(m):
                               max_gps_queue=2, window_size=8,
                               max_imu_window=16, full_solver="sparse"),
         registration=m.RegistrationConfig(grid_table_size=T_LOCAL,
-                                          grid_max_per_cell=8,
+                                          grid_max_per_cell=cap,
+                                          grid_halo=halo,
                                           degeneracy_eig_thresh=10.0),
         keyframe=m.KeyframeConfig(dist_threshold=0.2))
 
 
 PORT_CFG = mission_config(port_config)
 JAX_CFG = mission_config(jax_config)
+# the mission at a halo layout other than "z": "xy" (3 buckets a query, 9
+# rows an insert) at three times the slots, as phase 20's "xy" mission
+# holds 72 against "z"'s 24.  Its JAX side is `sharded_halos_jax.npz`'s
+# `mission_xy_` keys (`tests/torch_port_make_fixture.py sharded_halos`)
+HALO, HALO_CAP = "xy", 24
+HALO_FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "lio_slam_tpu_torch", "fixtures",
+    "sharded_halos_jax.npz")
 
 
-@pytest.fixture(scope="module")
-def seq():
+def make_seq() -> dict:
     s = synthetic.make_sequence(n_scans=N_SCANS, n_points=2048, seed=0,
                                 speed=2.0)
     return {k: np.asarray(getattr(s, k))
             for k in ("scans", "scan_masks", "stamps", "poses")}
+
+
+@pytest.fixture(scope="module")
+def seq():
+    return make_seq()
 
 
 @pytest.fixture(scope="module")
@@ -81,6 +97,10 @@ def ranks(seq, ckpt_paths, tmp_path_factory):
         2: _spawn(2, [
             ("runner_device", 2, dict(cfg=PORT_CFG)),
             ("mission", 2, mission()),
+            ("mission_xy", 2, dict(
+                case="mission", cfg=mission_config(port_config, HALO,
+                                                   HALO_CAP),
+                seq=seq, n_scans=N_SCANS)),
             ("full_correction", 2, dict(cfg=PORT_CFG, seq=seq,
                                         n_scans=N_CORRECTION)),
             ("runner", 2, dict(cfg=PORT_CFG, seq=seq, n_scans=N_RUNNER,
@@ -237,6 +257,28 @@ def test_sharded_loop_readers_match_one_device(ranks, D):
         for a, b in zip(got["pending"] + got["gps"],
                         ref["pending"] + ref["gps"]):
             np.testing.assert_array_equal(a, b)
+
+
+def test_sharded_mission_at_another_halo_matches_jax(ranks, seq):
+    """The mission at halo "xy" (24 slots a bucket) at D=2 against the JAX
+    sharded mission's run recorded in `sharded_halos_jax.npz` on the same
+    scans: poses within the "z" mission's 5e-3 m, rows a shard within
+    0.5 %, replicated leaves equal on every rank."""
+    f = np.load(HALO_FIXTURE)
+    assert str(f["mission_xy_seq_sha256"]) == H.arrays_sha256(
+        *(seq[k] for k in sorted(seq)))
+    assert str(f["mission_xy_cfg"]) == repr(mission_config(jax_config, HALO,
+                                                           HALO_CAP))
+    got = port_ranks(ranks, 2, "mission_xy")
+    ref = f["mission_xy_poses"]
+    err = np.linalg.norm(got[0]["poses"][:, 3:] - ref[:, 3:], axis=1)
+    assert err.max() <= 5e-3, err
+    for d, r in enumerate(got):
+        np.testing.assert_array_equal(r["poses"], got[0]["poses"])
+        assert r["table_shape"] == (T_LOCAL, HALO_CAP, 3)
+        want = int(f["mission_xy_rows"][d])
+        assert abs(r["rows"] - want) <= 0.005 * want, (d, r["rows"], want)
+        assert (r["checksums"] == r["checksums"][0]).all()
 
 
 def test_runner_refuses_a_device_other_than_its_mesh(ranks):

@@ -1,12 +1,14 @@
 """The port's sharded registration, k-NN and graph solver
 (`lio_slam_tpu_torch/parallel/`) on 4 gloo ranks, against the JAX package's
 on a 4-device virtual CPU mesh (tests/test_sharding.py's cases at D=4) and
-against the port's single-device functions.
+against the port's single-device functions; and both registers at the halo
+layouts "xy", "full" and "none" at D=2.
 
 The ranks (tests/torch_dist_workers.py) run every case of this file in one
 spawn; the JAX side runs here meanwhile."""
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,6 +102,29 @@ def graph_arrays(g) -> dict:
 
 CAPACITY_CFG = dict(degeneracy_eig_thresh=1.0, grid_table_size=1024,
                     grid_max_per_cell=8)
+# the halo layouts beside "z", each at its bucket cap (PERF.md §4's
+# gather-layout missions), run at D = 2 along the "data" axis of a (2, 2)
+# mesh, so the file's one spawn of 4 ranks carries them
+HALOS = {"xy": 72, "full": 128, "none": 24}
+HALO_D = 2
+HALO_MESH = (2, 2)
+
+
+HALO_FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "lio_slam_tpu_torch", "fixtures",
+    "sharded_halos_jax.npz")
+
+
+def halo_cfg(halo):
+    return dict(degeneracy_eig_thresh=1.0, grid_table_size=4096,
+                grid_max_per_cell=HALOS[halo], grid_halo=halo)
+
+
+def halo_inputs_sha256(base) -> str:
+    """The halo cases' inputs: the base problem's scan, masks and map and
+    the start pose."""
+    scan, smask, mp, mmask, truth = base
+    return H.arrays_sha256(scan, smask, mp, mmask, truth + INIT_OFFSET)
 SEQUENCE_CFG = dict(degeneracy_eig_thresh=1.0, grid_table_size=2048,
                     grid_max_per_cell=8)
 
@@ -137,6 +162,12 @@ def ranks(inputs, tmp_path_factory):
             scans=sscans, smask=ssmask, map_pts=smp, map_mask=smmask,
             init0=init0, reg_cfg=reg_cfgs(**SEQUENCE_CFG)[0])),
     ]
+    for halo in HALOS:
+        cfg = reg_cfgs(**halo_cfg(halo))[0]
+        for kind in ("sharded_register", "map_sharded_register"):
+            cases.append((f"{kind}_{halo}", HALO_MESH, dict(
+                case=kind, scan=scan, smask=smask, map_pts=mp,
+                map_mask=mmask, init=truth + INIT_OFFSET, reg_cfg=cfg)))
     run = H.spawn_ranks(D, tmp_path_factory.mktemp("sharding_ranks"), cases)
     yield run
     run.close()
@@ -251,6 +282,37 @@ def test_map_sharded_register_mission_sequence(ranks, inputs, jax_mesh4):
                         mm_sh, pose).pose
         assert np.abs(got[step] - truths[step]).max() < 0.03, step
         np.testing.assert_allclose(got[step], np.asarray(pose), atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def halo_refs(inputs):
+    """JAX's registers at the halo layouts, from `sharded_halos_jax.npz`
+    (`tests/torch_port_make_fixture.py sharded_halos`: each JAX register
+    compiles for about 12 s here), checked against this file's inputs and
+    configurations."""
+    f = np.load(HALO_FIXTURE)
+    assert str(f["register_inputs_sha256"]) == halo_inputs_sha256(
+        inputs["base"])
+    for halo in HALOS:
+        assert str(f[f"register_{halo}_cfg"]) == repr(halo_cfg(halo))
+    return f
+
+
+@pytest.mark.parametrize("halo", list(HALOS))
+@pytest.mark.parametrize("kind", ["sharded_register", "map_sharded_register"])
+def test_sharded_registers_match_jax_at_every_halo(ranks, inputs, halo_refs,
+                                                   kind, halo):
+    """The scan-sharded and the map-sharded register at halos "xy" (72
+    slots), "full" (128) and "none" (24), at D = 2 (the "data" axis of the
+    ranks' (2, 2) mesh; the two slices compute alike): within 0.02 of the
+    truth, within 1e-4 of JAX's register of the same kind at the same halo
+    on a 2-device mesh, with equal iterations."""
+    truth = inputs["base"][4]
+    got = _one(ranks, f"{kind}_{halo}")
+    assert np.abs(got["pose"] - truth).max() < 0.02
+    np.testing.assert_allclose(got["pose"], halo_refs[f"{kind}_{halo}_pose"],
+                               atol=1e-4)
+    assert got["iterations"] == int(halo_refs[f"{kind}_{halo}_iterations"])
 
 
 _TORCHRUN_LIKE = """

@@ -6,7 +6,9 @@ Run by `torch_port_helpers.spawn_ranks`, one process a rank:
     python tests/torch_dist_workers.py --rank R --world W --dir DIR
 
 Each rank joins a gloo process group through a FileStore in DIR (60 s
-collective timeout, one torch thread), reads the cases from DIR/cases.pkl
+collective timeout, one torch thread), or with `--rendezvous lio` through
+`parallel.distributed.initialize` from the LIO_* variables (a TCP store
+served by rank 0), reads the cases from DIR/cases.pkl
 (a list of (name, mesh shape, keyword arguments) with numpy inputs), runs
 them in order on CPU tensors, and writes {name: numpy results} to
 DIR/result_R.pkl.  This module imports torch and the port only, never
@@ -75,17 +77,19 @@ def result_of(res) -> dict:
     return {"pose": n(res.pose), "iterations": int(res.iterations),
             "num_inliers": int(res.num_inliers),
             "degenerate": bool(res.degenerate),
+            "converged": bool(res.converged),
             "mean_residual": float(res.mean_residual)}
 
 
 # ---- test_torch_sharding.py ----
 
-def sharded_register(mesh, scan, smask, map_pts, map_mask, init, reg_cfg):
+def sharded_register(mesh, scan, smask, map_pts, map_mask, init, reg_cfg,
+                     axis="data"):
     from lio_slam_tpu_torch.parallel import registration as preg
 
-    register = preg.make_sharded_register(mesh, reg_cfg)
-    res = register(mesh_mod.shard_points(mesh, t(scan)),
-                   mesh_mod.shard_points(mesh, t(smask)), t(map_pts),
+    register = preg.make_sharded_register(mesh, reg_cfg, axis=axis)
+    res = register(mesh_mod.shard_points(mesh, t(scan), axis),
+                   mesh_mod.shard_points(mesh, t(smask), axis), t(map_pts),
                    t(map_mask), t(init))
     return result_of(res)
 
@@ -108,12 +112,14 @@ def graph_solver(mesh, graph, iterations):
     return {"poses": n(out.poses), "pose_mask": n(out.pose_mask)}
 
 
-def map_sharded_register(mesh, scan, smask, map_pts, map_mask, init, reg_cfg):
+def map_sharded_register(mesh, scan, smask, map_pts, map_mask, init, reg_cfg,
+                         axis="data"):
     from lio_slam_tpu_torch.parallel import registration as preg
 
-    register = preg.make_map_sharded_register(mesh, reg_cfg)
-    res = register(t(scan), t(smask), mesh_mod.shard_points(mesh, t(map_pts)),
-                   mesh_mod.shard_points(mesh, t(map_mask)), t(init))
+    register = preg.make_map_sharded_register(mesh, reg_cfg, axis=axis)
+    res = register(t(scan), t(smask),
+                   mesh_mod.shard_points(mesh, t(map_pts), axis),
+                   mesh_mod.shard_points(mesh, t(map_mask), axis), t(init))
     return result_of(res)
 
 
@@ -141,6 +147,61 @@ def sparse_solve(mesh, graph, iterations, axes):
     out = psp.make_sharded_sparse_solver(mesh, axes=axes)(
         graph_from(graph), iterations=iterations)
     return {"poses": n(out.graph.poses), "chi2": float(out.chi2)}
+
+
+# ---- test_torch_multislice.py, test_torch_distributed.py ----
+
+def multislice_mesh(mesh):
+    """The mesh's axes and shape, and the messages of a mesh of the wrong
+    size and of factor rows that do not divide."""
+    from lio_slam_tpu_torch.parallel import multislice as ms
+
+    errors = []
+    for bad in (lambda: ms.make_multislice_mesh(2, 4, device_type="cpu"),
+                lambda: ms.shard_factors(mesh, torch.zeros(6, 3))):
+        try:
+            bad()
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    return {"names": tuple(mesh.mesh_dim_names),
+            "shape": tuple(mesh.mesh.shape), "errors": errors,
+            "rank": dist.get_rank()}
+
+
+def multislice_solver(mesh, graph, iterations):
+    from lio_slam_tpu_torch.parallel import distributed as pdist
+    from lio_slam_tpu_torch.parallel import multislice as ms
+
+    g = F.PoseGraph(**{k: pdist.replicated(mesh, v) for k, v in graph.items()})
+    out = ms.make_multislice_solver(mesh)(g, g.pose_mask,
+                                          iterations=iterations)
+    return {"poses": n(out.poses), "pose_mask": n(out.pose_mask)}
+
+
+def multislice_register(mesh, scan, smask, map_pts, map_mask, init, reg_cfg):
+    """The scan placed by `distributed.factor_sharded`, the map and the
+    start by `distributed.replicated`."""
+    from lio_slam_tpu_torch.parallel import distributed as pdist
+    from lio_slam_tpu_torch.parallel import multislice as ms
+
+    res = ms.make_multislice_register(mesh, reg_cfg)(
+        pdist.factor_sharded(mesh, scan), pdist.factor_sharded(mesh, smask),
+        pdist.replicated(mesh, map_pts), pdist.replicated(mesh, map_mask),
+        pdist.replicated(mesh, init))
+    return dict(result_of(res),
+                shard_rows=int(pdist.factor_sharded(mesh, scan).shape[0]))
+
+
+def psum_staged(mesh, x):
+    """Each rank's sum of its `shard_factors` rows of `x`, reduced staged
+    and by one all_reduce over the whole group."""
+    from lio_slam_tpu_torch.parallel import multislice as ms
+
+    v = ms.shard_factors(mesh, t(x)).sum()
+    flat = v.clone()
+    dist.all_reduce(flat)
+    return {"staged": float(ms.psum_staged(v, mesh)), "flat": float(flat)}
 
 
 # ---- test_torch_sharded_mission.py ----
@@ -333,13 +394,18 @@ def resume_from(mesh, cfg, seq, path, lo, hi, wait_s):
 
 CASES = {f.__name__: f for f in (
     sharded_register, sharded_knn, graph_solver, map_sharded_register,
-    map_sharded_sequence, sparse_solve, mission, runner_device,
+    map_sharded_sequence, sparse_solve, multislice_mesh, multislice_solver,
+    multislice_register, psum_staged, mission, runner_device,
     full_correction, runner, resume_from)}
 
 
 def make_case_mesh(shape):
     """A 1-D ("data",) mesh for an int, a ("slice", "data") one for a
-    pair."""
+    pair, `distributed.global_mesh()` for "global"."""
+    if shape == "global":
+        from lio_slam_tpu_torch.parallel import distributed as pdist
+
+        return pdist.global_mesh(device_type="cpu")
     if isinstance(shape, int):
         return mesh_mod.make_mesh(shape, device_type="cpu")
     return mesh_mod.make_mesh_2d(*shape, device_type="cpu")
@@ -350,11 +416,19 @@ def main():
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--dir", required=True)
+    ap.add_argument("--rendezvous", choices=("file", "lio"), default="file")
     a = ap.parse_args()
     torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(a.dir, "store"), a.world),
-        rank=a.rank, world_size=a.world, timeout=timedelta(seconds=60))
+    if a.rendezvous == "lio":
+        from lio_slam_tpu_torch.parallel import distributed as pdist
+
+        pdist.initialize(device_type="cpu", timeout_s=60)
+        assert (dist.get_rank(), dist.get_world_size()) == (a.rank, a.world)
+    else:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(a.dir, "store"),
+                                         a.world),
+            rank=a.rank, world_size=a.world, timeout=timedelta(seconds=60))
     with open(os.path.join(a.dir, "cases.pkl"), "rb") as f:
         cases = pickle.load(f)
     out = {}

@@ -306,10 +306,15 @@ class RankRun:
     """Rank processes started by `spawn_ranks`; `results()` waits for them
     (at most until the deadline) and returns each rank's results."""
 
-    def __init__(self, procs, workdir, world, deadline_s):
+    def __init__(self, procs, workdir, world, deadline_s, respawn=None):
         self.procs, self.workdir, self.world = procs, workdir, world
         self.deadline = __import__("time").monotonic() + deadline_s
         self._results = None
+        # a TCP rendezvous picks its port by binding and closing a socket,
+        # and another process may take the port before rank 0 binds it:
+        # `respawn()` starts the ranks again on a fresh port, once, and only
+        # when a rank's log shows the address in use
+        self._respawn = respawn
 
     def _logs(self) -> str:
         import os
@@ -347,8 +352,15 @@ class RankRun:
             codes = [p.poll() for p in self.procs]
             if any(c not in (None, 0) for c in codes):
                 self._kill()
+                logs = self._logs()
+                if self._respawn is not None and ADDRESS_IN_USE in logs.lower():
+                    print(f"the rendezvous port was taken ({ADDRESS_IN_USE}):"
+                          " spawning the ranks again on a fresh port",
+                          flush=True)
+                    self.procs, self._respawn = self._respawn(), None
+                    continue
                 raise AssertionError(f"a rank failed (exit codes {codes}):\n"
-                                     + self._logs())
+                                     + logs)
             if all(c == 0 for c in codes):
                 break
             if time.monotonic() > self.deadline:
@@ -363,13 +375,43 @@ class RankRun:
         return self._results
 
 
-def spawn_ranks(world: int, workdir, cases: list,
-                deadline_s: float = 120.0) -> RankRun:
+def arrays_sha256(*arrays) -> str:
+    """sha256 of the arrays' dtypes, shapes and bytes, in order: a test
+    checks with it that a fixture was made from its inputs."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+ADDRESS_IN_USE = "address already in use"
+
+
+def free_port() -> int:
+    """A TCP port no socket holds now (it may be taken before it is
+    bound again)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(world: int, workdir, cases: list, deadline_s: float = 120.0,
+                local_world_size: int | None = None) -> RankRun:
     """Start `world` gloo ranks of tests/torch_dist_workers.py in `workdir`
-    (a fresh directory: the rendezvous is a FileStore there, not a TCP
-    port) running `cases`, a list of (name, mesh shape, keyword
-    arguments); returns at once.  The ranks import torch and the port
-    only."""
+    running `cases`, a list of (name, mesh shape, keyword arguments);
+    returns at once.  The ranks import torch and the port only.  By
+    default they meet through a FileStore in `workdir` (a fresh
+    directory); with `local_world_size` they join through
+    `parallel.distributed.initialize` from the LIO_* variables (a TCP store
+    on a free port, LOCAL_WORLD_SIZE and LOCAL_RANK set as torchrun sets
+    them for hosts of that many ranks), spawned once more on a fresh port
+    if the first one was taken."""
     import os
     import pickle
     import subprocess
@@ -382,15 +424,29 @@ def spawn_ranks(world: int, workdir, cases: list,
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     worker = os.path.join(root, "tests", "torch_dist_workers.py")
     env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
-    procs = []
-    for r in range(world):
-        log = open(os.path.join(workdir, f"rank{r}.log"), "w")
-        procs.append(subprocess.Popen(
-            [sys.executable, worker, "--rank", str(r), "--world", str(world),
-             "--dir", workdir], cwd=root, env=env, stdout=log,
-            stderr=subprocess.STDOUT))
-        log.close()
-    return RankRun(procs, workdir, world, deadline_s)
+
+    def start():
+        port = free_port()
+        procs = []
+        for r in range(world):
+            args = ["--rank", str(r), "--world", str(world), "--dir", workdir]
+            rank_env = env
+            if local_world_size is not None:
+                args += ["--rendezvous", "lio"]
+                rank_env = dict(env, LIO_COORDINATOR=f"127.0.0.1:{port}",
+                                LIO_NUM_PROCESSES=str(world),
+                                LIO_PROCESS_ID=str(r),
+                                LOCAL_WORLD_SIZE=str(local_world_size),
+                                LOCAL_RANK=str(r % local_world_size))
+            log = open(os.path.join(workdir, f"rank{r}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, worker] + args, cwd=root, env=rank_env,
+                stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+        return procs
+
+    return RankRun(start(), workdir, world, deadline_s,
+                   respawn=start if local_world_size is not None else None)
 
 
 def rank_results(run: RankRun, case: str) -> list:

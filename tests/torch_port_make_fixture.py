@@ -67,6 +67,15 @@ CPU over exactly those missions and saves what the smoke run compares:
   GN iterations, the keyframe count before and after, the scan of the
   correction, and each device's rows in use at the end.
 
+- `sharded_halos_jax.npz` (`sharded_halos`): the JAX sharded registers
+  (`parallel/registration.make_sharded_register` and
+  `make_map_sharded_register`, a 2-device mesh) at halos "xy", "full" and
+  "none" on tests/test_torch_sharding.py's problem: pose and GN
+  iterations, with the inputs' sha256 and each configuration; and the
+  JAX sharded mission (`parallel/mission.make_sharded_mission`) at halo
+  "xy" over tests/test_torch_sharded_mission.py's 12 scans: poses and
+  each device's rows in use, with the scans' sha256 (about 1 minute).
+
 - `pipeline_replay_jax.npz`: the JAX `make_pipeline_replay(loop_every=10)`
   (the whole pipeline in one `lax.scan`) over bench.py part 1b's inputs
   (`pipeline_replay_inputs()`: `bench_config()`, 120 scans of 32768
@@ -163,6 +172,7 @@ SHARDED_OUT = os.path.join(FIXTURES, "sharded_mission_jax.npz")
 PIPELINE_OUT = os.path.join(FIXTURES, "pipeline_replay_jax.npz")
 LOOP_REPLAY_OUT = os.path.join(FIXTURES, "loop_replay_jax.npz")
 LAYOUT_OUT = os.path.join(FIXTURES, "layout_missions_jax.npz")
+SHARDED_HALOS_OUT = os.path.join(FIXTURES, "sharded_halos_jax.npz")
 SMALL_LAYOUT_SCANS = 5          # tests/test_torch_gather_layouts.py's missions
 SMALL_LAYOUT_POINTS = 2048
 
@@ -740,6 +750,60 @@ def sharded_mission():
     print(f"wrote {SHARDED_OUT}")
 
 
+def sharded_halos():
+    """The JAX package's sharded registers at halos "xy", "full" and
+    "none" on tests/test_torch_sharding.py's problem, and its sharded
+    mission at halo "xy" over tests/test_torch_sharded_mission.py's 12
+    scans, each on a 2-device mesh; writes SHARDED_HALOS_OUT."""
+    import jax.numpy as jnp
+
+    import test_torch_sharded_mission as tm
+    import test_torch_sharding as ts
+    from lio_slam_tpu.parallel import mesh as jax_mesh
+    from lio_slam_tpu.parallel import mission as jax_pmission
+    from lio_slam_tpu.parallel import registration as jax_preg
+
+    t0 = time.time()
+    mesh = jax_mesh.make_mesh(ts.HALO_D)
+    base = ts.problem()
+    scan, smask, mp, mmask, truth = base
+    sh = lambda x: jax_mesh.shard_points(mesh, jnp.asarray(x))
+    init = jnp.asarray(truth + ts.INIT_OFFSET)
+    keys = {"register_inputs_sha256": np.array(ts.halo_inputs_sha256(base))}
+    for halo in ts.HALOS:
+        cfg = ts.reg_cfgs(**ts.halo_cfg(halo))[1]
+        keys[f"register_{halo}_cfg"] = np.array(repr(ts.halo_cfg(halo)))
+        runs = {
+            "sharded_register": lambda: jax_preg.make_sharded_register(
+                mesh, cfg)(sh(scan), sh(smask), jnp.asarray(mp),
+                           jnp.asarray(mmask), init),
+            "map_sharded_register": lambda: jax_preg.make_map_sharded_register(
+                mesh, cfg)(jnp.asarray(scan), jnp.asarray(smask), sh(mp),
+                           sh(mmask), init)}
+        for kind, run in runs.items():
+            res = run()
+            keys[f"{kind}_{halo}_pose"] = np.asarray(res.pose, np.float32)
+            keys[f"{kind}_{halo}_iterations"] = np.int32(res.iterations)
+            print(f"{kind} at halo {halo}: {int(res.iterations)} GN "
+                  f"iterations, {np.abs(np.asarray(res.pose) - truth).max():.3e}"
+                  f" from truth", flush=True)
+    seq = tm.make_seq()
+    cfg = tm.mission_config(jax_config, tm.HALO, tm.HALO_CAP)
+    init_fn, step = jax_pmission.make_sharded_mission(
+        jax_mesh.make_mesh(2), cfg)[:2]
+    state, poses, _ = tm._jax_run(seq, tm.N_SCANS, step, init_fn())
+    rows = np.asarray(state.map_grid.counts).reshape(2, tm.T_LOCAL).sum(1)
+    keys.update({
+        "mission_xy_seq_sha256": np.array(H.arrays_sha256(
+            *(seq[k] for k in sorted(seq)))),
+        "mission_xy_cfg": np.array(repr(cfg)),
+        "mission_xy_poses": poses.astype(np.float32),
+        "mission_xy_rows": rows.astype(np.int64)})
+    np.savez(SHARDED_HALOS_OUT, **keys)
+    print(f"mission at halo {tm.HALO}: rows a device {rows.tolist()}; wrote "
+          f"{SHARDED_HALOS_OUT} in {time.time() - t0:.1f} s")
+
+
 def replay_outputs(outs) -> dict:
     """The per-scan keys a replay fixture holds."""
     return dict(poses=np.asarray(outs.poses, np.float32),
@@ -918,7 +982,8 @@ def rebuild_replays():
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("smoke", "loop", "archive", "bag", "corner", "hard",
-                     "sharded", "replay", "rebuild", "layouts", "all"):
+                     "sharded", "sharded_halos", "replay", "rebuild",
+                     "layouts", "all"):
         sys.exit(__doc__)
     jreg._maybe_fused = jax_fused_interpret
     if which in ("smoke", "all"):
@@ -936,6 +1001,8 @@ def main():
         hard_replay()
     if which in ("sharded", "all"):
         sharded_mission()
+    if which in ("sharded_halos", "all"):
+        sharded_halos()
     if which in ("replay", "all"):
         pipeline_replays()
     if which in ("rebuild", "all"):

@@ -224,10 +224,17 @@ ms a scan beside those of the sequential form.
    reach, on phase 2's scan and map in
    grids of 32768 buckets: halo "xy" at a cap of 72 (3 bucket ids a
    point), "full" at 128 (1), "none" at 24 (27), and "z" at 24 on the scan
-   sorted by cell (`registration._cell_sorted`); each held to the plain
-   version as phase 12 holds a launch (the float64 arbiter on entries that
-   cancel), repeated launches bit-identical, device ms warm and with a cold
-   L2, per-call ms, the plain version's device ms and the bound.  (b) The
+   sorted by cell (`registration._cell_sorted`), each with the grid's
+   counts as the main path passes them; each held to the plain version as
+   phase 12 holds a launch (the float64 arbiter on entries that cancel),
+   repeated launches bit-identical, at 1 and 3 ids bit-equal to the launch
+   on whole rows (`counts=None`), device ms warm and with a cold L2 (and on
+   whole rows), per-call ms, the plain version's device ms, the launch
+   floor (`lio_fused_corr_floor`: the same launch running only the fixed
+   chain of pose, ids, partials, ticket and the last block's sum) warm and
+   cold, the slots filled against rows x C, and the bound from the filled
+   slots beside the whole-row bound (phase 2 prints the floor and both
+   bounds at z/24 too).  (b) The
    40-scan mission through `Runner(device="cuda")` under each of
    `synthetic_mission.LAYOUT_MISSIONS` ("xy"/72, "full"/128, "none"/24,
    and "z"/24 with `sort_scan_by_cell=True` and `scan_downsample="hash"`),
@@ -237,10 +244,12 @@ ms a scan beside those of the sequential form.
    the reference's IMU state carried in, GN iterations within 1 a scan.
    Prints scans/s over scans 5-39 of each beside phase 3's.  (c) 20 scans
    of `make_pipeline_replay` under the
-   sorted, hash-downsampled config: bit-equal to `HostDrivenReplay` in the
-   same process, no synchronization under "error" mode (the argsort and
-   the downsample's scatter capture), the launches 30 a scan.  (a) prints
-   each instantiation's warps a block beside its times.
+   sorted, hash-downsampled config, then under "xy"/72 and "full"/128
+   (their captured launches read the state grid's own counts): each
+   bit-equal to `HostDrivenReplay` in the same process, no synchronization
+   under "error" mode (the argsort and the downsample's scatter capture),
+   the launches 30 a scan.  (a) prints each instantiation's warps a block
+   beside its times.
 21. The resident replays at the other configs the JAX scan programs run:
    (a) the first 40 scans of phase 19's inputs at `rebuild_replay_config()`
    (the rebuild-mode map, a local map of 131072 points assembled and its
@@ -471,26 +480,75 @@ def named_kernel_ms(fn, name_part, reps=20, between=None):
          "in five passes")
 
 
-def kernel_bound(table, hh, scan, mask):
-    """The least time the card could take for one call on these inputs:
-    (bound_ms, bound_by, bytes, flop).  Bytes: each bucket row that some
-    unmasked point's ids name, once; ids, scan, mask and pose once; the 45
-    output words once.  Operations: 8 a candidate distance, about 300 a
-    plane fit, for the unmasked points."""
+def kernel_bound(table, hh, scan, mask, counts):
+    """The least time the card could take for one call on these inputs, as
+    a dict: `ms`, `by`, `bytes`, `flop`, `rows` (distinct bucket rows some
+    unmasked point's ids name), `filled` (their filled slots, Σ counts[row])
+    and `whole_ms`, the bound PRs 1-12 stated (whole rows: rows x C slots),
+    kept beside it so that ratios compare across PRs.  Bytes: the filled
+    slots of each of those rows once (12 bytes a slot) and its count;
+    ids, scan, mask and pose once; the 45 output words once.  Operations: 8
+    a filled candidate distance, about 300 a plane fit, for the unmasked
+    points.  The same count at every instantiation, whether or not the
+    kernel reads `counts` (at 9 and 27 ids it ranks whole rows)."""
     import torch
 
     T, C, _ = table.shape
-    live = hh[:, mask]
-    live = live[(live >= 0) & (live < T)]
-    n_rows = int(torch.unique(live).numel())
-    n_bytes = (n_rows * C * 12 + hh.numel() * 4 + scan.numel() * 4
-               + mask.numel() + 6 * 4 + 45 * 4)
+    ok = (hh >= 0) & (hh < T)
+    live = hh[:, mask][ok[:, mask]]
+    rows = torch.unique(live)
+    n_rows = int(rows.numel())
+    filled = int(counts[rows.long()].clamp(0, C).sum())
+    fixed = hh.numel() * 4 + scan.numel() * 4 + mask.numel() + 6 * 4 + 45 * 4
+    n_bytes = filled * 12 + n_rows * 4 + fixed
+    whole_bytes = n_rows * C * 12 + fixed
+    # the filled slots each unmasked point scans (a repeated id once)
+    per_slot = torch.where(ok, counts[hh.clamp(0, T - 1).long()].clamp(0, C),
+                           torch.zeros_like(hh))
+    first = torch.ones_like(ok)
+    for o in range(1, hh.shape[0]):
+        first[o] = (hh[:o] != hh[o]).all(0)
+    scanned = int((per_slot * first)[:, mask].sum())
     n_live = int(mask.sum())
-    flop = n_live * (hh.shape[0] * C * 8 + 300)
+    flop = scanned * 8 + n_live * 300
+    whole_flop = n_live * (hh.shape[0] * C * 8 + 300)
     by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
     by_ops = 1e3 * flop / FP32_FLOP_PER_S
-    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations",
-            n_bytes, flop, n_rows)
+    whole = max(1e3 * whole_bytes / HBM_BYTES_PER_S,
+                1e3 * whole_flop / FP32_FLOP_PER_S)
+    return {"ms": max(by_bytes, by_ops),
+            "by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": n_bytes, "flop": flop, "rows": n_rows, "filled": filled,
+            "slots": n_rows * C, "whole_ms": whole}
+
+
+def floor_ms(table, hh, scan, mask, pose, between=None, **kw):
+    """Device ms of the kernel's launch floor at these inputs: the same
+    grid, block, dynamic shared memory and scratch as the kernel's launch,
+    running the fixed chain alone (pose tables, point, mask bit and ids
+    loaded, the partials written, the ticket, the last block's sum;
+    `lio_fused_corr_floor`).  Its outputs are thrown away; it is no launch
+    of the kernel and is not counted."""
+    import torch
+
+    from lio_slam_tpu_torch.ops import _build
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+
+    lib = _build.load_fused_corr()
+    dev = table.device
+    scratch = fc.prepare_stream(dev)
+    out = torch.empty(fc.OUT_WORDS, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = fc._kernel_args(table, hh, scan, mask, pose, kw["nn_radius"],
+                           kw["plane_dist_thresh"], kw["robust_weight_floor"])
+
+    def launch():
+        err = lib.lio_fused_corr_floor(*args, scratch.data_ptr(),
+                                       scratch.numel(), out.data_ptr(), stream)
+        if err != 0:
+            fail(f"the launch floor was refused: cudaError_t {err}")
+
+    return named_kernel_ms(launch, "fused_corr_groups", between=between)
 
 
 def scene_points():
@@ -621,13 +679,17 @@ def kernel_phase(dev):
     warm_ms = named_kernel_ms(kernel, "fused_corr_groups")
     cold_ms = named_kernel_ms(kernel, "fused_corr_groups",
                               between=lambda: flush.fill_(1.0))
-    del flush
     entry = {name: call_ms(lambda: fc.fused_normal_equations(g, scan, m, pose,
                                                              **kw))
              for name, g, m in (("full", grid, mask), ("half-masked", grid, half),
                                 ("empty-map", empty, mask))}
-    bound_ms, bound_by, n_bytes, flop, n_rows = kernel_bound(grid.table, hh_now,
-                                                             scan, mask)
+    bound = kernel_bound(grid.table, hh_now, scan, mask, grid.counts)
+    bound_ms, bound_by = bound["ms"], bound["by"]
+    # the launch floor at the same launch shape, warm and with a cold L2
+    floor = floor_ms(grid.table, hh_now, scan, mask, pose, **kw)
+    floor_cold = floor_ms(grid.table, hh_now, scan, mask, pose, **kw,
+                          between=lambda: flush.fill_(1.0))
+    del flush
     fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)
     print("kernel timing, device ms per call (torch.profiler): plain, "
           f"kernel, kernel, plain = {fmt(on_device)}", flush=True)
@@ -641,15 +703,23 @@ def kernel_phase(dev):
     ms = min(on_device[1:3])
     print(f"kernel alone (fused_corr_groups, torch.profiler): warm {warm_ms:.4f} "
           f"ms, cold L2 {cold_ms:.4f} ms", flush=True)
-    print(f"kernel bound: {n_rows} distinct bucket rows, {n_bytes} bytes, "
-          f"{flop} FLOP -> {bound_ms:.5f} ms by {bound_by}; time over bound: "
-          f"warm {ms / bound_ms:.2f}, cold {cold_ms / bound_ms:.2f}",
-          flush=True)
+    print(f"kernel bound: {bound['rows']} distinct bucket rows, "
+          f"{bound['filled']} slots filled of their {bound['slots']} "
+          f"(rows x {CAP}), {bound['bytes']} bytes, {bound['flop']} FLOP -> "
+          f"{bound_ms:.5f} ms by {bound_by} (whole rows: "
+          f"{bound['whole_ms']:.5f} ms); time over bound: warm "
+          f"{ms / bound_ms:.2f}, cold {cold_ms / bound_ms:.2f}", flush=True)
+    print(f"launch floor z/{CAP} ({SMI}): warm {floor:.4f} ms, cold L2 "
+          f"{floor_cold:.4f} ms, against the kernel's {warm_ms:.4f} / "
+          f"{cold_ms:.4f}", flush=True)
     return {"max_abs_err": max(errs), "ms": ms,
             "plain_ms": min(on_device[0], on_device[3]), "cold_ms": cold_ms,
             "entry_ms": min(entry_device[1:3]),
             "entry_plain_ms": min(entry_device[0], entry_device[3]),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_whole_rows_ms": bound["whole_ms"], "floor_ms": floor,
+            "floor_cold_ms": floor_cold, "slots_filled": bound["filled"],
+            "slots_read": bound["slots"]}
 
 
 def mission_phase(dev, profile_dir):
@@ -3839,11 +3909,15 @@ LAYOUT_MAX_ATE_REL = 0.10      # phase 20 (b): ATE within 10 % of the reference'
 def layout_kernel_phase(dev):
     """Phase 20 (a): the kernel at each instantiation phase 2 does not run
     (3 bucket ids a point at "xy", 1 at "full", 27 at "none") and at "z"
-    on the cell-sorted scan, on phase 2's scan and map: held to the plain
-    version (`bag_kernel_check`: the float64 arbiter on entries that
-    cancel), repeated launches bit-identical, device ms warm and with a
-    cold L2, per-call ms, the plain version's device ms and the bound.
-    Returns the JSON line's `layouts` object."""
+    on the cell-sorted scan, on phase 2's scan and map, with the grid's
+    counts as the main path passes them: held to the plain version
+    (`bag_kernel_check`: the float64 arbiter on entries that cancel),
+    repeated launches bit-identical, at 1 and 3 ids bit-equal to the launch
+    on whole rows (`counts=None`), device ms warm and with a cold L2 (and
+    on whole rows), the launch floor warm and cold, per-call ms, the plain
+    version's device ms, the bound from the filled slots beside the
+    whole-row bound, and the slots filled against rows x C.  Returns the
+    JSON line's `layouts` object."""
     import numpy as np
     import torch
 
@@ -3872,17 +3946,26 @@ def layout_kernel_phase(dev):
                            grid.cell_size, TABLE, halo)
         label = (f"layout {name} ({halo}/{cap}, {hh.shape[0]} ids a point"
                  f"{', scan sorted by cell' if srt else ''})")
-        err = bag_kernel_check(label, ((grid.table, hh, scan, mask, pose), kw))
+        err = bag_kernel_check(label, ((grid.table, hh, scan, mask, pose),
+                                       dict(kw, counts=grid.counts)))
         out = fc.fused_normal_equations(grid, scan, mask, pose, halo=halo, **kw)
         again = fc.fused_normal_equations(grid, scan, mask, pose, halo=halo,
                                           **kw)
         if not all(torch.equal(a, b) for a, b in zip(out, again)):
             fail(f"{label}: repeated launches are not bit-identical")
+        whole = fc.fused_ne_from_bucket_ids(grid.table, hh, scan, mask, pose,
+                                            **kw)
+        if not all(torch.equal(a, b) for a, b in zip(out, whole)):
+            fail(f"{label}: the launch with the grid's counts is not "
+                 "bit-equal to the launch on whole rows")
         if int(out[2]) < N_SCAN // 4:
             fail(f"{label}: only {int(out[2])} inliers on a scan drawn from "
                  "the map")
         kernel = lambda: fc.fused_ne_from_bucket_ids(grid.table, hh, scan,
-                                                     mask, pose, **kw)
+                                                     mask, pose, **kw,
+                                                     counts=grid.counts)
+        whole_rows = lambda: fc.fused_ne_from_bucket_ids(grid.table, hh, scan,
+                                                         mask, pose, **kw)
         plain = lambda: fc.fused_ne_from_bucket_ids_ref(grid.table, hh, scan,
                                                         mask, pose, **kw)
         # in turns; the kernel's device time is its one kernel's mean
@@ -3895,26 +3978,44 @@ def layout_kernel_phase(dev):
         per_call = call_ms(kernel)
         cold = named_kernel_ms(kernel, "fused_corr_groups",
                                between=lambda: flush.fill_(1.0))
-        bound_ms, bound_by, n_bytes, flop, n_rows = kernel_bound(grid.table, hh,
-                                                                 scan, mask)
+        # at 9 and 27 ids the kernel does not read counts: the same launch
+        whole_ms = (named_kernel_ms(whole_rows, "fused_corr_groups")
+                    if hh.shape[0] <= 3 else None)
+        floor = floor_ms(grid.table, hh, scan, mask, pose, **kw)
+        floor_cold = floor_ms(grid.table, hh, scan, mask, pose, **kw,
+                              between=lambda: flush.fill_(1.0))
+        bound = kernel_bound(grid.table, hh, scan, mask, grid.counts)
         ms = min(on_device[1:3])
         warps = _build.load_fused_corr().lio_fused_corr_block_warps(
             int(hh.shape[0]), cap)
         print(f"{label} ({SMI}): {warps} warps a block; "
-              f"{int(grid.counts.sum())} slots filled; "
+              f"{int(grid.counts.sum())} slots filled in the grid; "
               f"inliers {int(out[2])}; device ms per call (torch.profiler; "
               f"the kernel's own launch) plain, kernel, kernel, plain = "
               f"{', '.join(f'{x:.4f}' for x in on_device)}; cold L2 "
-              f"{cold:.4f}; per call as the caller "
-              f"sees it {per_call:.4f}; bound {bound_ms:.5f} ms by {bound_by} "
-              f"({n_rows} distinct bucket rows, {n_bytes} bytes, {flop} FLOP), "
-              f"time over bound {ms / bound_ms:.2f}", flush=True)
+              f"{cold:.4f}; "
+              + (f"on whole rows (counts=None) {whole_ms:.4f}; "
+                 if whole_ms is not None else "")
+              + f"launch floor {floor:.4f}, cold L2 {floor_cold:.4f}; per call "
+              f"as the caller sees it {per_call:.4f}; slots filled "
+              f"{bound['filled']} of rows x C = {bound['slots']} "
+              f"({bound['rows']} distinct bucket rows read, "
+              f"{bound['filled'] / bound['slots']:.4f} filled); bound "
+              f"{bound['ms']:.5f} ms by {bound['by']} ({bound['bytes']} bytes, "
+              f"{bound['flop']} FLOP; whole rows {bound['whole_ms']:.5f}), "
+              f"time over bound {ms / bound['ms']:.2f} (whole-row bound "
+              f"{ms / bound['whole_ms']:.2f}), over the floor "
+              f"{ms - floor:.4f} ms", flush=True)
         layouts[name] = {"halo": halo, "offsets": int(hh.shape[0]), "cap": cap,
-                         "warps": warps, "sorted_scan": srt, "ms": ms,
-                         "plain_ms": min(on_device[0], on_device[3]),
-                         "cold_ms": cold, "call_ms": per_call,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "max_abs_err": err}
+                         "warps": warps, "sorted_scan": srt,
+                         "ms": ms, "plain_ms": min(on_device[0], on_device[3]),
+                         "cold_ms": cold, "whole_rows_ms": whole_ms,
+                         "floor_ms": floor, "floor_cold_ms": floor_cold,
+                         "call_ms": per_call, "bound_ms": bound["ms"],
+                         "bound_by": bound["by"],
+                         "bound_whole_rows_ms": bound["whole_ms"],
+                         "slots_filled": bound["filled"],
+                         "slots_read": bound["slots"], "max_abs_err": err}
     return layouts
 
 
@@ -4009,9 +4110,25 @@ def layout_missions_phase(dev, default_rate):
 
 
 def layout_replay_phase():
-    """Phase 20 (c): `make_pipeline_replay` over the first
-    LAYOUT_REPLAY_SCANS scans of phase 19's inputs under the cell-sorted,
-    hash-downsampled mission's config (`LAYOUT_MISSIONS`' last): poses, GN
+    """Phase 20 (c): `layout_replay` under the cell-sorted, hash-downsampled
+    mission's config (`LAYOUT_MISSIONS`' last), then under "xy"/72 and
+    "full"/128, whose captured launches read the state grid's own counts
+    (the filled prefixes the in-graph insert leaves).  Returns each
+    replay's launches."""
+    from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
+
+    missions = {m[0]: m for m in sm.LAYOUT_MISSIONS}
+    return {"replay": layout_replay(
+                "layout replay (sorted scan, hash downsample)",
+                sm.LAYOUT_MISSIONS[-1]),
+            **{f"replay_{name}": layout_replay(
+                f"layout replay ({name}/{missions[name][2]})", missions[name])
+               for name in ("xy", "full")}}
+
+
+def layout_replay(label, mission):
+    """`make_pipeline_replay` over the first LAYOUT_REPLAY_SCANS scans of
+    phase 19's inputs under a `LAYOUT_MISSIONS` config: poses, GN
     iterations and degenerate flags bit-equal to `HostDrivenReplay`'s in
     the same process, no synchronization under
     `set_sync_debug_mode("error")`, the launches counted over the graphs'
@@ -4023,8 +4140,7 @@ def layout_replay_phase():
     from lio_slam_tpu_torch.pipeline import replay
     from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
 
-    label = "layout replay (sorted scan, hash downsample)"
-    name, halo, cap, srt, ds = sm.LAYOUT_MISSIONS[-1]
+    _, halo, cap, srt, ds = mission
     cfg = sm.layout_mission_config(halo, cap, srt, ds)
     _, batch = sm.pipeline_replay_inputs(n_scans=LAYOUT_REPLAY_SCANS)
     hd = replay.HostDrivenReplay(cfg, loop_every=sm.LOOP_EVERY)
@@ -4066,7 +4182,7 @@ def layout_paths_phase(dev, default_rate):
     """Phase 20 (b) and (c); (a) runs beside phase 2, where the tracer
     still keeps every record (after phase 19 it drops most of them)."""
     launches = layout_missions_phase(dev, default_rate)
-    launches["replay"] = layout_replay_phase()
+    launches.update(layout_replay_phase())
     return launches
 
 
@@ -4395,6 +4511,11 @@ def main():
                           "sorted_scan": False, "ms": k["ms"],
                           "plain_ms": k["plain_ms"], "cold_ms": k["cold_ms"],
                           "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                          "bound_whole_rows_ms": k["bound_whole_rows_ms"],
+                          "floor_ms": k["floor_ms"],
+                          "floor_cold_ms": k["floor_cold_ms"],
+                          "slots_filled": k["slots_filled"],
+                          "slots_read": k["slots_read"],
                           "max_abs_err": k["max_abs_err"]}, **layouts}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -83,11 +83,13 @@ def load_fused_corr() -> ctypes.CDLL:
         BUILD_SECONDS, BUILD_LOG = _compile(_nvcc(), NVCC_FLAGS, _SOURCES, so)
     lib = ctypes.CDLL(str(so))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # table, T, C, hh, O, scan, mask, N, pose6, three thresholds, then
-    # scratch, scratch_floats, out, stream
-    lib.lio_fused_corr.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp,
-                                   cf, cf, cf, vp, ci, vp, vp]
-    lib.lio_fused_corr.restype = ci
+    # table, T, C, hh, O, counts, scan, mask, N, pose6, three thresholds,
+    # then scratch, scratch_floats, out, stream; the floor (the launch's
+    # fixed chain alone) takes the same
+    for fn in (lib.lio_fused_corr, lib.lio_fused_corr_floor):
+        fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, vp,
+                       cf, cf, cf, vp, ci, vp, vp]
+        fn.restype = ci
     lib.lio_fused_corr_scratch_floats.argtypes = []
     lib.lio_fused_corr_scratch_floats.restype = ci
     lib.lio_fused_corr_block_warps.argtypes = [ci, ci]

@@ -50,6 +50,34 @@
 //   (178 KB at C = 24), 128 blocks, every point of an 8192 scan in flight in
 //   one wave, as at z.  The other instantiations keep their code path (a
 //   compile-time branch on O).
+// - At O <= 3 (halo "xy" and "full", rows of 72 and 128 slots) a row is
+//   wide and the grid fills it as a prefix: voxel_grid._insert_core writes
+//   slot (counts + rank) % C and caps counts at C, so every slot at or past
+//   counts[h] holds SENTINEL.  The wrapper passes the grid's counts; the
+//   lanes read counts[h] with the ids, copy only each row's filled prefix
+//   (16-byte cp.async rounded up to whole 16-byte units; the floats past
+//   the prefix are empty slots and are never ranked) and rank only that
+//   prefix, row by row in ascending order.  The five nearest by (d, row)
+//   are then those of the whole rows, bit for bit: a SENTINEL is above
+//   VALID_MAX from any query of the map's extent, so where one would have
+//   been among the five the point fails all_valid either way.  A skipped
+//   bucket is neither copied nor ranked, a point with no filled slot is
+//   dead, and without counts (a table made by hand) every slot of a live
+//   row is filled.  At O = 9 and 27 counts is not read.
+// - What bounds it, measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6,
+//   fused_corr_study.py and chip_smoke.py phase 20 (a)): the launch floor,
+//   the same grid, block, dynamic shared memory and scratch running only
+//   the fixed chain (pose tables, point, mask bit and ids, partials,
+//   ticket, the last block's sum; lio_fused_corr_floor), is 0.0045 ms warm
+//   at xy/72 and full/128 (0.0046 at z/24, 0.0053 at none/24), a third of
+//   each call.  Past it the time follows the bytes a point stages (2.6 KB
+//   at xy and z, 1.5 KB at full, 7.8 KB at none): a dependent chain of
+//   trips each point of the one wave waits on, not the card's bandwidth.
+//   On phase 2's scene the rows a point reads are 84 % (xy) and 92 %
+//   (full) filled, so the prefix saves what the counts trip costs: the
+//   design times 0.0137 / 0.0108 ms warm against 0.0133-0.0135 / 0.0109
+//   for whole rows copied and ranked (the earlier design) in the same
+//   call; it cuts copies and ranking where rows are sparse.
 // - Every lane of a group loads the point, its mask bit and its O bucket
 //   ids (one transaction a group, one round trip for all of them) and marks
 //   a bucket skipped if it repeats an earlier offset's id or lies outside
@@ -62,8 +90,9 @@
 // - Rows come in whole.  The group copies the O rows of its point (C x 12 B
 //   each, 288 B at C = 24; at O = 27 a chunk's 9) into the point's stage in
 //   shared memory with 16-byte cp.async (4-byte where C is not a multiple
-//   of 4), neighbouring lanes on neighbouring addresses.  A skipped bucket is not copied: its
-//   stage row is filled with empty slots.  The TPU's planar candidate copy
+//   of 4), neighbouring lanes on neighbouring addresses; at O <= 3 only the
+//   filled prefix.  A skipped bucket is not copied: its stage row is filled
+//   with empty slots (at O <= 3 it is not ranked either).  The TPU's planar candidate copy
 //   (gather_planar) exists only to fill VMEM lanes and has no counterpart.
 // - Lane l of the group takes rows l, l + LANES, ... of the R = O*C (a
 //   3-float stride in shared memory; the stages' stride is chosen so that a
@@ -138,6 +167,35 @@
 //   flight while one is ranked) was not tried: two 2.6 KB stages a point
 //   halve the warps again, which the ring of points above showed to lose
 //   on z.
+// - At O <= 3 (xy/72 / full/128, device ms warm; the earlier whole-row
+//   design 0.0133-0.0137 / 0.0109 in the same calls; fused_corr_study.py,
+//   PERF.md):
+//   * One bulk async copy a row (cp.async.bulk.shared::cluster.global.
+//     mbarrier::complete_tx::bytes, issued by the group's first lane onto
+//     the group's mbarrier, expect_tx of the group's bytes, every lane
+//     waiting on the phase parity): 0.0205-0.0214 / 0.0171-0.0176.  The
+//     same without the async-proxy fence, without the barrier-init fence,
+//     with a 32 ns back-off between polls: 0.0205-0.0210 / 0.0171-0.0174;
+//     the first lane polling alone, the others at a group barrier: 0.0271
+//     / 0.0231; whole rows copied in bulk before the counts are read:
+//     0.0144-0.0160 / 0.0133-0.0139, and 0.0211-0.0215 / 0.0171-0.0177
+//     without counts (a group polls its barrier as soon as the copy is
+//     issued).  The copy engine's latency for copies of 0.3-1.5 KB loses to
+//     the lanes' cp.async, which has every lane's loads in flight at once.
+//   * Whole rows copied by the lanes before the counts are read (the
+//     counts' trip hidden behind the copies), ranked to the prefix: 0.0146
+//     / 0.0113-0.0116.
+//   * The filled slots walked as one flat index across the rows (a row
+//     found by two compares a candidate) and copied the same way: 0.0143 /
+//     0.0110, against 0.0137-0.0138 / 0.0108 row by row.
+//   * LANES / WARPS 4/8, 4/16, 8/8, 16/8, 16/16: 0.0162 / 0.0121, 0.0161 /
+//     0.0150, 0.0149 / 0.0116, 0.0204 / 0.0172, 0.0191 / 0.0159 against
+//     8/16's 0.0137 / 0.0108 (4 lanes halve the warps where the stages do
+//     not fit; 16 lanes double the merge rounds' shuffles and the lanes idle
+//     in the fit).
+//   * Sharing rows between a block's points (each row copied once for all
+//     the points of the block that read it) was not built: staging fewer
+//     bytes (the prefix, 8-16 % fewer here) moved the time by under 1 %.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -156,6 +214,9 @@ constexpr float TWO_PI_3 = 2.0943951023931953f;
 constexpr int LANES = 8;         // lanes that rank one point together
 constexpr int WARPS = 16;        // warps a block
 constexpr int PPW = 32 / LANES;              // points a warp ranks at a time
+// at O <= WIDE_O (halo "xy" and "full") each row's filled prefix is copied
+// and ranked
+constexpr int WIDE_O = 3;
 // offsets a point's stage holds: above it (O = 27) the rows stream through
 // the stage in chunks of CHUNK_O offsets
 constexpr int CHUNK_O = 9;
@@ -351,6 +412,29 @@ __device__ __forceinline__ void stage_row(float* dst, const float* table,
   }
 }
 
+// The filled prefixes of a point's O <= WIDE_O rows into its stage (row o
+// at o * row_floats): fill[o] slots of bucket h[o], none for a skipped
+// bucket (fill 0), copied by the group's lanes with cp.async, 16 bytes
+// each where rows are 16-byte aligned (vec16: the prefix rounded up to
+// 16 bytes; the slots past it are empty ones and are never ranked), else
+// 4.
+template <int O>
+__device__ __forceinline__ void stage_filled(float* rows, const float* table,
+                                             const int* h, const int* fill,
+                                             int row_floats, int l, bool vec16) {
+#pragma unroll
+  for (int o = 0; o < O; ++o) {
+    const float* src = table + (size_t)h[o] * row_floats;
+    float* dst = rows + o * row_floats;
+    if (vec16) {
+      const int floats = 4 * ((3 * fill[o] + 3) / 4);
+      for (int j = 4 * l; j < floats; j += 4 * LANES) cp_async16(dst + j, src + j);
+    } else {
+      for (int j = l; j < 3 * fill[o]; j += LANES) cp_async4(dst + j, src + j);
+    }
+  }
+}
+
 // A lane's best 5 candidates, ascending by (d, row); row -1 is none.
 struct Best5 {
   float d0, d1, d2, d3, d4;
@@ -422,16 +506,20 @@ __device__ __forceinline__ void merge_best5(Best5& b, int l, unsigned gmask,
   }
 }
 
-template <int O>
+// FLOOR: the launch's fixed chain alone (pose tables, point, mask bit and
+// ids loaded, the partials written, the ticket, the last block's sum), for
+// the launch floor chip_smoke.py measures; the main path never runs it.
+template <int O, bool FLOOR>
 __global__ void __launch_bounds__(WARPS * 32)
 fused_corr_groups(const float* __restrict__ table, int T, int C,
-                  const int* __restrict__ hh,
+                  const int* __restrict__ hh, const int* __restrict__ counts,
                   const float* __restrict__ scan,
                   const unsigned char* __restrict__ mask, int N,
                   const float* __restrict__ pose6, float nn_radius,
                   float plane_dist_thresh, float weight_floor,
                   int stage_floats, int vec16_flag, unsigned* ticket,
                   float* partials, float* __restrict__ out) {
+  constexpr bool WIDE = O <= WIDE_O;
   extern __shared__ __align__(16) float stage_mem[];   // a stage a group
   __shared__ float sR[9], st[3], sdR[27];
   __shared__ float sums[WARPS][32];
@@ -466,6 +554,7 @@ fused_corr_groups(const float* __restrict__ table, int T, int C,
     const int n = batch * BP + group;
     float px = 0.f, py = 0.f, pz = 0.f;
     unsigned live = 0;            // bit o: bucket o is copied and ranked
+    int fill[WIDE ? O : 1];       // O <= WIDE_O: slots of bucket o ranked
     if (n < N && mask[n] != 0) {
       px = scan[3 * n + 0]; py = scan[3 * n + 1]; pz = scan[3 * n + 2];
       if constexpr (O <= CHUNK_O) {
@@ -482,7 +571,22 @@ fused_corr_groups(const float* __restrict__ table, int T, int C,
           for (int p = 0; p < o; ++p) dup = dup || h[p] == h[o];
           if (!dup) live |= 1u << o;
         }
-        if (live != 0) {
+        if constexpr (FLOOR) {
+        } else if constexpr (WIDE) {
+          // the filled prefix of each live row (counts[h], all C slots
+          // without counts), read with the ids; only those slots are
+          // copied and ranked
+          int total = 0;
+#pragma unroll
+          for (int o = 0; o < O; ++o) {
+            fill[o] = 0;
+            if ((live >> o) & 1u)
+              fill[o] = counts == nullptr ? C : min(max(counts[h[o]], 0), C);
+            total += fill[o];
+          }
+          if (total == 0) live = 0;     // no candidate: no neighbour, no terms
+          else stage_filled<O>(rows, table, h, fill, row_floats, l, vec16);
+        } else if (live != 0) {
 #pragma unroll
           for (int o = 0; o < O; ++o)
             stage_row(rows + o * row_floats, table, h[o], (live >> o) & 1u,
@@ -518,7 +622,7 @@ fused_corr_groups(const float* __restrict__ table, int T, int C,
 #pragma unroll
         for (int off = LANES / 2; off > 0; off >>= 1)
           live |= __shfl_xor_sync(gmask, live, off);
-        if (live != 0) {
+        if (!FLOOR && live != 0) {
 #pragma unroll
           for (int o = 0; o < CHUNK_O; ++o)
             stage_row(rows + o * row_floats, table, ids[o], (live >> o) & 1u,
@@ -529,6 +633,14 @@ fused_corr_groups(const float* __restrict__ table, int T, int C,
     if (first) {
       __syncthreads();            // the pose tables
       first = false;
+    }
+    if constexpr (FLOOR) {
+      // the loads stay live through two terms; nothing is staged or ranked
+      if (l == 0 && live != 0) {
+        acc[27] += 1.0f;
+        acc[28] += (px + py) + pz;
+      }
+      continue;
     }
     if (live != 0) {
       const float qx = (sR[0] * px + sR[1] * py) + sR[2] * pz + st[0];
@@ -545,7 +657,19 @@ fused_corr_groups(const float* __restrict__ table, int T, int C,
       if constexpr (O <= CHUNK_O) {
         cp_async_wait_all();        // this lane's copies have landed
         __syncwarp(gmask);          // ... and those of the group's other lanes
-        rank_rows(rows, O * C, 0, qx, qy, qz, l, b);
+        if constexpr (WIDE) {
+          // the filled prefix of each row, rows in ascending order: the
+          // five nearest by (d, row) are those of the whole rows, since
+          // every slot past a prefix holds SENTINEL, at a squared distance
+          // above VALID_MAX from any query of the map's extent (where one
+          // would have been among the five the point fails all_valid
+          // either way)
+#pragma unroll
+          for (int o = 0; o < O; ++o)
+            rank_rows(rows + o * row_floats, fill[o], o * C, qx, qy, qz, l, b);
+        } else {
+          rank_rows(rows, O * C, 0, qx, qy, qz, l, b);
+        }
         merge_best5(b, l, gmask, bd, br);
         if (l == 0) {
 #pragma unroll
@@ -670,20 +794,29 @@ extern "C" int lio_fused_corr_scratch_floats() {
   return SCRATCH_HEAD + MAX_BLOCKS * N_OUT;
 }
 
-// The instantiation for O ids a point (O = 1, 3, 9 or 27) and its slot in
-// the launcher's grant table, or nullptr for any other O.
-using KernelFn = void (*)(const float*, int, int, const int*, const float*,
-                          const unsigned char*, int, const float*, float, float,
-                          float, int, int, unsigned*, float*, float*);
+// The instantiation for O ids a point (O = 1, 3, 9 or 27), the full kernel
+// or its fixed chain alone (`floor`), and its slot in the launcher's grant
+// table, or nullptr for any other O.
+using KernelFn = void (*)(const float*, int, int, const int*, const int*,
+                          const float*, const unsigned char*, int, const float*,
+                          float, float, float, int, int, unsigned*, float*,
+                          float*);
 
-static KernelFn kernel_for(int O, int* which) {
+static KernelFn kernel_for(int O, bool floor, int* which) {
   switch (O) {
-    case 1: *which = 0; return fused_corr_groups<1>;
-    case 3: *which = 1; return fused_corr_groups<3>;
-    case 9: *which = 2; return fused_corr_groups<9>;
-    case 27: *which = 3; return fused_corr_groups<27>;
+    case 1: *which = 0; break;
+    case 3: *which = 1; break;
+    case 9: *which = 2; break;
+    case 27: *which = 3; break;
     default: return nullptr;
   }
+  if (floor) *which += 4;
+  static const KernelFn kernels[8] = {
+      fused_corr_groups<1, false>, fused_corr_groups<3, false>,
+      fused_corr_groups<9, false>, fused_corr_groups<27, false>,
+      fused_corr_groups<1, true>, fused_corr_groups<3, true>,
+      fused_corr_groups<9, true>, fused_corr_groups<27, true>};
+  return kernels[*which];
 }
 
 // The warps of a block and the floats of a point's stage for O ids a point
@@ -712,18 +845,13 @@ extern "C" int lio_fused_corr_block_warps(int O, int C) {
   return block_shape(O, C, &stage_floats);
 }
 
-// Launches the kernel on `stream`; returns the cudaError_t (0 = ok).  `out`
-// takes 45 words: AtA (6x6, symmetric), Atb (6), sum s, sum s|pd2| as
-// floats, then n_inliers as an int32.
-extern "C" int lio_fused_corr(const float* table, int T, int C, const int* hh,
-                              int O, const float* scan,
-                              const unsigned char* mask, int N,
-                              const float* pose6, float nn_radius,
-                              float plane_dist_thresh, float weight_floor,
-                              float* scratch, int scratch_floats, float* out,
-                              void* stream) {
+static int launch(bool floor, const float* table, int T, int C, const int* hh,
+                  int O, const int* counts, const float* scan,
+                  const unsigned char* mask, int N, const float* pose6,
+                  float nn_radius, float plane_dist_thresh, float weight_floor,
+                  float* scratch, int scratch_floats, float* out, void* stream) {
   int which = 0;
-  const KernelFn kernel = kernel_for(O, &which);
+  const KernelFn kernel = kernel_for(O, floor, &which);
   if (kernel == nullptr || T < 1 || C < KNN || N < 1 || N > (1 << 24) ||
       scratch_floats < SCRATCH_HEAD + MAX_BLOCKS * N_OUT ||
       (reinterpret_cast<uintptr_t>(table) & 15u) != 0 ||
@@ -739,7 +867,7 @@ extern "C" int lio_fused_corr(const float* table, int T, int C, const int* hh,
   // instantiation a device: the current one, which the wrapper makes the
   // table's.  Host threads take turns from the grant to the launch.
   static std::mutex launching;
-  static size_t granted[4][64] = {};
+  static size_t granted[8][64] = {};
   std::lock_guard<std::mutex> turn(launching);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -753,8 +881,42 @@ extern "C" int lio_fused_corr(const float* table, int T, int C, const int* hh,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   kernel<<<blocks, warps * 32, smem, s>>>(
-      table, T, C, hh, scan, mask, N, pose6, nn_radius, plane_dist_thresh,
-      weight_floor, stage_floats, C % 4 == 0, reinterpret_cast<unsigned*>(scratch),
-      scratch + SCRATCH_HEAD, out);
+      table, T, C, hh, counts, scan, mask, N, pose6, nn_radius,
+      plane_dist_thresh, weight_floor, stage_floats, C % 4 == 0,
+      reinterpret_cast<unsigned*>(scratch), scratch + SCRATCH_HEAD, out);
   return (int)cudaGetLastError();
+}
+
+// Launches the kernel on `stream`; returns the cudaError_t (0 = ok).
+// `counts` (T int32, the grid's filled slots a bucket, or null for whole
+// rows) is read at O = 1 and 3 and ignored at O = 9 and 27.  `out` takes 45
+// words: AtA (6x6, symmetric), Atb (6), sum s, sum s|pd2| as floats, then
+// n_inliers as an int32.
+extern "C" int lio_fused_corr(const float* table, int T, int C, const int* hh,
+                              int O, const int* counts, const float* scan,
+                              const unsigned char* mask, int N,
+                              const float* pose6, float nn_radius,
+                              float plane_dist_thresh, float weight_floor,
+                              float* scratch, int scratch_floats, float* out,
+                              void* stream) {
+  return launch(false, table, T, C, hh, O, counts, scan, mask, N, pose6,
+                nn_radius, plane_dist_thresh, weight_floor, scratch,
+                scratch_floats, out, stream);
+}
+
+// The same launch (grid, block, dynamic shared memory, scratch) of the
+// kernel's fixed chain alone: the launch floor that chip_smoke.py times
+// beside the kernel.  Its outputs mean nothing; the main path never calls
+// it.
+extern "C" int lio_fused_corr_floor(const float* table, int T, int C,
+                                    const int* hh, int O, const int* counts,
+                                    const float* scan,
+                                    const unsigned char* mask, int N,
+                                    const float* pose6, float nn_radius,
+                                    float plane_dist_thresh, float weight_floor,
+                                    float* scratch, int scratch_floats,
+                                    float* out, void* stream) {
+  return launch(true, table, T, C, hh, O, counts, scan, mask, N, pose6,
+                nn_radius, plane_dist_thresh, weight_floor, scratch,
+                scratch_floats, out, stream);
 }

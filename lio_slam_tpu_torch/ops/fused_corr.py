@@ -16,6 +16,14 @@ on the input's device; nothing here waits for the device.
   points.  On CUDA tensors they launch the kernel in
   `csrc/fused_corr.cu` (built by `ops/_build.py`) or raise; on CPU tensors
   they run the plain version.  There is no fallback between the two.
+- `counts`, the grid's filled slots a bucket (`HashGrid.counts`), lets the
+  kernel copy and rank only each row's filled prefix at 1 and 3 ids a
+  point (halo "full", "xy"); every slot past it holds SENTINEL
+  (`voxel_grid._insert_core` fills a bucket as a prefix), so the five
+  neighbours and the sums are those of whole rows, bit for bit.
+  `fused_normal_equations` and the GN loop pass the grid's own buffer;
+  `counts=None` means whole rows (a table made by hand).  The plain
+  version ranks every slot whatever `counts` says.
 - `fused_ne_from_bucket_ids_ref` / `fused_normal_equations_ref` are the
   plain version in torch: `gather_planar` + `_make_kernel` of the JAX
   package (iterative argmin, first index on ties), except that the
@@ -126,8 +134,11 @@ def fused_ne_from_bucket_ids_ref(table: torch.Tensor, hh: torch.Tensor,
                                  pose6: torch.Tensor, k: int = KNN,
                                  nn_radius: float = 1.0,
                                  plane_dist_thresh: float = 0.2,
-                                 robust_weight_floor: float = 0.1):
-    """Plain torch version of the kernel on held bucket ids `hh` (O, N)."""
+                                 robust_weight_floor: float = 0.1,
+                                 counts: torch.Tensor | None = None):
+    """Plain torch version of the kernel on held bucket ids `hh` (O, N).
+    It ranks every slot of every row: `counts` is taken, so that a launch's
+    arguments run through it as they are, and not read."""
     T, C, _ = table.shape
     O, N = hh.shape
     R = O * C
@@ -234,7 +245,7 @@ def _bucket_ids_at(grid: vg.HashGrid, scan: torch.Tensor, pose6: torch.Tensor,
                          grid.table.shape[0], halo)
 
 
-def _check_cuda_inputs(table, hh, scan, scan_mask, pose6):
+def _check_cuda_inputs(table, hh, scan, scan_mask, pose6, counts=None):
     dev = table.device
     specs = (("table", table, torch.float32, 3), ("hh", hh, torch.int32, 2),
              ("scan", scan, torch.float32, 2),
@@ -266,13 +277,24 @@ def _check_cuda_inputs(table, hh, scan, scan_mask, pose6):
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned: the kernel copies "
                          "its rows 16 bytes at a time")
+    if counts is not None:
+        if counts.device != dev:
+            raise ValueError(f"counts is on {counts.device}, table on {dev}")
+        if counts.dtype != torch.int32:
+            raise TypeError(f"counts must be torch.int32, got {counts.dtype}")
+        if tuple(counts.shape) != (table.shape[0],):
+            raise ValueError(f"counts must be ({table.shape[0]},), one a "
+                             f"bucket, got {tuple(counts.shape)}")
+        if not counts.is_contiguous():
+            raise ValueError("counts must be contiguous")
 
 
 def _kernel_args(table, hh, scan, scan_mask, pose6, nn_radius,
-                 plane_dist_thresh, robust_weight_floor):
+                 plane_dist_thresh, robust_weight_floor, counts=None):
     T, C, _ = table.shape
     O, N = hh.shape
-    return (table.data_ptr(), T, C, hh.data_ptr(), O, scan.data_ptr(),
+    return (table.data_ptr(), T, C, hh.data_ptr(), O,
+            None if counts is None else counts.data_ptr(), scan.data_ptr(),
             scan_mask.data_ptr(), N, pose6.data_ptr(),
             ctypes.c_float(nn_radius), ctypes.c_float(plane_dist_thresh),
             ctypes.c_float(robust_weight_floor))
@@ -283,12 +305,16 @@ def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
                              pose6: torch.Tensor, k: int = KNN,
                              nn_radius: float = 1.0,
                              plane_dist_thresh: float = 0.2,
-                             robust_weight_floor: float = 0.1):
+                             robust_weight_floor: float = 0.1,
+                             counts: torch.Tensor | None = None):
     """The fused pass on bucket ids `hh` (O, N) from `voxel_grid.bucket_ids`
     — held across GN iterations when corr_refresh_every > 1.  An id outside
-    [0, T) reads as an empty bucket.  CUDA tensors launch the kernel; CPU
-    tensors run the plain version.  On CUDA the five results are views of
-    one buffer the kernel wrote whole."""
+    [0, T) reads as an empty bucket.  `counts` (T,) int32, where given, is
+    the grid's filled slots a bucket: at 1 and 3 ids a point the kernel
+    ranks only those (every slot past them must hold SENTINEL); None ranks
+    whole rows.  CUDA tensors launch the kernel; CPU tensors run the plain
+    version.  On CUDA the five results are views of one buffer the kernel
+    wrote whole."""
     if table.device.type == "cpu":
         return fused_ne_from_bucket_ids_ref(
             table, hh, scan, scan_mask, pose6, k=k, nn_radius=nn_radius,
@@ -298,7 +324,7 @@ def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
         raise ValueError(f"fused_corr runs on cpu or cuda, not {table.device}")
     if k != KNN:
         raise ValueError(f"the kernel selects {KNN} neighbours, got k={k}")
-    _check_cuda_inputs(table, hh, scan, scan_mask, pose6)
+    _check_cuda_inputs(table, hh, scan, scan_mask, pose6, counts)
     from lio_slam_tpu_torch.ops import _build
 
     lib = _build.load_fused_corr()
@@ -316,7 +342,7 @@ def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
     with torch.cuda.device(dev):      # the launcher works on the current device
         err = lib.lio_fused_corr(
             *_kernel_args(table, hh, scan, scan_mask, pose6, nn_radius,
-                          plane_dist_thresh, robust_weight_floor),
+                          plane_dist_thresh, robust_weight_floor, counts),
             scratch.data_ptr(), scratch.numel(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_corr kernel launch failed: cudaError_t {err}")
@@ -350,9 +376,10 @@ def fused_normal_equations(grid: vg.HashGrid, scan: torch.Tensor,
                            plane_dist_thresh: float = 0.2,
                            robust_weight_floor: float = 0.1):
     """One fused surfOptimization + normal-equation pass at `pose6`:
-    bucket ids at the pose, then `fused_ne_from_bucket_ids`."""
+    bucket ids at the pose, then `fused_ne_from_bucket_ids` with the grid's
+    counts."""
     hh = _bucket_ids_at(grid, scan, pose6, halo)
     return fused_ne_from_bucket_ids(
         grid.table, hh, scan, scan_mask, pose6, k=k, nn_radius=nn_radius,
         plane_dist_thresh=plane_dist_thresh,
-        robust_weight_floor=robust_weight_floor)
+        robust_weight_floor=robust_weight_floor, counts=grid.counts)

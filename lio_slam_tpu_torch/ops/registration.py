@@ -259,8 +259,10 @@ def _maybe_fused(scan, scan_mask, grid, cfg: RegistrationConfig):
                              cfg.grid_halo)
 
     def from_ids_fn(hh, pose):
+        # the grid's own counts: a captured graph reads the buffer the
+        # in-graph insert updates
         return fused_corr.fused_ne_from_bucket_ids(
-            grid.table, hh, scan, scan_mask, pose, **kw)
+            grid.table, hh, scan, scan_mask, pose, counts=grid.counts, **kw)
 
     return (bucket_fn, from_ids_fn, int(cfg.corr_refresh_every))
 

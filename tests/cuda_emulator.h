@@ -87,6 +87,8 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 inline unsigned long long min(unsigned long long a, unsigned long long b) {
   return a < b ? a : b;
 }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 inline void emu_copy(float* dst, const float* src, int n) { memcpy(dst, src, 4 * n); }
 
 // kernel<<<blocks, threads, smem>>>(args...), the blocks one after another

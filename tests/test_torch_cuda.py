@@ -92,7 +92,9 @@ def test_kernel_at_every_layout(cuda, halo, cap):
     stream through the stage in chunks of 9 offsets: a cap that is no
     multiple of 4 takes the 4-byte copies (22; at 5 a chunk's 45 rows also
     move a lane's rows from one chunk to the next), a wide one (96) a block
-    of fewer warps."""
+    of fewer warps.  At 1 and 3 ids the entry point passes the grid's
+    counts, and the kernel copies (in bulk) and ranks only each row's
+    filled prefix: bit-equal to the same launch on whole rows."""
     map_pts, scan = planar_scene(6, n_map=8192, n_scan=1000)
     grid = vg.build_grid(t(map_pts).to(cuda),
                          torch.ones(len(map_pts), dtype=torch.bool, device=cuda),
@@ -110,6 +112,63 @@ def test_kernel_at_every_layout(cuda, halo, cap):
     assert_ne_close(out, ref)
     again = fc.fused_normal_equations(grid, scan, mask, pose, halo=halo, **KW)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+    hh = fc._bucket_ids_at(grid, scan, pose, halo)
+    whole = fc.fused_ne_from_bucket_ids(grid.table, hh, scan, mask, pose, **KW)
+    filled = fc.fused_ne_from_bucket_ids(grid.table, hh, scan, mask, pose, **KW,
+                                         counts=grid.counts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, filled))
+    assert all(torch.equal(a, b) for a, b in zip(whole, filled))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo,cap", [("full", 64), ("full", 128), ("xy", 72),
+                                      ("xy", 70)])
+def test_kernel_filled_prefix_on_wrapped_and_sparse_rows(cuda, halo, cap):
+    """At 1 and 3 ids a point, on a dense map inserted in chunks (rows full
+    after ring overwrites) and on a sparse one (empty rows, points with
+    fewer than five filled slots), with ids repeated, below 0 and past the
+    table: `counts` against the plain version and bit-equal to whole
+    rows; cap 70 takes the 4-byte copies."""
+    for n_map, n_scan in ((32768, 1000), (512, 400)):
+        map_pts, scan = planar_scene(6, n_map=n_map, n_scan=n_scan)
+        grid = vg.build_grid(t(map_pts).to(cuda),
+                             torch.ones(n_map, dtype=torch.bool, device=cuda),
+                             1.0, 4096, cap, halo=halo, chunk=4096)
+        scan = t(scan).to(cuda)
+        mask = torch.ones(len(scan), dtype=torch.bool, device=cuda)
+        mask[3::11] = False
+        pose = t(POSE).to(cuda)
+        hh = fc._bucket_ids_at(grid, scan, pose, halo).clone()
+        hh[-1, 0::5] = -1
+        hh[0, 1::7] = 4096
+        if halo == "xy":
+            hh[1, 0::3] = hh[0, 0::3]
+        args = (grid.table, hh, scan, mask, pose)
+        out = fc.fused_ne_from_bucket_ids(*args, **KW, counts=grid.counts)
+        whole = fc.fused_ne_from_bucket_ids(*args, **KW)
+        torch.cuda.synchronize()
+        assert_ne_close(out, fc.fused_ne_from_bucket_ids_ref(*args, **KW))
+        assert all(torch.equal(a, b) for a, b in zip(out, whole))
+        if n_map == 32768:
+            assert int((grid.counts == cap).sum()) > 500 and int(out[2]) > 100
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_counts_that_are_not_the_grids(cuda):
+    """`counts` must be the grid's (T,) int32 buffer on the card."""
+    grid, scan = scene_on(cuda, cap=64)
+    mask = torch.ones(len(scan), dtype=torch.bool, device=cuda)
+    pose = t(POSE).to(cuda)
+    hh = fc._bucket_ids_at(grid, scan, pose, "z")[:1].contiguous()
+    before = fc.KERNEL_LAUNCHES
+    for bad, err in ((grid.counts.long(), TypeError),
+                     (grid.counts[:-1], ValueError),
+                     (grid.counts.cpu(), ValueError)):
+        with pytest.raises(err):
+            fc.fused_ne_from_bucket_ids(grid.table, hh, scan, mask, pose, **KW,
+                                        counts=bad)
+    assert fc.KERNEL_LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -769,14 +828,18 @@ def test_graph_replay_matches_the_eager_replay(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["rebuild_grid", "rebuild_brute", "corner"])
+@pytest.mark.parametrize("mode", ["rebuild_grid", "rebuild_brute", "corner",
+                                  "halo_xy", "halo_full"])
 def test_graph_replay_at_every_config(cuda, mode):
     """The resident programs at the other configs the JAX programs run,
     captured on the card: the rebuild-mode map (the local map assembled
     and, with the grid backend, its grid built inside graph (a), the kernel
     at every GN pass; the brute-force k-NN's chunked top-k captured too)
     and the corner config (the surface path: a replay feeds no corner
-    cloud).  Against `HostDrivenReplay` on the card over 6 scans at
+    cloud); and the "xy" / "full" halo layouts, whose captured launches
+    read the state grid's own counts buffer (the filled prefixes the
+    in-graph insert leaves).  Against `HostDrivenReplay` on the card over 6
+    scans at
     tests/test_replay.py's config: poses, GN iterations and degenerate
     flags bit-equal, no synchronization inside the replay, the kernel's
     launches those the graphs hold."""
@@ -786,6 +849,9 @@ def test_graph_replay_at_every_config(cuda, mode):
     reg = dict(degeneracy_eig_thresh=10.0)
     if mode.startswith("rebuild"):
         reg.update(local_map_mode="rebuild", knn_backend=mode.split("_")[1])
+    elif mode.startswith("halo"):
+        halo = mode.split("_")[1]
+        reg.update(grid_halo=halo, grid_max_per_cell={"xy": 72, "full": 128}[halo])
     else:
         reg.update(use_corner_features=True)
     cfg = Config(static=StaticConfig(max_raw_points=2048, max_scan_points=2048,

@@ -120,3 +120,162 @@ def test_launcher_refuses_other_offset_counts(lib):
     for ids in (hh[:2], torch.cat([hh, hh[:1]])):
         with pytest.raises(RuntimeError, match="refused"):
             E.fused_ne_emulated(lib, table, ids, scan, mask, pose, **KW)
+
+
+# ---- the wide-row design (1 and 3 ids a point): the filled prefix ----
+
+def wide_scene(halo, cap, case, n_scan=260, seed=6):
+    """A grid from `voxel_grid.build_grid` over a planar scene and a scan at
+    POSE, every 11th point masked, with rows partly filled ("partial"),
+    most full after ring overwrites (a dense map inserted in chunks:
+    "ring"), or mostly empty with points that see fewer than five filled
+    slots ("sparse").  Returns (table, hh, scan, mask, pose, counts)."""
+    n_map = {"partial": 4096, "ring": 32768, "sparse": 512}[case]
+    map_pts, scan = planar_scene(seed, n_map=n_map, n_scan=n_scan)
+    grid = vg.build_grid(t(map_pts), torch.ones(len(map_pts), dtype=torch.bool),
+                         1.0, 4096, cap, halo=halo, chunk=4096)
+    scan = t(scan)
+    mask = torch.ones(len(scan), dtype=torch.bool)
+    mask[3::11] = False
+    pose = t(POSE)
+    hh = fc._bucket_ids_at(grid, scan, pose, halo)
+    return grid.table, hh, scan, mask, pose, grid.counts
+
+
+def filled_slots(hh, counts):
+    """(O, N) filled slots of each bucket a point reads (0 off the table)."""
+    T = counts.shape[0]
+    inside = (hh >= 0) & (hh < T)
+    return torch.where(inside, counts[hh.clamp(0, T - 1).long()],
+                       torch.zeros_like(hh))
+
+
+def assert_counts_bit_equal(lib, args, counts, ref):
+    """The launch with `counts` against the plain version, against the
+    launch without (whole rows) bit for bit, and against itself again, the
+    ticket back at 0."""
+    scratch = torch.zeros(lib.lio_fused_corr_scratch_floats())
+    out = E.fused_ne_emulated(lib, *args, **KW, counts=counts, scratch=scratch)
+    assert float(scratch[0]) == 0.0
+    assert_ne_close(out, ref)
+    whole = E.fused_ne_emulated(lib, *args, **KW)
+    assert all(torch.equal(a, b) for a, b in zip(out, whole))
+    again = E.fused_ne_emulated(lib, *args, **KW, counts=counts, scratch=scratch)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    return out
+
+
+@pytest.mark.parametrize("halo,cap,case", [
+    ("full", 64, "partial"), ("full", 128, "partial"), ("xy", 72, "partial"),
+    ("full", 64, "ring"), ("xy", 72, "ring"), ("full", 128, "sparse"),
+    ("xy", 72, "sparse"), ("xy", 70, "partial"), ("full", 66, "ring")])
+def test_wide_rows_rank_only_the_filled_prefix(lib, halo, cap, case):
+    """At 1 and 3 ids a point the kernel copies and ranks only each row's
+    filled prefix (`counts`): held to the plain version, which ranks every
+    slot, and bit-equal to the same launch on whole rows.  The prefixes
+    cover rows partly filled (most of them 12 x counts bytes that are no
+    multiple of 16), full after ring overwrites, empty, and points that see
+    fewer than five filled slots; caps 70 and 66 take the 4-byte copies."""
+    table, hh, scan, mask, pose, counts = wide_scene(halo, cap, case)
+    filled = filled_slots(hh, counts)
+    assert int(((filled * 12) % 16 != 0).sum()) > 0
+    if case == "ring":
+        assert int((counts == cap).sum()) > 500
+    if case == "sparse":
+        assert int((counts == 0).sum()) > 1000
+        assert int((filled.sum(0) < 5).sum()) > 20
+    args = (table, hh, scan, mask, pose)
+    ref = fc.fused_ne_from_bucket_ids_ref(*args, **KW)
+    assert int(ref[2]) > (0 if case == "sparse" else 50)
+    assert_counts_bit_equal(lib, args, counts, ref)
+
+
+@pytest.mark.parametrize("halo,cap", [("full", 128), ("xy", 72)])
+def test_wide_rows_skip_duplicate_and_out_of_range_ids(lib, halo, cap):
+    """Ids repeated within a point (at 3 ids), below 0 and at or past the
+    table's end: such a bucket is neither copied nor ranked, with `counts`
+    or without."""
+    table, hh, scan, mask, pose, counts = wide_scene(halo, cap, "partial")
+    T = table.shape[0]
+    hh = hh.clone()
+    hh[-1, 0::5] = -1
+    hh[-1, 1::7] = T
+    hh[0, 2::13] = T + 7
+    if hh.shape[0] == 3:
+        hh[1, 0::3] = hh[0, 0::3]
+        hh[2, 1::4] = hh[1, 1::4]
+    args = (table, hh, scan, mask, pose)
+    ref = fc.fused_ne_from_bucket_ids_ref(*args, **KW)
+    assert int(ref[2]) > 30
+    assert_counts_bit_equal(lib, args, counts, ref)
+
+
+@pytest.mark.parametrize("halo,cap", [("full", 128), ("xy", 72)])
+def test_wide_rows_non_finite_and_masked_points(lib, halo, cap):
+    """With `counts`, a non-finite point or a masked one adds nothing."""
+    table, hh, scan, mask, pose, counts = wide_scene(halo, cap, "partial")
+    scan = scan.clone()
+    scan[5] = float("nan")
+    scan[40, 1] = float("inf")
+    args = (table, hh, scan, mask, pose)
+    out = assert_counts_bit_equal(lib, args, counts,
+                                  fc.fused_ne_from_bucket_ids_ref(*args, **KW))
+    assert bool(torch.isfinite(out[0]).all())
+    none = E.fused_ne_emulated(lib, table, hh, scan, torch.zeros_like(mask),
+                               pose, **KW, counts=counts)
+    assert int(none[2]) == 0 and float(none[0].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("halo,cap", [("full", 128), ("xy", 72), ("z", 24),
+                                      ("none", 24)])
+def test_floor_runs_the_fixed_chain(lib, halo, cap):
+    """The launch floor (`lio_fused_corr_floor`): the same grid and block,
+    the ids loaded and checked, nothing staged or ranked; its inlier word
+    counts the unmasked points with a bucket to read, its ticket returns to
+    0."""
+    table, hh, scan, mask, pose = layout_scene(halo, cap)
+    T = table.shape[0]
+    reads = ((hh >= 0) & (hh < T)).any(0) & mask
+    scratch = torch.zeros(lib.lio_fused_corr_scratch_floats())
+    out = E.fused_ne_emulated(lib, table, hh, scan, mask, pose, **KW,
+                              scratch=scratch, floor=True)
+    assert int(out[2]) == int(reads.sum()) > 0
+    assert float(scratch[0]) == 0.0
+
+
+def test_wrapper_checks_counts():
+    """The launch's argument checks refuse a `counts` that is not the
+    grid's (T,) int32 buffer on the table's device, contiguous."""
+    table, hh, scan, mask, pose, counts = wide_scene("full", 64, "partial")
+    args = (table, hh, scan, mask, pose)
+    fc._check_cuda_inputs(*args, counts)
+    fc._check_cuda_inputs(*args, None)
+    with pytest.raises(TypeError, match="int32"):
+        fc._check_cuda_inputs(*args, counts.long())
+    with pytest.raises(ValueError, match="one a bucket"):
+        fc._check_cuda_inputs(*args, counts[:-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        fc._check_cuda_inputs(*args, torch.stack([counts, counts], 1)[:, 0])
+    # on the CPU the wrapper runs the plain version, which ranks every slot
+    got = fc.fused_ne_from_bucket_ids(*args, **KW, counts=counts)
+    want = fc.fused_ne_from_bucket_ids_ref(*args, **KW)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_gn_loop_passes_the_grids_own_counts(monkeypatch):
+    """`registration._maybe_fused`'s held-id pass hands the kernel the
+    grid's own counts buffer (a captured graph must read the one the
+    in-graph insert updates, not a copy)."""
+    from lio_slam_tpu_torch.config import RegistrationConfig
+    from lio_slam_tpu_torch.ops import registration as reg
+
+    table, hh, scan, mask, pose, counts = wide_scene("xy", 72, "partial")
+    grid = vg.HashGrid(table=table, counts=counts,
+                       cell_size=torch.full((), 1.0))
+    seen = []
+    monkeypatch.setattr(fc, "fused_ne_from_bucket_ids",
+                        lambda *a, **k: seen.append(k["counts"]))
+    cfg = RegistrationConfig(grid_halo="xy", corr_refresh_every=2)
+    bucket_fn, from_ids_fn, refresh = reg._maybe_fused(scan, mask, grid, cfg)
+    from_ids_fn(bucket_fn(pose), pose)
+    assert refresh == 2 and seen[0] is grid.counts

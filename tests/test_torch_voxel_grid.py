@@ -87,3 +87,83 @@ def test_unknown_halo_refused():
     with pytest.raises(ValueError, match="grid_halo"):
         tvg.bucket_ids(t(np.zeros((4, 3), np.float32)),
                        tvg.empty_grid(1.0, 64, 4).cell_size, 64, halo="zz")
+
+
+def assert_prefix_filled(grid):
+    """Every slot at or past counts[h] holds SENTINEL and every slot before
+    it a point: a bucket fills as a prefix (what the fused kernel's
+    filled-prefix ranking at 1 and 3 ids a point rests on)."""
+    table, counts = n(grid.table), n(grid.counts)
+    C = table.shape[1]
+    assert ((counts >= 0) & (counts <= C)).all()
+    past = np.arange(C)[None, :] >= counts[:, None]                 # (T, C)
+    assert (table[past] == np.float32(tvg.SENTINEL)).all()
+    assert (table[~past] != np.float32(tvg.SENTINEL)).all()
+
+
+def sharded_slices(pts, mask, more, mmask, D=2):
+    """Each rank's grid of a sharded mission (`parallel/mission.py`): its
+    `insert` of its chunk of two clouds on a one-process stand-in for the
+    mesh, then `shard` of the global (D x T) grid to the rank's slice.
+    Returns [(the rank's grid, its slice of the global grid)]."""
+    import collections
+    import types
+
+    import torch
+    from lio_slam_tpu_torch.config import Config, RegistrationConfig, StaticConfig
+    from lio_slam_tpu_torch.parallel import mission
+
+    cfg = Config(static=StaticConfig(max_scan_points=len(pts),
+                                     max_keyframe_points=len(pts),
+                                     max_keyframes=8),
+                 registration=RegistrationConfig(grid_table_size=T_SIZE // D,
+                                                 grid_max_per_cell=CAP,
+                                                 grid_halo="z"))
+    State = collections.namedtuple("State", "map_grid store")
+    Store = collections.namedtuple("Store", "clouds cloud_masks")
+    ops = []
+    for me in range(D):
+        fake = types.SimpleNamespace(device_type="cpu", mesh_dim_names=("data",),
+                                     size=lambda dim: D,
+                                     get_local_rank=lambda axis, me=me: me)
+        ops.append(mission.make_sharded_map_ops(fake, cfg))
+    grids = []
+    for op in ops:
+        g = op.empty_grid()
+        g = op.insert(g, t(pts), t(mask))
+        grids.append(op.insert(g, t(more), t(mmask)))
+    whole = tvg.HashGrid(table=torch.cat([g.table for g in grids]),
+                         counts=torch.cat([g.counts for g in grids]),
+                         cell_size=grids[0].cell_size)
+    store = Store(clouds=torch.zeros(1, 1, 3), cloud_masks=torch.zeros(1, 1))
+    return [(g, op.shard(State(map_grid=whole, store=store)).map_grid)
+            for g, op in zip(grids, ops)]
+
+
+@pytest.mark.parametrize("halo", ["z", "xy", "full", "none"])
+def test_slots_past_counts_hold_sentinel(halo):
+    """After `build_grid` in chunks (a bucket wraps its ring across chunks)
+    and after `insert_points` with overflow, under every halo layout."""
+    pts, mask = scene(4)
+    more, mmask = scene(5)
+    grid = tvg.build_grid(t(pts), t(mask), 1.0, T_SIZE, CAP, halo=halo,
+                          chunk=300)
+    assert n(grid.counts).max() == CAP
+    assert_prefix_filled(grid)
+    grid = tvg.insert_points(grid, t(more), t(mmask), halo=halo)
+    assert_prefix_filled(grid)
+    assert (n(grid.counts) == CAP).sum() > 1
+
+
+def test_slots_past_counts_hold_sentinel_on_a_sharded_slice():
+    """On each rank's slice of a sharded mission's grid
+    (`parallel/mission.py`'s `shard`), which is the rank's own grid."""
+    pts, mask = scene(6)
+    more, mmask = scene(7)
+    n_pts = min(len(pts), len(more)) // 2 * 2
+    for own, sliced in sharded_slices(pts[:n_pts], mask[:n_pts], more[:n_pts],
+                                      mmask[:n_pts]):
+        assert_prefix_filled(sliced)
+        np.testing.assert_array_equal(n(sliced.table), n(own.table))
+        np.testing.assert_array_equal(n(sliced.counts), n(own.counts))
+        assert n(sliced.counts).max() == CAP

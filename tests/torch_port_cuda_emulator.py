@@ -8,7 +8,7 @@ cp.async helpers' bodies for plain copies, and the launch for
 `emu_launch`.  A substitution that no longer matches raises.
 
     lib = build(tmp_dir)
-    out = fused_ne_emulated(lib, table, hh, scan, mask, pose, **kw)
+    out = fused_ne_emulated(lib, table, hh, scan, mask, pose, counts=None, **kw)
 """
 
 from __future__ import annotations
@@ -72,9 +72,10 @@ def build(out_dir) -> ctypes.CDLL:
                            f"{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(so)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lio_fused_corr.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp,
-                                   cf, cf, cf, vp, ci, vp, vp]
-    lib.lio_fused_corr.restype = ci
+    for fn in (lib.lio_fused_corr, lib.lio_fused_corr_floor):
+        fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, vp,
+                       cf, cf, cf, vp, ci, vp, vp]
+        fn.restype = ci
     lib.lio_fused_corr_scratch_floats.argtypes = []
     lib.lio_fused_corr_scratch_floats.restype = ci
     lib.lio_fused_corr_block_warps.argtypes = [ci, ci]
@@ -84,11 +85,13 @@ def build(out_dir) -> ctypes.CDLL:
 
 def fused_ne_emulated(lib, table, hh, scan, mask, pose, nn_radius=1.0,
                       plane_dist_thresh=0.2, robust_weight_floor=0.1,
-                      scratch=None):
+                      scratch=None, counts=None, floor=False):
     """The kernel's five results (the wrapper's views of its 45 output
-    words) on CPU tensors, through the emulated launcher.  `scratch`, where
-    given, is the zeroed scratch buffer to launch with (the ticket must be
-    back at 0 afterwards)."""
+    words) on CPU tensors, through the emulated launcher; `counts` as the
+    wrapper takes it (the grid's filled slots a bucket, or None for whole
+    rows); `floor` launches the fixed chain alone.  `scratch`, where given,
+    is the zeroed scratch buffer to launch with (the ticket must be back at
+    0 afterwards)."""
     from lio_slam_tpu_torch.ops import fused_corr as fc
 
     table, hh, scan, pose = (x.contiguous() for x in (table, hh, scan, pose))
@@ -98,8 +101,12 @@ def fused_ne_emulated(lib, table, hh, scan, mask, pose, nn_radius=1.0,
     out = torch.zeros(fc.OUT_WORDS)
     T, C, _ = table.shape
     O, N = hh.shape
-    err = lib.lio_fused_corr(
-        table.data_ptr(), T, C, hh.data_ptr(), O, scan.data_ptr(),
+    if counts is not None:
+        counts = counts.to(torch.int32).contiguous()
+    launch = lib.lio_fused_corr_floor if floor else lib.lio_fused_corr
+    err = launch(
+        table.data_ptr(), T, C, hh.data_ptr(), O,
+        None if counts is None else counts.data_ptr(), scan.data_ptr(),
         mask8.data_ptr(), N, pose.data_ptr(), nn_radius, plane_dist_thresh,
         robust_weight_floor, scratch.data_ptr(), scratch.numel(),
         out.data_ptr(), None)

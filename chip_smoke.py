@@ -483,8 +483,10 @@ def named_kernel_ms(fn, name_part, reps=20, between=None):
 def kernel_bound(table, hh, scan, mask, counts):
     """The least time the card could take for one call on these inputs, as
     a dict: `ms`, `by`, `bytes`, `flop`, `rows` (distinct bucket rows some
-    unmasked point's ids name), `filled` (their filled slots, Σ counts[row])
-    and `whole_ms`, the bound PRs 1-12 stated (whole rows: rows x C slots),
+    unmasked point's ids name), `filled` (their filled slots, Σ counts[row]),
+    `scanned` (the filled slots the unmasked points scan, a repeated id
+    once), `point_slots` (the slots of those points' rows, C a row), and
+    `whole_ms`, the bound PRs 1-12 stated (whole rows: rows x C slots),
     kept beside it so that ratios compare across PRs.  Bytes: the filled
     slots of each of those rows once (12 bytes a slot) and its count;
     ids, scan, mask and pose once; the 45 output words once.  Operations: 8
@@ -509,6 +511,7 @@ def kernel_bound(table, hh, scan, mask, counts):
     for o in range(1, hh.shape[0]):
         first[o] = (hh[:o] != hh[o]).all(0)
     scanned = int((per_slot * first)[:, mask].sum())
+    point_slots = int((ok & first)[:, mask].sum()) * C
     n_live = int(mask.sum())
     flop = scanned * 8 + n_live * 300
     whole_flop = n_live * (hh.shape[0] * C * 8 + 300)
@@ -519,7 +522,8 @@ def kernel_bound(table, hh, scan, mask, counts):
     return {"ms": max(by_bytes, by_ops),
             "by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": n_bytes, "flop": flop, "rows": n_rows, "filled": filled,
-            "slots": n_rows * C, "whole_ms": whole}
+            "slots": n_rows * C, "scanned": scanned,
+            "point_slots": point_slots, "whole_ms": whole}
 
 
 def floor_ms(table, hh, scan, mask, pose, between=None, **kw):
@@ -573,9 +577,11 @@ def scene_points():
     return map_pts, body, pose0
 
 
-def kernel_scene(dev):
-    """The main path's shapes: an 8192-point scan drawn from a 65536-point
-    map in a 32768 x 24 grid, and a pose a GN step away from the truth."""
+def kernel_scene(dev, halo="z", cap=CAP):
+    """(grid, scan, mask, pose, true pose) at the main path's shapes: an
+    8192-point scan drawn from a 65536-point map in a 32768-bucket grid of
+    `cap` slots under `halo` (32768 x 24 under "z"), and a pose a GN step
+    away from the truth."""
     import numpy as np
     import torch
 
@@ -584,7 +590,7 @@ def kernel_scene(dev):
     map_pts, body, pose0 = scene_points()
     grid = vg.build_grid(torch.from_numpy(map_pts).to(dev),
                          torch.ones(N_MAP, dtype=torch.bool, device=dev),
-                         1.0, TABLE, CAP, halo="z")
+                         1.0, TABLE, cap, halo=halo)
     scan = torch.from_numpy(body).to(dev)
     mask = torch.ones(N_SCAN, dtype=torch.bool, device=dev)
     pose = torch.from_numpy(pose0 + np.array([2e-3, -1e-3, 4e-3, 0.05, -0.04,
@@ -3903,6 +3909,9 @@ def resident_replay_phase():
 LAYOUT_KERNELS = (("xy", "xy", 72, False), ("full", "full", 128, False),
                   ("none", "none", 24, False), ("sorted", "z", 24, True))
 LAYOUT_REPLAY_SCANS = 20       # phase 20 (c)
+# phase 20 (b): the scans of the "xy" and "full" missions whose first
+# launch is probed, from the sparse map of the first keyframes on
+LAYOUT_PROBE_SCANS = (1, 2, 3, 5, 10, 20, 39)
 LAYOUT_MAX_ATE_REL = 0.10      # phase 20 (b): ATE within 10 % of the reference's
 
 
@@ -3918,7 +3927,6 @@ def layout_kernel_phase(dev):
     version's device ms, the bound from the filled slots beside the
     whole-row bound, and the slots filled against rows x C.  Returns the
     JSON line's `layouts` object."""
-    import numpy as np
     import torch
 
     from lio_slam_tpu_torch.ops import _build
@@ -3927,19 +3935,11 @@ def layout_kernel_phase(dev):
     from lio_slam_tpu_torch.ops import voxel_grid as vg
     from lio_slam_tpu_torch.utils import se3
 
-    map_pts, body, pose0 = scene_points()
-    points = torch.from_numpy(map_pts).to(dev)
-    scan0 = torch.from_numpy(body).to(dev)
-    mask0 = torch.ones(N_SCAN, dtype=torch.bool, device=dev)
-    pose = torch.from_numpy(pose0 + np.array([2e-3, -1e-3, 4e-3, 0.05, -0.04,
-                                              0.02], np.float32)).to(dev)
     kw = dict(nn_radius=1.0, plane_dist_thresh=0.2, robust_weight_floor=0.1)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     layouts = {}
     for name, halo, cap, srt in LAYOUT_KERNELS:
-        grid = vg.build_grid(points, torch.ones(N_MAP, dtype=torch.bool,
-                                                device=dev),
-                             1.0, TABLE, cap, halo=halo)
+        grid, scan0, mask0, pose, _ = kernel_scene(dev, halo, cap)
         scan, mask = (reg._cell_sorted(scan0, mask0, 1.0) if srt
                       else (scan0, mask0))
         hh = vg.bucket_ids(se3.transform_points(*se3.pose6_to_Rt(pose), scan),
@@ -4000,7 +4000,8 @@ def layout_kernel_phase(dev):
               f"as the caller sees it {per_call:.4f}; slots filled "
               f"{bound['filled']} of rows x C = {bound['slots']} "
               f"({bound['rows']} distinct bucket rows read, "
-              f"{bound['filled'] / bound['slots']:.4f} filled); bound "
+              f"{bound['filled'] / bound['slots']:.4f} filled; a point's "
+              f"rows {bound['scanned'] / bound['point_slots']:.4f} filled); bound "
               f"{bound['ms']:.5f} ms by {bound['by']} ({bound['bytes']} bytes, "
               f"{bound['flop']} FLOP; whole rows {bound['whole_ms']:.5f}), "
               f"time over bound {ms / bound['ms']:.2f} (whole-row bound "
@@ -4019,27 +4020,137 @@ def layout_kernel_phase(dev):
     return layouts
 
 
-def layout_mission(dev, cfg, scans, imus, carried_from=None):
-    """(results, kernel launches, steady scans/s over scans 5-39) of
-    `Runner(cfg)` on the card over the scans; with `carried_from` each scan
-    starts from that fixture's IMU front-end state."""
+def layout_mission(dev, cfg, scans, imus, carried_from=None, probe=()):
+    """(results, kernel launches, steady scans/s over scans 5-39, keyframes,
+    probed) of `Runner(cfg)` on the card over the scans; with
+    `carried_from` each scan starts from that fixture's IMU front-end
+    state.  `probed` maps each scan of `probe` to the arguments of its
+    first kernel launch, cloned."""
     import torch
 
     from lio_slam_tpu_torch.ops import fused_corr as fc
     from lio_slam_tpu_torch.pipeline.runner import Runner
 
     runner = Runner(cfg, device=dev)
-    results, stamps = [], []
-    fc.KERNEL_LAUNCHES = 0
-    for i in range(len(scans)):
-        if carried_from is not None:
-            runner.imu_state = fixture_imu_state(carried_from, i, dev)
-        results.append(runner.process_scan(scans[i], imu=imus[i]))
-        stamps.append(time.perf_counter())
-    torch.cuda.synchronize()
-    launches = fc.KERNEL_LAUNCHES
+    results, stamps, probed, at = [], [], {}, [None]
+
+    def probing(kernel):
+        def wrapped(*a, **k):
+            if at[0] in probe and at[0] not in probed:
+                probed[at[0]] = (
+                    *(x.clone() if isinstance(x, torch.Tensor) else x
+                      for x in a),
+                    {n: v.clone() if isinstance(v, torch.Tensor) else v
+                     for n, v in k.items()})
+            return kernel(*a, **k)
+        return wrapped
+
+    undo = run_wrapped(fc, "fused_ne_from_bucket_ids", probing)
+    try:
+        fc.KERNEL_LAUNCHES = 0
+        for i in range(len(scans)):
+            at[0] = i
+            if carried_from is not None:
+                runner.imu_state = fixture_imu_state(carried_from, i, dev)
+            results.append(runner.process_scan(scans[i], imu=imus[i]))
+            stamps.append(time.perf_counter())
+        torch.cuda.synchronize()
+        launches = fc.KERNEL_LAUNCHES
+    finally:
+        undo()
     return (results, launches, (len(scans) - 5) / (stamps[-1] - stamps[4]),
-            int(runner.state.store.count))
+            int(runner.state.store.count), probed)
+
+
+def launch_graph_ms(launch, per_graph=20, runs=5):
+    """Device ms a launch of `launch` (no arguments, raw launches on the
+    current stream): `per_graph` launches captured back to back as one CUDA
+    graph, CUDA events around a replay, the median of `runs` replays over
+    `per_graph`.  A graph's nodes carry no host time but a gap each, the
+    same for any kernel, so two launchers compare."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+        launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(per_graph):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per_graph)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def prefix_probe(label, probed):
+    """Phase 20 (b) at 1 and 3 ids a point: on the inputs of the first
+    launch of each probed scan of a mission (the map that scan sees), a
+    point's rows' filled share (`kernel_bound`: the filled slots the
+    unmasked points scan over C a live row) and the kernel's device ms a
+    launch with the grid's counts and on whole rows (`counts=None`), in
+    turns (`launch_graph_ms`; raw launches on a scratch of their own, no
+    launch of the main path, not counted), the two results bit-equal.
+    Returns {scan: (filled share, ms with counts, ms on whole rows)}."""
+    import torch
+
+    from lio_slam_tpu_torch.ops import _build
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+
+    lib = _build.load_fused_corr()
+    out = {}
+    for i, (table, hh, scan, mask, pose, kw) in sorted(probed.items()):
+        counts = kw["counts"]
+        bound = kernel_bound(table, hh, scan, mask, counts)
+        share = bound["scanned"] / bound["point_slots"]
+        scratch = torch.zeros(lib.lio_fused_corr_scratch_floats(),
+                              dtype=torch.float32, device=table.device)
+        words = {}
+
+        def launcher(c):
+            args = fc._kernel_args(table, hh, scan, mask, pose, kw["nn_radius"],
+                                   kw["plane_dist_thresh"],
+                                   kw["robust_weight_floor"], counts=c)
+            res = words.setdefault(c is None, torch.empty(
+                fc.OUT_WORDS, dtype=torch.float32, device=table.device))
+
+            def launch():
+                err = lib.lio_fused_corr(
+                    *args, scratch.data_ptr(), scratch.numel(), res.data_ptr(),
+                    torch.cuda.current_stream(table.device).cuda_stream)
+                if err != 0:
+                    fail(f"{label}: launch refused, cudaError_t {err}")
+            return launch
+
+        with_counts, whole = launcher(counts), launcher(None)
+        t = [launch_graph_ms(with_counts), launch_graph_ms(whole),
+             launch_graph_ms(whole), launch_graph_ms(with_counts)]
+        if not torch.equal(words[False].view(torch.int32),
+                           words[True].view(torch.int32)):
+            fail(f"{label}, scan {i}: the launch with the grid's counts is "
+                 "not bit-equal to the launch on whole rows")
+        ms, ms_whole = min(t[0], t[3]), min(t[1], t[2])
+        print(f"{label}, scan {i} ({SMI}): {int(mask.sum())} points, "
+              f"{bound['filled']} slots filled in the {bound['rows']} rows "
+              f"read; a point's rows {share:.4f} filled ({bound['scanned']} "
+              f"of {bound['point_slots']} slots); device ms a launch "
+              f"(graph of 20) with counts, whole rows, whole rows, with "
+              f"counts = {', '.join(f'{x:.5f}' for x in t)}; with counts / "
+              f"whole rows {ms / ms_whole:.4f}", flush=True)
+        out[i] = (share, ms, ms_whole)
+    return out
 
 
 def layout_missions_phase(dev, default_rate):
@@ -4049,7 +4160,9 @@ def layout_missions_phase(dev, default_rate):
     launches equal to the GN iterations, the deviation within the mapping
     limits, the keyframe count, the ATE within 10 % of the reference's;
     then with the reference's IMU state carried in, GN iterations within 1
-    a scan.  Each rate is printed beside `default_rate`, phase 3's.
+    a scan, and at "xy" and "full" `prefix_probe` on the first launch of
+    each of LAYOUT_PROBE_SCANS.  Each rate is printed beside
+    `default_rate`, phase 3's.
     Returns each mission's launches."""
     import numpy as np
 
@@ -4068,7 +4181,7 @@ def layout_missions_phase(dev, default_rate):
                if k.startswith(name + "_")}
         cfg = sm.layout_mission_config(halo, cap, srt, ds)
         scans, imus = sm.synthetic_inputs(seq, cfg)
-        results, n_launch, rate, kf = layout_mission(dev, cfg, scans, imus)
+        results, n_launch, rate, kf, _ = layout_mission(dev, cfg, scans, imus)
         launches[name] = n_launch
         poses = np.stack([r.pose for r in results])
         iters = np.array([r.registration_iters for r in results])
@@ -4092,7 +4205,11 @@ def layout_missions_phase(dev, default_rate):
         if not abs(ate - ate_ref) <= LAYOUT_MAX_ATE_REL * ate_ref:
             failures.append(f"{label}: ATE {ate} m against the reference's "
                             f"{ate_ref} m")
-        carried, _, _, _ = layout_mission(dev, cfg, scans, imus, carried_from=ref)
+        carried, _, _, _, probed = layout_mission(
+            dev, cfg, scans, imus, carried_from=ref,
+            probe=LAYOUT_PROBE_SCANS if halo in ("xy", "full") else ())
+        if probed:
+            prefix_probe(label, probed)
         c_poses = np.stack([r.pose for r in carried])
         d_it = np.array([r.registration_iters for r in carried]) \
             - ref["registration_iters"]

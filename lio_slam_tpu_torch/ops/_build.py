@@ -81,7 +81,13 @@ def load_fused_corr() -> ctypes.CDLL:
     so = BUILD_DIR / f"liblio_kernels_{_digest(NVCC_FLAGS, _SOURCES)}.so"
     if not so.exists():
         BUILD_SECONDS, BUILD_LOG = _compile(_nvcc(), NVCC_FLAGS, _SOURCES, so)
-    lib = ctypes.CDLL(str(so))
+    _lib = bind_fused_corr(ctypes.CDLL(str(so)))
+    return _lib
+
+
+def bind_fused_corr(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the functions of a build of `ops/csrc/fused_corr.cu` on
+    `lib`; returns `lib`."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # table, T, C, hh, O, counts, scan, mask, N, pose6, three thresholds,
     # then scratch, scratch_floats, out, stream; the floor (the launch's
@@ -94,7 +100,6 @@ def load_fused_corr() -> ctypes.CDLL:
     lib.lio_fused_corr_scratch_floats.restype = ci
     lib.lio_fused_corr_block_warps.argtypes = [ci, ci]
     lib.lio_fused_corr_block_warps.restype = ci
-    _lib = lib
     return lib
 
 

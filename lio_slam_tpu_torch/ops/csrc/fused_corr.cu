@@ -65,7 +65,8 @@
 //   dead, and without counts (a table made by hand) every slot of a live
 //   row is filled.  At O = 9 and 27 counts is not read.
 // - What bounds it, measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6,
-//   fused_corr_study.py and chip_smoke.py phase 20 (a)): the launch floor,
+//   tools/fused_corr_study.py and chip_smoke.py phase 20 (a)-(b)): the
+//   launch floor,
 //   the same grid, block, dynamic shared memory and scratch running only
 //   the fixed chain (pose tables, point, mask bit and ids, partials,
 //   ticket, the last block's sum; lio_fused_corr_floor), is 0.0045 ms warm
@@ -77,7 +78,11 @@
 //   (full) filled, so the prefix saves what the counts trip costs: the
 //   design times 0.0137 / 0.0108 ms warm against 0.0133-0.0135 / 0.0109
 //   for whole rows copied and ranked (the earlier design) in the same
-//   call; it cuts copies and ranking where rows are sparse.
+//   call.  On the layout missions' maps (phase 20 (b), the first launch of
+//   scans 1-39) a point's rows are 25-67 % filled at xy and 41-90 % at
+//   full, and a launch with counts takes 0.84-0.97 (xy) and 0.92-0.995
+//   (full) of the same build's on whole rows, the least on the sparse
+//   maps of the first scans.
 // - Every lane of a group loads the point, its mask bit and its O bucket
 //   ids (one transaction a group, one round trip for all of them) and marks
 //   a bucket skipped if it repeats an earlier offset's id or lies outside
@@ -168,8 +173,8 @@
 //   halve the warps again, which the ring of points above showed to lose
 //   on z.
 // - At O <= 3 (xy/72 / full/128, device ms warm; the earlier whole-row
-//   design 0.0133-0.0137 / 0.0109 in the same calls; fused_corr_study.py,
-//   PERF.md):
+//   design 0.0133-0.0137 / 0.0109 in the same calls;
+//   tools/fused_corr_study.py, PERF.md):
 //   * One bulk async copy a row (cp.async.bulk.shared::cluster.global.
 //     mbarrier::complete_tx::bytes, issued by the group's first lane onto
 //     the group's mbarrier, expect_tx of the group's bytes, every lane
@@ -195,7 +200,9 @@
 //     in the fit).
 //   * Sharing rows between a block's points (each row copied once for all
 //     the points of the block that read it) was not built: staging fewer
-//     bytes (the prefix, 8-16 % fewer here) moved the time by under 1 %.
+//     bytes (the prefix, 8-16 % fewer on phase 2's scene) moved the time
+//     by under 1 % there, and 75 % fewer (xy, the missions' first scans)
+//     by 10-16 %.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

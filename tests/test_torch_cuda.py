@@ -93,8 +93,8 @@ def test_kernel_at_every_layout(cuda, halo, cap):
     multiple of 4 takes the 4-byte copies (22; at 5 a chunk's 45 rows also
     move a lane's rows from one chunk to the next), a wide one (96) a block
     of fewer warps.  At 1 and 3 ids the entry point passes the grid's
-    counts, and the kernel copies (in bulk) and ranks only each row's
-    filled prefix: bit-equal to the same launch on whole rows."""
+    counts, and the kernel copies and ranks only each row's filled
+    prefix: bit-equal to the same launch on whole rows."""
     map_pts, scan = planar_scene(6, n_map=8192, n_scan=1000)
     grid = vg.build_grid(t(map_pts).to(cuda),
                          torch.ones(len(map_pts), dtype=torch.bool, device=cuda),

@@ -3,14 +3,15 @@
 one NVIDIA GPU, in one process: this checkout's `fused_corr.cu`, variants
 of it, and optionally another checkout's (the parent tree).
 
-    python3 fused_corr_study.py [--parent DIR] [--sweep] [--out FILE]
+    python3 tools/fused_corr_study.py [--parent DIR] [--sweep] [--out FILE]
 
 - Every build is nvcc of one source with the flags of
   `lio_slam_tpu_torch/ops/_build.py` into `build/fused_corr_study/`, all
   started together; ptxas's register report of each is printed.
-- The scenes are `chip_smoke.py`'s phase 2 and 20 (a): its 8192-point scan
-  and 65536-point map in grids of 32768 buckets at "xy"/72, "full"/128,
-  "z"/24 and "none"/24, at its pose.
+- The scenes are `chip_smoke.py`'s phase 2 and 20 (a)
+  (`chip_smoke.kernel_scene`): its 8192-point scan and 65536-point map in
+  grids of 32768 buckets at "xy"/72, "full"/128, "z"/24 and "none"/24, at
+  its pose.
 - Each build is first held to the plain version on each scene (inliers
   exact, AtA / Atb within rtol 2e-4 / atol 2e-3; builds that take the
   grid's counts also bit-equal with and without them), then timed: the
@@ -40,7 +41,7 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
                       "fused_corr.cu")
 OUT_DIR = os.path.join(ROOT, "build", "fused_corr_study")
@@ -80,27 +81,28 @@ def build(name: str, source_text: str):
 
 
 class Kernel:
-    """One build, bound through ctypes; `takes_counts` where its launcher
-    has the counts argument (this tree's), else the parent's signature."""
+    """One build, bound through ctypes: this tree's source and its variants
+    as `_build` binds the library; a build without the launch floor (the
+    parent tree's, PR 12) has the older launcher, without counts."""
 
     def __init__(self, name, so, dev):
         import torch
 
+        from lio_slam_tpu_torch.ops import _build
+
         self.name = name
         self.lib = ctypes.CDLL(so)
         self.takes_counts = hasattr(self.lib, "lio_fused_corr_floor")
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        head = [vp, ci, ci, vp, ci] + ([vp] if self.takes_counts else [])
-        self.lib.lio_fused_corr.argtypes = head + [vp, vp, ci, vp, cf, cf, cf,
-                                                   vp, ci, vp, vp]
-        self.lib.lio_fused_corr.restype = ci
         if self.takes_counts:
-            self.lib.lio_fused_corr_floor.argtypes = \
-                self.lib.lio_fused_corr.argtypes
-            self.lib.lio_fused_corr_floor.restype = ci
-        self.lib.lio_fused_corr_scratch_floats.restype = ci
-        self.lib.lio_fused_corr_block_warps.argtypes = [ci, ci]
-        self.lib.lio_fused_corr_block_warps.restype = ci
+            _build.bind_fused_corr(self.lib)
+        else:
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            self.lib.lio_fused_corr.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci,
+                                                vp, cf, cf, cf, vp, ci, vp, vp]
+            self.lib.lio_fused_corr.restype = ci
+            self.lib.lio_fused_corr_scratch_floats.restype = ci
+            self.lib.lio_fused_corr_block_warps.argtypes = [ci, ci]
+            self.lib.lio_fused_corr_block_warps.restype = ci
         self.scratch = torch.zeros(self.lib.lio_fused_corr_scratch_floats(),
                                    dtype=torch.float32, device=dev)
 
@@ -139,24 +141,13 @@ class Kernel:
 def scenes(dev):
     """{name: (table, hh, scan, mask, pose, counts)} at chip_smoke's phase 2
     / 20 (a) shapes."""
-    import numpy as np
-    import torch
-
     import chip_smoke as cs
     from lio_slam_tpu_torch.ops import voxel_grid as vg
     from lio_slam_tpu_torch.utils import se3
 
-    map_pts, body, pose0 = cs.scene_points()
-    points = torch.from_numpy(map_pts).to(dev)
-    scan = torch.from_numpy(body).to(dev)
-    mask = torch.ones(cs.N_SCAN, dtype=torch.bool, device=dev)
-    pose = torch.from_numpy(pose0 + np.array([2e-3, -1e-3, 4e-3, 0.05, -0.04,
-                                              0.02], np.float32)).to(dev)
     out = {}
     for halo, cap in SCENES:
-        grid = vg.build_grid(points, torch.ones(cs.N_MAP, dtype=torch.bool,
-                                                device=dev),
-                             1.0, cs.TABLE, cap, halo=halo)
+        grid, scan, mask, pose, _ = cs.kernel_scene(dev, halo, cap)
         hh = vg.bucket_ids(se3.transform_points(*se3.pose6_to_Rt(pose), scan),
                            grid.cell_size, cs.TABLE, halo)
         out[f"{halo}/{cap}"] = (grid.table, hh, scan, mask, pose, grid.counts)

@@ -41,6 +41,7 @@ from lio_slam_tpu_torch.ops import scancontext as sc_mod
 from lio_slam_tpu_torch.ops import voxel_grid as vg
 from lio_slam_tpu_torch.pipeline import keyframes as kf
 from lio_slam_tpu_torch.utils import pointcloud as pc
+from lio_slam_tpu_torch.utils import profiling
 from lio_slam_tpu_torch.utils import se3
 from lio_slam_tpu_torch.utils.resident import at, constant, select, set_at_
 
@@ -441,26 +442,30 @@ def _save_keyframe(state: LioState, inp: ScanInput, pose: torch.Tensor,
     set_at_(poses, ni, pose)
     set_at_(pose_mask, ni, True)
     g = g._replace(poses=poses, pose_mask=pose_mask)
-    desc = sc_mod.make_descriptor(
-        scan_ds.xyz, scan_ds.mask, max_radius=cfg.loop.sc_max_radius,
-        lidar_height=cfg.loop.sc_lidar_height,
-        num_ring=cfg.static.sc_num_ring, num_sector=cfg.static.sc_num_sector)
-    state = state._replace(store=store, graph=g,
-                           sc_db=sc_mod.add_descriptor(state.sc_db, desc))
+    with profiling.TRACER.span("save.sc_descriptor"):
+        desc = sc_mod.make_descriptor(
+            scan_ds.xyz, scan_ds.mask, max_radius=cfg.loop.sc_max_radius,
+            lidar_height=cfg.loop.sc_lidar_height,
+            num_ring=cfg.static.sc_num_ring,
+            num_sector=cfg.static.sc_num_sector)
+        sc_db = sc_mod.add_descriptor(state.sc_db, desc)
+    state = state._replace(store=store, graph=g, sc_db=sc_db)
     state = _consume_pending_loops(state, cfg)
     if cfg.gps.use_gps and not resident:
         state = _add_gps_factor(state, inp, new_idx, cfg, ops)
 
-    g = solver.solve_window_compact(state.graph, store.count,
-                                    cfg.static.window_size, iterations=2)
+    with profiling.TRACER.span("save.window_solve"):
+        g = solver.solve_window_compact(state.graph, store.count,
+                                        cfg.static.window_size, iterations=2)
     store = store._replace(poses=torch.where(g.pose_mask[:, None], g.poses,
                                              store.poses))
     new_pose = at(g.poses, ni)
     if cfg.registration.local_map_mode == "incremental":
-        Rn, tn = se3.pose6_to_Rt(new_pose)
-        world_pts = se3.transform_points(Rn, tn, scan_ds.xyz)
-        state = state._replace(map_grid=ops.insert(state.map_grid, world_pts,
-                                                   scan_ds.mask))
+        with profiling.TRACER.span("save.map_insert"):
+            Rn, tn = se3.pose6_to_Rt(new_pose)
+            world_pts = se3.transform_points(Rn, tn, scan_ds.xyz)
+            state = state._replace(map_grid=ops.insert(
+                state.map_grid, world_pts, scan_ds.mask))
     return state._replace(store=store, graph=g, pose=new_pose,
                           needs_full_solve=state.needs_full_solve | state.loop_closed,
                           loop_closed=torch.zeros_like(state.loop_closed))
@@ -580,24 +585,26 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
                 leaf_size=r.mapping_corner_leaf_size,
                 map_capacity=s.max_corner_map_points, **nearby)
         has_map = state.store.count > 0
-        if r.local_map_mode == "incremental":
-            if use_corner:
-                res = reg.register_loam_with_grid(
-                    scan_ds.xyz, scan_ds.mask & has_map, state.map_grid,
-                    corner_ds.xyz, corner_ds.mask & has_map,
-                    corner_map.xyz, corner_map.mask, pose_guess, r)
-            elif resident:
-                res = ops.register(scan_ds.xyz, scan_ds.mask & has_map,
-                                   state.map_grid, pose_guess, resident=True)
-            else:
-                res = ops.register(scan_ds.xyz, scan_ds.mask & has_map,
-                                   state.map_grid, pose_guess)
-        else:
+        if r.local_map_mode != "incremental":
             local_map = kf.assemble_local_map(
                 state.store, pose_guess[3:], inp.stamp,
                 leaf_size=r.mapping_surf_leaf_size,
                 map_capacity=s.max_map_points, **nearby)
-            if use_corner:
+        with profiling.TRACER.span("mapping.register"):
+            if r.local_map_mode == "incremental":
+                if use_corner:
+                    res = reg.register_loam_with_grid(
+                        scan_ds.xyz, scan_ds.mask & has_map, state.map_grid,
+                        corner_ds.xyz, corner_ds.mask & has_map,
+                        corner_map.xyz, corner_map.mask, pose_guess, r)
+                elif resident:
+                    res = ops.register(scan_ds.xyz, scan_ds.mask & has_map,
+                                       state.map_grid, pose_guess,
+                                       resident=True)
+                else:
+                    res = ops.register(scan_ds.xyz, scan_ds.mask & has_map,
+                                       state.map_grid, pose_guess)
+            elif use_corner:
                 res = reg.register_loam(
                     scan_ds.xyz, scan_ds.mask & has_map,
                     local_map.xyz, local_map.mask,
@@ -621,8 +628,9 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
                            state)
         elif bool(is_kf):                      # host branch (JAX lax.cond)
             is_kf = True
-            state = _save_keyframe(state, inp, pose, scan_ds, cfg,
-                                   corner_ds=corner_ds, ops=ops)
+            with profiling.TRACER.span("mapping.save"):
+                state = _save_keyframe(state, inp, pose, scan_ds, cfg,
+                                       corner_ds=corner_ds, ops=ops)
         else:
             is_kf = False
         incremental = se3.pose6_between(state.last_incre_pose, state.pose)

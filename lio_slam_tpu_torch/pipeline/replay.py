@@ -75,6 +75,7 @@ from lio_slam_tpu_torch.pipeline import lio
 from lio_slam_tpu_torch.pipeline import live
 from lio_slam_tpu_torch.pipeline import loop_closure
 from lio_slam_tpu_torch.utils import pointcloud as pc
+from lio_slam_tpu_torch.utils import profiling
 from lio_slam_tpu_torch.utils import se3
 
 
@@ -260,7 +261,13 @@ class _ScanProgram:
     resident front-end correction with the mapping pose and TransformFusion
     over the rate train, and writes `fes`, `last_pose` and the scan's
     outputs.  On the card each stage is a CUDA graph captured once; on the
-    CPU it runs eagerly."""
+    CPU it runs eagerly.
+
+    Spans (`utils/profiling.TRACER`, when on): `replay.chunk` around
+    `run`; `replay.scan` from before a scan's input copies (`map_scan`) to
+    after its output copies (`finish_scan`), with device marks at both
+    ends on the card, its scan id the scan's row of the batch;
+    `replay.capture` around the capture."""
 
     def __init__(self, cfg: Config, device):
         self.cfg = cfg
@@ -272,6 +279,7 @@ class _ScanProgram:
         self.graphs = None
         self.graph_launches = (0, 0)     # fused_corr nodes of (a), (b)
         self.capture_seconds = None
+        self._scan_span = None           # the open `replay.scan`
 
     # -- the two stages, on the static buffers --
     def _stage_a(self) -> _ScanMapped:
@@ -323,9 +331,14 @@ class _ScanProgram:
             return
         import time
 
+        t0 = time.perf_counter()
+        with profiling.TRACER.span("replay.capture"):
+            self._capture(batch)
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _capture(self, batch: ReplayBatch):
         from lio_slam_tpu_torch.ops import fused_corr
 
-        t0 = time.perf_counter()
         _copy_into(self.scan, ReplayBatch(*(a[0] for a in batch)))
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -352,11 +365,12 @@ class _ScanProgram:
         self.graph_launches = (n_a, fused_corr.CAPTURED_LAUNCHES - n0 - n_a)
         self.graphs = (graph_a, graph_b)
         self._a, self._b = mapped, (pose, fused)
-        self.capture_seconds = time.perf_counter() - t0
 
     # -- one scan --
     def map_scan(self, batch: ReplayBatch, i: int) -> _ScanMapped:
         """Stage (a) of scan `i` of a staged batch."""
+        self._scan_span = profiling.TRACER.begin(
+            "replay.scan", device=self.device.type == "cuda", scan=i)
         _copy_into(self.scan, ReplayBatch(*(a[i] for a in batch)))
         if self.graphs is None:
             return self._stage_a()
@@ -382,6 +396,8 @@ class _ScanProgram:
         outs.fused_last[i].copy_(fused)
         outs.iters[i].copy_(mapped.iters)
         outs.degenerate[i].copy_(mapped.degenerate)
+        profiling.TRACER.end(self._scan_span)
+        self._scan_span = None
 
     def empty_outputs(self, n: int) -> ReplayOut:
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -396,11 +412,12 @@ class _ScanProgram:
         """Scans 0..n-1 of `batch` into rows first.. of `outs`;
         `cadence(i)`, where given, runs between the stages of scan `i`
         (the loop detector and the full correction on `self.state`)."""
-        for i in range(len(batch.stamp)):
-            mapped = self.map_scan(batch, i)
-            if cadence is not None:
-                cadence(first + i)
-            self.finish_scan(mapped, outs, first + i)
+        with profiling.TRACER.span("replay.chunk"):
+            for i in range(len(batch.stamp)):
+                mapped = self.map_scan(batch, i)
+                if cadence is not None:
+                    cadence(first + i)
+                self.finish_scan(mapped, outs, first + i)
 
 
 class _ResidentReplay:

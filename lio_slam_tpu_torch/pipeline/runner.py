@@ -459,6 +459,7 @@ class Runner:
             return None
         self._last_processed_stamp = t
         self.scan_rate.tick(t)
+        profiling.TRACER.scan = self.scan_count   # the scan id of its spans
         acc, gyr, dts, rel_t, imask, have_imu = \
             self._prep_imu_window(imu, scan_stamp=float(scan.stamp))
         # deskew sees the whole window; the correction integrates up to the

@@ -901,3 +901,66 @@ def test_graph_replay_at_every_config(cuda, mode):
         assert torch.equal(getattr(graph, name), getattr(eager, name)), name
     assert int(graph.iters.max()) >= 1
     assert fc.KERNEL_LAUNCHES == (n_scans * R if fused else 0)
+
+
+@pytest.mark.cuda
+def test_replay_scan_marks_on_the_shared_clock(cuda):
+    """The span recorder on the card around two chunks of 4 scans of the
+    captured carry replay: each `replay.scan` has device marks that resolve
+    in order (start before end, each scan after the one before it) and lie
+    after the scan's host start on the host's clock; the capture is one
+    `replay.capture` span inside `capture_seconds`; the resident step's
+    spans are recorded in the capture's two eager warm-up passes and not
+    in the graph capture that follows them."""
+    from lio_slam_tpu_torch.config import RegistrationConfig, StaticConfig
+    from lio_slam_tpu_torch.pipeline import replay
+    from lio_slam_tpu_torch.utils.profiling import TRACER
+
+    cfg = Config(static=StaticConfig(max_raw_points=2048, max_scan_points=2048,
+                                     max_map_points=8192, max_keyframes=16,
+                                     max_keyframe_points=1024, max_loop_queue=2,
+                                     max_gps_queue=2, window_size=8,
+                                     max_imu_window=16),
+                 registration=RegistrationConfig(degeneracy_eig_thresh=10.0))
+    n_scans, L = 8, 4
+    seq = synthetic.make_sequence(n_scans=n_scans, n_points=2048, seed=0)
+    acc, gyr, dts, rel_t, imask = synthetic.make_imu_windows(
+        seq, 16, samples_per_scan=8, gravity=cfg.imu.gravity)
+    batch = replay.ReplayBatch(
+        xyz=seq.scans, ptime=np.zeros((n_scans, 2048), np.float32),
+        pmask=seq.scan_masks, ring=np.zeros((n_scans, 2048), np.int32),
+        acc=acc, gyr=gyr, dts=dts, rel_t=rel_t, imask=imask, stamp=seq.stamps)
+    chunk = replay.make_pipeline_replay_carry(cfg, device=cuda)
+    staged = chunk.replay.stage(batch)
+    chunks = [replay.ReplayBatch(*(a[k:k + L] for a in staged))
+              for k in range(0, n_scans, L)]
+    TRACER.clear()
+    TRACER.enable()
+    try:
+        state, fes = chunk.replay.init()
+        chunk.replay.capture(state, fes, chunks[0])
+        last = torch.zeros(6, device=cuda)
+        for cb in chunks:
+            state, fes, last, _ = chunk(state, fes, last, cb)
+        spans = TRACER.read()
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    cap = [s for s in spans if s.name == "replay.capture"]
+    assert len(cap) == 1
+    assert 0 < cap[0].seconds <= chunk.replay.capture_seconds
+    assert {s.name for s in spans} == {
+        "replay.capture", "replay.chunk", "replay.scan", "mapping.register",
+        "save.sc_descriptor", "save.window_solve", "save.map_insert"}
+    step = [s for s in spans if s.name.startswith(("mapping.", "save."))]
+    assert [s.name for s in step].count("mapping.register") == 2
+    assert all(s.parent == cap[0].id for s in step
+               if s.name == "mapping.register")
+    assert all(cap[0].t0 <= s.t0 <= s.t1 <= cap[0].t1 for s in step)
+    scans = [s for s in spans if s.name == "replay.scan"]
+    assert [s.scan for s in scans] == list(range(L)) * 2
+    for s in scans:
+        assert s.t0 <= s.d0 < s.d1, s
+    for a, b in zip(scans, scans[1:]):
+        assert a.d1 <= b.d0, (a, b)
+    assert all(s.d0 is None for s in spans if s.name != "replay.scan")

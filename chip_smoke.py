@@ -267,13 +267,31 @@ ms a scan beside those of the sequential form.
    corner config (`corner_mission_config()`) and under `bench_config()`
    as graphs: bit for bit (a replay feeds no corner cloud, so the corner
    config takes the surface path, as in JAX), launches 30 a scan each.
+22. The GN step's kernel (`ops/csrc/gn_small.cu`), run right after phase
+   20 (a): both instantiations (solve; solve and eigensolve) on CUDA
+   tensors against `smallmat.cholesky_solve(eps=1e-6)` and
+   `smallmat.eigh_jacobi` on the same tensors, word for word, on the GN
+   systems of phase 2's scene (the scan, the half-masked scan, the empty
+   map's zeros, the scan's system with one direction unobserved); on the
+   scan's system each instantiation's device ms a launch and the launch
+   floor's (`lio_gn_small_floor`: the same launch moving its 42 words, no
+   arithmetic), each as a launch inside a CUDA graph, a call through the
+   wrapper, the latency bound (the dependent chain at the SM clock, the
+   latencies estimated), and the plain version's host ms a call, device ms,
+   device operations and ms as a graph.  Every path above zeroes both
+   kernels' launch counters before its run: gn_small must launch once a
+   GN pass (the fused kernel's launches, or the sharded paths' GN
+   iterations) and with the eigensolve once a registration (exactly, where
+   the run registers only its scans).
 Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line describing the
-kernel (its launches on every path driven, apart; a `layouts` object with
-each instantiation's offsets, cap, times, bound and error), and last
-`{"ok": true, "device": {...}}`.  Exits non-zero, without
-that line, if there is no CUDA device or any check fails.
+kernels: fused_corr (its launches on every path driven, apart; a `layouts`
+object with each instantiation's offsets, cap, times, bound and error) and
+gn_small (its launches and those with the eigensolve on every path, apart,
+and phase 22's times), and last `{"ok": true, "device": {...}}`.  Exits
+non-zero, without that line, if there is no CUDA device or any check
+fails.
 """
 
 from __future__ import annotations
@@ -311,6 +329,20 @@ LOOP_MAX_DEV_M = 0.5
 LOOP_MAX_DEV_RAD = math.radians(2.0)
 LOOP_MAX_ATE_M = 1.0
 SMI = "card not read"       # nvidia-smi's name and power limit, set by main
+# The GN step's kernel (gn_small.cu) is bound by the latency of its chain of
+# dependent operations, not by bytes or FLOP.  Its chain: the solve's 6
+# roots, 17 divisions and about 45 dependent adds and multiplies, then on a
+# first pass 8 x 15 Jacobi rotations of 2 roots, 3 divisions and about 15
+# each.  Latencies on Hopper in SM clock cycles (estimated, not measured):
+# an IEEE float32 root, an IEEE division, a dependent add or multiply.
+SM_CLOCK_HZ = 1.98e9          # H100 SXM, boost clock, published
+SQRT_CYCLES, DIV_CYCLES, FP_CYCLES = 40, 45, 4
+GN_SOLVE_CHAIN = (6, 17, 45)  # roots, divisions, adds and multiplies
+GN_ROTATION_CHAIN = (2, 3, 15)
+GN_ROTATIONS = 8 * 15
+# gn_small's launches on each path driven, apart: path -> (launches, of them
+# with the eigensolve), each counted over the run that counts fused_corr's
+GN_PATHS = {}
 # the kernel launch of each bag and corner path whose arguments the kernel
 # check reuses
 BAG_CAPTURE_AT = 200
@@ -447,6 +479,42 @@ def warm_profiler(dev):
             for _ in range(10):
                 x = x + 1.0
             torch.cuda.synchronize()
+
+
+def zero_launches():
+    """Both kernels' launch counters to 0, just before a path's run."""
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import gn_small as gs
+
+    fc.KERNEL_LAUNCHES = 0
+    gs.KERNEL_LAUNCHES = gs.EIGH_LAUNCHES = 0
+
+
+def gn_launches(path, passes, registrations=None, counts=None):
+    """Add gn_small's launches since `zero_launches` (or `counts`, a rank's
+    (launches, with the eigensolve)) to `GN_PATHS[path]`, and fail unless
+    the GN step launched once a GN pass (`passes`: the fused kernel's
+    launches over the same run, which the phase holds to the GN iterations,
+    or the iterations where no fused kernel runs) and the eigensolve once a
+    registration: `registrations` where the run holds none but the scans'
+    own, else at least once where any pass ran and at most once a pass."""
+    from lio_slam_tpu_torch.ops import gn_small as gs
+
+    n, e = counts if counts is not None else (gs.KERNEL_LAUNCHES,
+                                              gs.EIGH_LAUNCHES)
+    had = GN_PATHS.get(path, (0, 0))
+    GN_PATHS[path] = (had[0] + n, had[1] + e)
+    ok = (n == passes and e <= n and (e > 0) == (n > 0)
+          and (registrations is None or e == registrations))
+    print(f"{path}: gn_small launches {n} for {passes} GN passes, {e} with "
+          f"the eigensolve for "
+          f"{'the' if registrations is None else registrations} "
+          "registrations", flush=True)
+    if not ok:
+        fail(f"{path}: gn_small launched {n} times ({e} with the eigensolve) "
+             f"for {passes} GN passes and "
+             f"{'its' if registrations is None else registrations} "
+             "registrations")
 
 
 def named_kernel_ms(fn, name_part, reps=20, between=None):
@@ -728,6 +796,120 @@ def kernel_phase(dev):
             "slots_read": bound["slots"]}
 
 
+def gn_chain_ms(eigh: bool) -> float:
+    """The GN step's latency bound: ms of its dependent chain at the SM
+    clock (the constants above)."""
+    cycles = lambda roots, divs, fp: (roots * SQRT_CYCLES + divs * DIV_CYCLES
+                                      + fp * FP_CYCLES)
+    n = cycles(*GN_SOLVE_CHAIN)
+    if eigh:
+        n += GN_ROTATIONS * cycles(*GN_ROTATION_CHAIN)
+    return 1e3 * n / SM_CLOCK_HZ
+
+
+def gn_small_phase(dev):
+    """Phase 22: the GN step's kernel (`ops/csrc/gn_small.cu`) on the GN
+    systems of phase 2's scene as `_gn_pass` takes them (the scan, the
+    half-masked scan, the empty map's zeros, and the scan's system with one
+    direction unobserved), both instantiations word for word against
+    `smallmat` on the same tensors; then on the scan's system the device
+    ms a launch of each and of the launch floor (`lio_gn_small_floor`),
+    ms a launch inside a CUDA graph, ms a call through the wrapper as the
+    caller sees it, and the plain version's host ms a call, device ms,
+    device operations and ms as a graph.  Returns the `kernels` entry's
+    numbers."""
+    import torch
+
+    from lio_slam_tpu_torch.ops import _build
+    from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import gn_small as gs
+    from lio_slam_tpu_torch.ops import voxel_grid as vg
+    from lio_slam_tpu_torch.utils import smallmat
+
+    grid, scan, mask, pose, _ = kernel_scene(dev)
+    kw = dict(nn_radius=1.0, plane_dist_thresh=0.2, robust_weight_floor=0.1)
+    half = mask.clone()
+    half[N_SCAN // 2:] = False
+    empty = vg.empty_grid(1.0, TABLE, CAP, device=dev)
+    systems = {name: fc.fused_normal_equations(g, scan, m, pose, **kw)[:2]
+               for name, g, m in (("scan", grid, mask),
+                                  ("half-masked", grid, half),
+                                  ("empty-map", empty, mask))}
+    A, b = systems["scan"]
+    unobserved = A.clone()
+    unobserved[5, :] = 0.0
+    unobserved[:, 5] = 0.0
+    systems["unobserved-direction"] = (unobserved, b)
+
+    def plain(A, b, first):
+        dx = smallmat.cholesky_solve(A, b, eps=gs.EPS)
+        return (dx, *smallmat.eigh_jacobi(A)) if first else (dx,)
+
+    for name, (A_, b_) in systems.items():
+        ref = plain(A_, b_, True)
+        got = (gs.solve(A_, b_), *gs.solve_eigh(A_, b_))
+        same = [torch.equal(x.view(torch.int32), y.view(torch.int32))
+                for x, y in zip(got, (ref[0], *ref))]
+        print(f"gn_small {name}: solve, solve_eigh (dx, eigenvalues, "
+              f"eigenvectors) word for word with smallmat {same}; "
+              f"eigenvalues {[f'{x:.4g}' for x in got[2].tolist()]}",
+              flush=True)
+        if not all(same):
+            fail(f"gn_small on the {name} system parts from smallmat {same}")
+
+    lib = _build.load_fused_corr()
+    out = torch.empty(gs.OUT_WORDS[True], dtype=torch.float32, device=dev)
+
+    def raw(eigh):
+        """A bare launch on the current stream: eigh True / False, or the
+        floor (None)."""
+        def launch():
+            s = torch.cuda.current_stream().cuda_stream
+            if eigh is None:
+                err = lib.lio_gn_small_floor(A.data_ptr(), b.data_ptr(),
+                                             out.data_ptr(), s)
+            else:
+                err = lib.lio_gn_small(A.data_ptr(), b.data_ptr(), int(eigh),
+                                       out.data_ptr(), s)
+            if err != 0:
+                fail(f"a gn_small launch was refused: cudaError_t {err}")
+        return launch
+
+    res = {"max_abs_err": 0.0, "bound_by": "latency"}
+    for key, eigh, name in (("", True, "gn_small<true>"),
+                            ("solve_", False, "gn_small<false>"),
+                            ("floor_", None, "gn_small_floor")):
+        res[f"{key}ms"] = named_kernel_ms(raw(eigh), name, reps=50)
+        res[f"{key}graph_ms"] = launch_graph_ms(raw(eigh))
+    res["call_ms"] = call_ms(lambda: gs.solve_eigh(A, b))
+    res["solve_call_ms"] = call_ms(lambda: gs.solve(A, b))
+    res["bound_ms"], res["solve_bound_ms"] = gn_chain_ms(True), gn_chain_ms(False)
+    for key, first in (("", True), ("solve_", False)):
+        _, busy, n_dev, _ = profiled_once(lambda: plain(A, b, first))
+        res[f"plain_{key}ms"] = busy
+        res[f"plain_{key}ops"] = n_dev
+        res[f"plain_{key}call_ms"] = call_ms(lambda: plain(A, b, first),
+                                             reps=3, runs=3, warmup=1)
+        res[f"plain_{key}graph_ms"] = graph_ms(lambda: plain(A, b, first))
+    print(f"gn_small ({SMI}), device ms a launch (torch.profiler): first "
+          f"pass {res['ms']:.5f}, solve {res['solve_ms']:.5f}, floor "
+          f"{res['floor_ms']:.5f}; in a CUDA graph {res['graph_ms']:.5f} / "
+          f"{res['solve_graph_ms']:.5f} / {res['floor_graph_ms']:.5f}; a "
+          f"call through the wrapper {res['call_ms']:.5f} / "
+          f"{res['solve_call_ms']:.5f}; latency bound {res['bound_ms']:.5f} "
+          f"/ {res['solve_bound_ms']:.5f} (time over it "
+          f"{res['ms'] / res['bound_ms']:.2f} / "
+          f"{res['solve_ms'] / res['solve_bound_ms']:.2f})", flush=True)
+    print(f"gn_small's plain version (smallmat as torch ops) on the card: "
+          f"first pass {res['plain_call_ms']:.3f} ms a call, device "
+          f"{res['plain_ms']:.3f} ms in {res['plain_ops']} operations, "
+          f"{res['plain_graph_ms']:.3f} ms as a graph; solve "
+          f"{res['plain_solve_call_ms']:.3f} ms, device "
+          f"{res['plain_solve_ms']:.3f} ms in {res['plain_solve_ops']}, "
+          f"{res['plain_solve_graph_ms']:.3f} ms as a graph", flush=True)
+    return res
+
+
 def mission_phase(dev, profile_dir):
     import numpy as np
     import torch
@@ -745,7 +927,7 @@ def mission_phase(dev, profile_dir):
     scans, imus = sm.synthetic_inputs(seq, cfg)
     runner = Runner(cfg, device=dev)
 
-    fc.KERNEL_LAUNCHES = 0
+    zero_launches()
     results, stamps = [], []
     t0 = time.perf_counter()
     for i in range(len(scans)):
@@ -754,6 +936,8 @@ def mission_phase(dev, profile_dir):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = fc.KERNEL_LAUNCHES
+    gn_launches("mission", launches,
+                sum(r.registration_iters > 0 for r in results))
 
     poses = np.stack([r.pose for r in results])
     if not np.isfinite(poses).all():
@@ -1144,7 +1328,7 @@ def loop_mission_phase(profile_dir=None):
 
     runner.full_correct, runner.detector = timed_correct, timed_detector
 
-    fc.KERNEL_LAUNCHES = 0
+    zero_launches()
     results, loops, gps = [], [], []
     t0 = time.perf_counter()
     for i in range(len(scans)):
@@ -1155,6 +1339,7 @@ def loop_mission_phase(profile_dir=None):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = fc.KERNEL_LAUNCHES
+    gn_launches("loop", launches)
     vg.build_grid = build_grid
     runner.full_correct, runner.detector = full_correct, detector
 
@@ -1416,9 +1601,10 @@ def products_phase(runner, cfg, seq, fixture, reg_iters, tmp):
         cloud = pc.Cloud(xyz=torch.from_numpy(seq.scans[i]).to(dev),
                          mask=torch.from_numpy(seq.scan_masks[i]).to(dev))
         n_reg = len(reg_iters)
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         r, ms = synced_ms(lambda: reloc(runner.state, cloud))
         n_launch = fc.KERNEL_LAUNCHES
+        gn_launches("relocalization", n_launch)
         iters = sum(it for _, it in reg_iters[n_reg:])
         launches += n_launch
         pose = r.pose.cpu().numpy()
@@ -1525,7 +1711,7 @@ def archive_mission_phase(profile_dir=None):
                                tagged("archive", attempts)),
                    run_wrapped(runner, "save_checkpoint", tagged("save", saves))]
 
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         t0 = time.perf_counter()
         for i in range(len(scans)):
             runner.process_scan(scans[i], imu=imus[i], gps_fixes=fixes[i])
@@ -1533,6 +1719,7 @@ def archive_mission_phase(profile_dir=None):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = fc.KERNEL_LAUNCHES
+        gn_launches("archive", launches)
         h = runner.health()
         runner.close()           # the last auto-checkpoint; the log is whole
         for undo in restore[1:]:
@@ -1670,11 +1857,13 @@ def resume_phase(dev):
             if i == at:
                 _, save_ms = synced_ms(lambda: whole.save_checkpoint(path))
             ref.append(whole.process_scan(scans[i], imu=imus[i]))
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         resumed, load_ms = synced_ms(lambda: Runner.resume(path, cfg, device=dev))
         out = [resumed.process_scan(scans[i], imu=imus[i])
                for i in range(at, len(scans))]
         launches = fc.KERNEL_LAUNCHES
+        gn_launches("resume", launches,
+                    sum(r.registration_iters > 0 for r in out))
         size = os.path.getsize(path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1733,13 +1922,13 @@ def write_bag(path, kwargs, fixture, key):
     return truth, seconds
 
 
-def replay_on_card(runner, path, topics, capture_at):
+def replay_on_card(runner, path, topics, capture_at, label):
     """`replay_bag(runner, path, BagTopics(**topics), use_native=True)` with
     host timers around the cloud decode, the feed's IMU windowing and
     `process_scan`, and the arguments of kernel launch number `capture_at`
-    cloned for the kernel check.  Returns (results, loop and GPS factor
-    counts after each scan, seconds, the LiveFeed, timers, captured
-    arguments, launches)."""
+    cloned for the kernel check; gn_small's launches go to `GN_PATHS[label]`.
+    Returns (results, loop and GPS factor counts after each scan, seconds,
+    the LiveFeed, timers, captured arguments, launches)."""
     import torch
 
     from lio_slam_tpu_torch.io import bag_replay
@@ -1765,7 +1954,7 @@ def replay_on_card(runner, path, topics, capture_at):
                            capturing(capture_at, captured))]
     results, loops, gps = [], [], []
     try:
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         t0 = time.perf_counter()
         for r in bag_replay.replay_bag(runner, path,
                                        bag_replay.BagTopics(**topics),
@@ -1776,6 +1965,10 @@ def replay_on_card(runner, path, topics, capture_at):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = fc.KERNEL_LAUNCHES
+        # a config without loop closure registers only its scans
+        gn_launches(label, launches,
+                    sum(r.registration_iters > 0 for r in results)
+                    if not runner.cfg.loop.enabled else None)
     finally:
         for undo in restore:
             undo()
@@ -1903,7 +2096,7 @@ def bag_mission_phase():
 
         undo = run_wrapped(runner, "detector", counting_detector)
         results, loops, gps, seconds, feed, timers, captured, launches = \
-            replay_on_card(runner, path, sm.BAG_TOPICS, BAG_CAPTURE_AT)
+            replay_on_card(runner, path, sm.BAG_TOPICS, BAG_CAPTURE_AT, "bag")
         undo()
         runner.close()                          # writes the output bag
         read_s = bag_read_seconds(path)
@@ -2005,7 +2198,7 @@ def hostile_bag_phase():
         runner = Runner(sm.hostile_bag_config())
         results, _, gps, seconds, feed, timers, captured, launches = \
             replay_on_card(runner, path, sm.HOSTILE_TOPICS,
-                           HOSTILE_CAPTURE_AT)
+                           HOSTILE_CAPTURE_AT, "hostile_bag")
         read_s = bag_read_seconds(path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2130,7 +2323,7 @@ def corner_mission_phase(mode):
                                capturing(capture_at, captured)))
     results, stamps = [], []
     try:
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         t0 = time.perf_counter()
         for i in range(20):
             results.append(runner.process_scan(scans[i], imu=imus[i]))
@@ -2149,6 +2342,8 @@ def corner_mission_phase(mode):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = fc.KERNEL_LAUNCHES
+        gn_launches("corner" if mode == "incremental" else "rebuild", launches,
+                    sum(r.registration_iters > 0 for r in results))
     finally:
         for undo in restore:
             undo()
@@ -2369,12 +2564,13 @@ def hard_replay_phase():
     restore += gn_tracing(hd, traces)
     try:
         state, fes = hd.init()
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         t0 = time.perf_counter()
         state, fes, outs = hd.run(state, fes, scans)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = fc.KERNEL_LAUNCHES
+        gn_launches("hard_replay", launches)
     finally:
         for undo in restore:
             undo()
@@ -2642,10 +2838,11 @@ def deskew_phase():
         hd = replay.HostDrivenReplay(cfg, loop_every=0)
         scans = hd.split(sm.replay_batch(seq, windows, ptimes))
         state, fes = hd.init()
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         _, _, outs = hd.run(state, fes, scans)
         torch.cuda.synchronize()
         launches += fc.KERNEL_LAUNCHES
+        gn_launches("deskew", fc.KERNEL_LAUNCHES, int((outs.iters > 0).sum()))
         iters += int(outs.iters.sum())
         ates.append(synthetic.ate_rmse(outs.poses.cpu().numpy(),
                                        sm.relative_truth(seq)))
@@ -2797,6 +2994,7 @@ def sharded_rank_work(backend, device_type):
     from lio_slam_tpu_torch.graph import sparse as gsparse
     from lio_slam_tpu_torch.io import synthetic
     from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import gn_small as gs
     from lio_slam_tpu_torch.ops import registration as reg
     from lio_slam_tpu_torch.parallel import mesh as mesh_mod
     from lio_slam_tpu_torch.parallel import multislice as ms
@@ -2899,7 +3097,7 @@ def sharded_rank_work(backend, device_type):
     scans, imus = sm.synthetic_inputs(seq, cfg)
     part_done("single-device references (rank 0) and the mission's inputs")
     runner = Runner(cfg, device=dev, mesh=mesh)
-    fc.KERNEL_LAUNCHES = 0
+    zero_launches()
     results, stamps = [], []
     for i in range(sm.SHARDED_SCANS):
         results.append(runner.process_scan(scans[i], imu=imus[i]))
@@ -2932,6 +3130,7 @@ def sharded_rank_work(backend, device_type):
     correction_ms = 1e3 * runner.timer.last().get("full_correction", 0.0)
     tail = i - sm.SHARDED_SCANS
     launches = fc.KERNEL_LAUNCHES
+    gn = (gs.KERNEL_LAUNCHES, gs.EIGH_LAUNCHES)
     part_done("mission")
     rows = mesh_mod.all_gather(runner.state.map_grid.counts.sum().to(
         torch.int64), mesh).cpu().numpy()
@@ -2963,7 +3162,7 @@ def sharded_rank_work(backend, device_type):
         "keyframes_before": n_kf, "keyframes": int(runner.state.store.count),
         "accepted": bool(accepted),
         "correction_scans": list(runner.full_correction_scans),
-        "launches": launches, "rows": rows, "checksums": sums,
+        "launches": launches, "gn": gn, "rows": rows, "checksums": sums,
         "scans_per_s": (sm.SHARDED_SCANS - 5) / (stamps[-1] - stamps[4]),
         "tail": tail, "profiled_scans": n_prof,
         "mapping_host_ms": per("mapping_step", "cpu_time_total"),
@@ -2981,7 +3180,7 @@ def sharded_rank_work(backend, device_type):
     # (a)'s graphs, the multislice register on (b)'s scene, the staged
     # reduction against one over the whole group; none launches a kernel
     gmesh = pdist.global_mesh(devices_per_slice=1, device_type=device_type)
-    fc.KERNEL_LAUNCHES = 0
+    zero_launches()
     ms_solve = ms.make_multislice_solver(gmesh)
     ms_got0 = ms_solve(g0, g0.pose_mask, iterations=2).poses
     ms_got, ms_solver_ms = synced_ms(
@@ -2992,13 +3191,16 @@ def sharded_rank_work(backend, device_type):
               pdist.replicated(gmesh, np.ones(N_MAP, bool)),
               pdist.replicated(gmesh, init.cpu().numpy()))
     ms_register = ms.make_multislice_register(gmesh, cfg_r)
-    ms_register(*placed)                # warm
+    warm = ms_register(*placed)
     ms_res, ms_reg_ms = synced_ms(lambda: ms_register(*placed))
     prof = profile(activities=activities)
     prof.start()
-    ms_register(*placed)
+    profiled = ms_register(*placed)
     sync()
     prof.stop()
+    # the three registers' GN passes, and gn_small's launches over them
+    gn = (gs.KERNEL_LAUNCHES, gs.EIGH_LAUNCHES)
+    gn_passes = sum(int(r.iterations) for r in (warm, ms_res, profiled))
     psum_rows = [e for e in prof.key_averages()
                  if e.key == "collective:psum"
                  and e.device_type != torch.autograd.DeviceType.CUDA]
@@ -3020,7 +3222,7 @@ def sharded_rank_work(backend, device_type):
         reduce_ms[name] = t / SHARDED_REDUCE_REPS
     d = {"mesh": tuple(gmesh.mesh.shape),
          "shard_rows": int(placed[0].shape[0]),
-         "launches": fc.KERNEL_LAUNCHES,
+         "launches": fc.KERNEL_LAUNCHES, "gn": gn, "gn_passes": gn_passes,
          "solver_ms": ms_solver_ms, "reg_ms": ms_reg_ms,
          "iters": int(ms_res.iterations),
          "psum_calls": psum_rows[0].count if psum_rows else 0,
@@ -3202,6 +3404,8 @@ def check_sharded(res, fixture):
         fail(f"{tag}: the ranks' replicated leaves differ")
     if m["launches"]:
         fail(f"{tag}: the sharded mapping path launched fused_corr")
+    gn_launches(f"sharded_mission_world{D}", int(m["iters"].sum()),
+                int((m["iters"] > 0).sum()), counts=m["gn"])
     d = res["multislice"]
     print(f"{tag} (d): global_mesh {d['mesh']} (\"slice\", \"data\"); "
           f"multislice solver K=2048: chain-only {d['chain_err']:.3e} from "
@@ -3238,6 +3442,8 @@ def check_sharded(res, fixture):
         fail(f"{tag} (d): psum_staged differs from the flat reduction")
     if d["launches"]:
         fail(f"{tag} (d): the multislice paths launched fused_corr")
+    gn_launches(f"multislice_register_world{D}", d["gn_passes"], 3,
+                counts=d["gn"])
 
 
 def sharded_phase():
@@ -3362,6 +3568,7 @@ def graph_ms(fn, reps=20):
     import torch
 
     from lio_slam_tpu_torch.ops import fused_corr as fc
+    from lio_slam_tpu_torch.ops import gn_small as gs
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -3372,9 +3579,11 @@ def graph_ms(fn, reps=20):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     n0 = fc.CAPTURED_LAUNCHES
+    g0 = gs.CAPTURED_LAUNCHES, gs.CAPTURED_EIGH_LAUNCHES
     with torch.cuda.graph(graph, stream=side):
         fn()
     held = fc.CAPTURED_LAUNCHES - n0
+    gn_held = (gs.CAPTURED_LAUNCHES - g0[0], gs.CAPTURED_EIGH_LAUNCHES - g0[1])
     graph.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -3385,6 +3594,8 @@ def graph_ms(fn, reps=20):
     b.record()
     b.synchronize()
     fc.KERNEL_LAUNCHES += held * (reps + 1)
+    gs.KERNEL_LAUNCHES += gn_held[0] * (reps + 1)
+    gs.EIGH_LAUNCHES += gn_held[1] * (reps + 1)
     return a.elapsed_time(b) / reps
 
 
@@ -3591,9 +3802,10 @@ def pipeline_replay_phase():
     try:
         state, fes = run.init()
         t0 = time.perf_counter()
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         state, fes, outs = no_sync(run, state, fes, staged)
         launches = fc.KERNEL_LAUNCHES
+        gn_launches("pipeline_replay", launches)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     finally:
@@ -3857,9 +4069,10 @@ def loop_replay_phase():
     try:
         state, fes = cr.init()
         t0 = time.perf_counter()
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         state, fes, outs = no_sync(cr.run, state, fes, chunks)
         launches = fc.KERNEL_LAUNCHES
+        gn_launches("loop_replay", launches)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     finally:
@@ -4020,7 +4233,8 @@ def layout_kernel_phase(dev):
     return layouts
 
 
-def layout_mission(dev, cfg, scans, imus, carried_from=None, probe=()):
+def layout_mission(dev, cfg, scans, imus, carried_from=None, probe=(),
+                   path=None):
     """(results, kernel launches, steady scans/s over scans 5-39, keyframes,
     probed) of `Runner(cfg)` on the card over the scans; with
     `carried_from` each scan starts from that fixture's IMU front-end
@@ -4047,7 +4261,7 @@ def layout_mission(dev, cfg, scans, imus, carried_from=None, probe=()):
 
     undo = run_wrapped(fc, "fused_ne_from_bucket_ids", probing)
     try:
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         for i in range(len(scans)):
             at[0] = i
             if carried_from is not None:
@@ -4056,6 +4270,9 @@ def layout_mission(dev, cfg, scans, imus, carried_from=None, probe=()):
             stamps.append(time.perf_counter())
         torch.cuda.synchronize()
         launches = fc.KERNEL_LAUNCHES
+        if path is not None:
+            gn_launches(path, launches,
+                        sum(r.registration_iters > 0 for r in results))
     finally:
         undo()
     return (results, launches, (len(scans) - 5) / (stamps[-1] - stamps[4]),
@@ -4181,7 +4398,8 @@ def layout_missions_phase(dev, default_rate):
                if k.startswith(name + "_")}
         cfg = sm.layout_mission_config(halo, cap, srt, ds)
         scans, imus = sm.synthetic_inputs(seq, cfg)
-        results, n_launch, rate, kf, _ = layout_mission(dev, cfg, scans, imus)
+        results, n_launch, rate, kf, _ = layout_mission(
+            dev, cfg, scans, imus, path=f"layout_{name}")
         launches[name] = n_launch
         poses = np.stack([r.pose for r in results])
         iters = np.array([r.registration_iters for r in results])
@@ -4268,9 +4486,10 @@ def layout_replay(label, mission):
     cycles = []
     restore = sync_free(run) + [watched_detector(run, cycles)]
     try:
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         _, _, outs = no_sync(run, *run.init(), staged)
         launches = fc.KERNEL_LAUNCHES
+        gn_launches(f"layout_replay_{mission[0]}", launches)
         torch.cuda.synchronize()
     finally:
         for undo in reversed(restore):
@@ -4360,9 +4579,10 @@ def rebuild_replay_phase():
     cycles = []
     restore = sync_free(run) + [undo_ev, watched_detector(run, cycles)]
     try:
-        fc.KERNEL_LAUNCHES = 0
+        zero_launches()
         state, _, outs = no_sync(run, *run.init(), staged)
         launches = fc.KERNEL_LAUNCHES
+        gn_launches("rebuild_replay", launches)
         torch.cuda.synchronize()
     finally:
         for undo in reversed(restore):
@@ -4484,9 +4704,10 @@ def corner_replay_phase():
         cycles = []
         restore = sync_free(run) + [watched_detector(run, cycles)]
         try:
-            fc.KERNEL_LAUNCHES = 0
+            zero_launches()
             _, _, outs[name] = no_sync(run, *run.init(), staged)
             launches[name] = fc.KERNEL_LAUNCHES
+            gn_launches(f"corner_replay_{name}", launches[name])
             torch.cuda.synchronize()
         finally:
             for undo in reversed(restore):
@@ -4571,6 +4792,7 @@ def main():
     k = phase("phase 2 (kernel)", kernel_phase, dev)
     layouts = phase("phase 20 (a) (the kernel at every gather layout)",
                     layout_kernel_phase, dev)
+    gk = phase("phase 22 (the GN step's kernel)", gn_small_phase, dev)
     launches, default_rate = phase("phases 3-5 (mission, carried, profiled)",
                                    mission_phase, dev, args.profile_dir)
     loop_map, loop_ver, loop_err = phase("phases 6-8 (loop mission, kernel "
@@ -4633,8 +4855,14 @@ def main():
                           "floor_cold_ms": k["floor_cold_ms"],
                           "slots_filled": k["slots_filled"],
                           "slots_read": k["slots_read"],
-                          "max_abs_err": k["max_abs_err"]}, **layouts}}]}),
-        flush=True)
+                          "max_abs_err": k["max_abs_err"]}, **layouts}}, {
+        "name": "gn_small", "route": "cuda",
+        "source": "lio_slam_tpu_torch/ops/csrc/gn_small.cu", "replaces": None,
+        "launches": sum(n for n, _ in GN_PATHS.values()),
+        "eigh_launches": sum(e for _, e in GN_PATHS.values()),
+        **{f"launches_{p}": n for p, (n, _) in GN_PATHS.items()},
+        **{f"eigh_launches_{p}": e for p, (_, e) in GN_PATHS.items()},
+        **gk, "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -1,6 +1,8 @@
 """Build the port's native libraries and bind them through ctypes.
 
-- The CUDA kernel library, compiled with nvcc from `ops/csrc/*.cu`.
+- The CUDA kernel library, compiled with nvcc from `ops/csrc/*.cu`: the
+  fused correspondence pass (`fused_corr.cu`) and the GN step's 6x6
+  linear algebra (`gn_small.cu`).
 - The host runtime (SPSC queues, the PCD fast path, a host voxel
   downsample), compiled with g++ from `io/csrc/liorf_runtime.cpp`; it needs
   no CUDA and builds on any machine with a C++17 compiler.
@@ -22,7 +24,7 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = (_PKG / "csrc" / "fused_corr.cu",)
+_SOURCES = (_PKG / "csrc" / "fused_corr.cu", _PKG / "csrc" / "gn_small.cu")
 _HOST_SOURCES = (_PKG.parent / "io" / "csrc" / "liorf_runtime.cpp",)
 BUILD_DIR = _PKG.parents[1] / "build" / "lio_slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,7 +75,7 @@ def _compile(compiler: str, flags, sources, so: Path) -> tuple:
 
 
 def load_fused_corr() -> ctypes.CDLL:
-    """Return the kernel library, compiling it if this source has no build.
+    """Return the kernel library, compiling it if these sources have no build.
     BUILD_SECONDS and BUILD_LOG describe the compile this call made."""
     global _lib, BUILD_SECONDS, BUILD_LOG
     if _lib is not None:
@@ -81,7 +83,7 @@ def load_fused_corr() -> ctypes.CDLL:
     so = BUILD_DIR / f"liblio_kernels_{_digest(NVCC_FLAGS, _SOURCES)}.so"
     if not so.exists():
         BUILD_SECONDS, BUILD_LOG = _compile(_nvcc(), NVCC_FLAGS, _SOURCES, so)
-    _lib = bind_fused_corr(ctypes.CDLL(str(so)))
+    _lib = bind_gn_small(bind_fused_corr(ctypes.CDLL(str(so))))
     return _lib
 
 
@@ -100,6 +102,18 @@ def bind_fused_corr(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lio_fused_corr_scratch_floats.restype = ci
     lib.lio_fused_corr_block_warps.argtypes = [ci, ci]
     lib.lio_fused_corr_block_warps.restype = ci
+    return lib
+
+
+def bind_gn_small(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the functions of a build of `ops/csrc/gn_small.cu` on `lib`;
+    returns `lib`."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lio_gn_small.argtypes = [vp, vp, ci, vp, vp]   # AtA, Atb, eigh, out,
+    lib.lio_gn_small.restype = ci                      # stream
+    # the launch floor, which chip_smoke.py times: AtA, Atb, out, stream
+    lib.lio_gn_small_floor.argtypes = [vp, vp, vp, vp]
+    lib.lio_gn_small_floor.restype = ci
     return lib
 
 

@@ -14,8 +14,11 @@ stopping rule is the reference's: |Δrot| < 0.05 deg and |Δtrans| < 0.05
 cm, at most 30 iterations, or fewer than 50 correspondences.  With the
 fused kernel enabled (the default) each iteration's surface term is one
 `fused_corr` pass; `corr_refresh_every > 1` holds the bucket ids computed
-at the refresh pose.  The corner term is plain PyTorch (an exact k-NN
-among at most a few thousand map corners) and adds no host read.
+at the refresh pose.  Each iteration's damped 6x6 solve, with the first
+iteration's eigendecomposition, is one `gn_small` launch on the card (the
+`smallmat` functions elsewhere).  The corner term is plain PyTorch (an
+exact k-NN among at most a few thousand map corners) and adds no host
+read.
 """
 
 from __future__ import annotations
@@ -27,10 +30,10 @@ import torch
 
 from lio_slam_tpu_torch.config import RegistrationConfig
 from lio_slam_tpu_torch.ops import fused_corr
+from lio_slam_tpu_torch.ops import gn_small
 from lio_slam_tpu_torch.ops import knn as knn_mod
 from lio_slam_tpu_torch.ops import voxel_grid as vg
 from lio_slam_tpu_torch.utils import se3
-from lio_slam_tpu_torch.utils import smallmat
 from lio_slam_tpu_torch.utils.resident import constant
 
 
@@ -211,10 +214,11 @@ def _normal_equations(scan: torch.Tensor, corr: Correspondences,
     return AtA, Atb
 
 
-def _degeneracy_projection(AtA: torch.Tensor, eig_thresh: float):
-    """matP (:1786-1814): P = V diag(eigval >= thresh) Vᵀ."""
-    eigval, eigvec = smallmat.eigh_jacobi(AtA)
-    keep = (eigval >= eig_thresh).to(AtA.dtype)
+def _degeneracy_projection(eigval: torch.Tensor, eigvec: torch.Tensor,
+                           eig_thresh: float):
+    """matP (:1786-1814): P = V diag(eigval >= thresh) Vᵀ from AtA's
+    eigenpairs (ascending, vectors as columns)."""
+    keep = (eigval >= eig_thresh).to(eigvec.dtype)
     P = (eigvec * keep[None, :]) @ eigvec.T
     return P, torch.any(eigval < eig_thresh)
 
@@ -283,10 +287,15 @@ def _gn_pass(scan, corr_fn, ne_fn, it: int, pose, hh, P, degen,
         AtA, Atb, n_inl, w_sum, wres_sum = ne_fn(pose)
     else:
         AtA, Atb, n_inl, w_sum, wres_sum = _ne_terms(scan, corr_fn(pose), pose)
-    # Levenberg epsilon keeps the solve finite when rank-deficient
-    dx = smallmat.cholesky_solve(AtA, Atb, eps=1e-6)
-    if it == 0:     # eigendecomposition on the first iteration only
-        P, degen = _degeneracy_projection(AtA, cfg.degeneracy_eig_thresh)
+    # the damped solve (its Levenberg epsilon keeps it finite when
+    # rank-deficient) and, on the first iteration only, the
+    # eigendecomposition: one kernel launch on the card
+    if it == 0:
+        dx, eigval, eigvec = gn_small.solve_eigh(AtA, Atb)
+        P, degen = _degeneracy_projection(eigval, eigvec,
+                                          cfg.degeneracy_eig_thresh)
+    else:
+        dx = gn_small.solve(AtA, Atb)
     dx = torch.where(degen, P @ dx, dx)
     enough = n_inl >= min_correspondences
     dx = torch.where(enough, dx, torch.zeros_like(dx))

@@ -43,10 +43,10 @@ Two forms:
   prep+predict+mapping step and (b) front-end correction + TransformFusion
   over the rate train, on static buffers that the graphs update in place;
   nothing is read back inside a scan or between the scans of a chunk.  The
-  kernel launches a graph holds count in `fused_corr.KERNEL_LAUNCHES` at
-  each replay.  Capture happens once per program (at `capture` or the
-  first call); a failed capture raises, and there is no fallback to the
-  host-driven loop.  On the CPU (`device="cpu"`, the tests) the same
+  kernel launches a graph holds count in `fused_corr.KERNEL_LAUNCHES` and
+  `gn_small.KERNEL_LAUNCHES` at each replay.  Capture happens once per
+  program (at `capture` or the first call); a failed capture raises, and
+  there is no fallback to the host-driven loop.  On the CPU (`device="cpu"`, the tests) the same
   resident step runs eagerly.
 
 The loop detector and the full correction run eagerly at the cadence
@@ -278,6 +278,8 @@ class _ScanProgram:
         self.state = self.fes = self.last_pose = self.scan = None
         self.graphs = None
         self.graph_launches = (0, 0)     # fused_corr nodes of (a), (b)
+        # gn_small nodes of (a), (b): (launches, of them with the eigensolve)
+        self.gn_graph_launches = ((0, 0), (0, 0))
         self.capture_seconds = None
         self._scan_span = None           # the open `replay.scan`
 
@@ -337,7 +339,11 @@ class _ScanProgram:
         self.capture_seconds = time.perf_counter() - t0
 
     def _capture(self, batch: ReplayBatch):
-        from lio_slam_tpu_torch.ops import fused_corr
+        from lio_slam_tpu_torch.ops import fused_corr, gn_small
+
+        def gn_captured():
+            return (gn_small.CAPTURED_LAUNCHES,
+                    gn_small.CAPTURED_EIGH_LAUNCHES)
 
         _copy_into(self.scan, ReplayBatch(*(a[0] for a in batch)))
         side = torch.cuda.Stream(self.device)
@@ -351,11 +357,11 @@ class _ScanProgram:
         self.state, self.fes, self.last_pose = held
         torch.cuda.synchronize(self.device)
         graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        n0 = fused_corr.CAPTURED_LAUNCHES
+        n0, g0 = fused_corr.CAPTURED_LAUNCHES, gn_captured()
         try:
             with torch.cuda.graph(graph_a, stream=side):
                 mapped = self._stage_a()
-            n_a = fused_corr.CAPTURED_LAUNCHES - n0
+            n_a, g_a = fused_corr.CAPTURED_LAUNCHES - n0, gn_captured()
             with torch.cuda.graph(graph_b, pool=graph_a.pool(), stream=side):
                 pose, fused = self._stage_b(mapped)
         except Exception as exc:
@@ -363,6 +369,9 @@ class _ScanProgram:
                                f"step as a CUDA graph failed: {exc}") from exc
         torch.cuda.synchronize(self.device)
         self.graph_launches = (n_a, fused_corr.CAPTURED_LAUNCHES - n0 - n_a)
+        g_b = gn_captured()
+        self.gn_graph_launches = (tuple(a - b for a, b in zip(g_a, g0)),
+                                  tuple(a - b for a, b in zip(g_b, g_a)))
         self.graphs = (graph_a, graph_b)
         self._a, self._b = mapped, (pose, fused)
 
@@ -379,10 +388,12 @@ class _ScanProgram:
 
     def _replay(self, k: int):
         """Replay graph `k`; its kernel launches count here."""
-        from lio_slam_tpu_torch.ops import fused_corr
+        from lio_slam_tpu_torch.ops import fused_corr, gn_small
 
         self.graphs[k].replay()
         fused_corr.KERNEL_LAUNCHES += self.graph_launches[k]
+        gn_small.KERNEL_LAUNCHES += self.gn_graph_launches[k][0]
+        gn_small.EIGH_LAUNCHES += self.gn_graph_launches[k][1]
 
     def finish_scan(self, mapped: _ScanMapped, outs: ReplayOut, i: int):
         """Stage (b) of the scan, its outputs written at row `i` of

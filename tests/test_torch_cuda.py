@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import planar_scene, streamed_stage_case, t
+from torch_port_helpers import (GN_SMALL_CASES, assert_same_bits,
+                                gn_small_case, planar_scene,
+                                streamed_stage_case, t)
 from lio_slam_tpu_torch.config import Config, LoopClosureConfig
 from lio_slam_tpu_torch.io import synthetic
 from lio_slam_tpu_torch.ops import fused_corr as fc
+from lio_slam_tpu_torch.ops import gn_small as gn
 from lio_slam_tpu_torch.ops import voxel_grid as vg
 from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
 from lio_slam_tpu_torch.pipeline.runner import Runner
@@ -304,6 +307,84 @@ def test_register_launches_the_kernel_once_a_gn_iteration(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", GN_SMALL_CASES)
+def test_gn_small_matches_smallmat_on_the_card(cuda, case):
+    """The GN step's kernel against `smallmat.cholesky_solve(eps=1e-6)` and
+    `smallmat.eigh_jacobi` run as torch ops on the same CUDA tensors, word
+    for word (a NaN may be any NaN): both instantiations, one launch each;
+    a repeated launch gives the same words."""
+    from lio_slam_tpu_torch.utils import smallmat
+
+    AtA, Atb = (t(x).to(cuda) for x in gn_small_case(case))
+    dx = smallmat.cholesky_solve(AtA, Atb, eps=1e-6)
+    w, V = smallmat.eigh_jacobi(AtA)
+    before = gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES
+    got_dx = gn.solve(AtA, Atb)
+    got = gn.solve_eigh(AtA, Atb)
+    again = gn.solve_eigh(AtA, Atb)
+    torch.cuda.synchronize()
+    assert (gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES) == (before[0] + 3,
+                                                      before[1] + 2)
+    assert_same_bits(got_dx.cpu(), dx.cpu())
+    for a, b, c in zip(got, (dx, w, V), again):
+        assert a.device.type == "cuda"
+        assert_same_bits(a.cpu(), b.cpu())
+        assert_same_bits(c.cpu(), a.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float64", "batched", "Atb_on_the_host"])
+def test_gn_small_refuses_what_the_kernel_does_not_take(cuda, bad):
+    """A CUDA input the kernel does not take raises; nothing launches and
+    the plain version does not run in its place."""
+    AtA, Atb = (t(x).to(cuda) for x in gn_small_case("spd_0"))
+    if bad == "float64":
+        AtA, Atb = AtA.double(), Atb.double()
+    elif bad == "batched":
+        AtA, Atb = AtA[None], Atb[None]
+    else:
+        Atb = Atb.cpu()
+    before = gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES
+    for fn in (gn.solve, gn.solve_eigh):
+        with pytest.raises(ValueError, match="float32"):
+            fn(AtA, Atb)
+    assert (gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_gn_small_in_a_cuda_graph(cuda):
+    """Both launches captured in one CUDA graph (they count as captured,
+    not as launches) and replayed on new inputs copied into the static
+    ones: the same words as eager launches on those inputs."""
+    AtA, Atb = (t(x).to(cuda) for x in gn_small_case("spd_0"))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gn.solve_eigh(AtA, Atb)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    counts = (gn.KERNEL_LAUNCHES, gn.CAPTURED_LAUNCHES,
+              gn.CAPTURED_EIGH_LAUNCHES)
+    with torch.cuda.graph(graph):
+        first = gn.solve_eigh(AtA, Atb)
+        dx = gn.solve(AtA, Atb)
+    assert (gn.KERNEL_LAUNCHES, gn.CAPTURED_LAUNCHES,
+            gn.CAPTURED_EIGH_LAUNCHES) == (counts[0], counts[1] + 2,
+                                           counts[2] + 1)
+    for case in ("gn_plane", "rank_deficient", "spd_1"):
+        A2, b2 = (t(x).to(cuda) for x in gn_small_case(case))
+        AtA.copy_(A2)
+        Atb.copy_(b2)
+        graph.replay()
+        eager = gn.solve_eigh(A2, b2)
+        torch.cuda.synchronize()
+        assert_same_bits(dx.cpu(), eager[0].cpu())
+        for a, b in zip(first, eager):
+            assert_same_bits(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
 def test_loop_mission_on_the_card_is_repeatable(cuda):
     """Loop closure and GPS through `Runner` on the card: launches equal the
     GN iterations of mapping plus verification, and two runs give the same
@@ -327,7 +408,7 @@ def test_loop_mission_on_the_card_is_repeatable(cuda):
     for _ in range(2):
         runner = Runner(cfg, loop_every=6)
         assert runner.device.type == "cuda"
-        fc.KERNEL_LAUNCHES = 0
+        fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = 0
         results, ver = [], 0
         for i in range(20):
             results.append(runner.process_scan(scans[i], imu=imus[i],
@@ -336,6 +417,7 @@ def test_loop_mission_on_the_card_is_repeatable(cuda):
                 ver += sum(runner.last_loop_aux["loop_iters"])
         assert ver > 0 and fc.KERNEL_LAUNCHES \
             == sum(r.registration_iters for r in results) + ver
+        assert gn.KERNEL_LAUNCHES == fc.KERNEL_LAUNCHES
         assert int(runner.state.gps_count) >= 1 and runner.full_correction_scans
         runs.append(np.stack([r.pose for r in results]))
     assert np.isfinite(runs[0]).all()
@@ -405,9 +487,13 @@ def test_runner_goes_through_the_kernel(cuda):
     seq = synthetic.make_sequence(n_scans=6, n_points=4096, seed=0)
     scans, imus = sm.synthetic_inputs(seq, cfg)
     runner = Runner(cfg, device=cuda)
-    fc.KERNEL_LAUNCHES = 0
+    fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = gn.EIGH_LAUNCHES = 0
     results = [runner.process_scan(scans[i], imu=imus[i]) for i in range(6)]
     assert fc.KERNEL_LAUNCHES == sum(r.registration_iters for r in results) > 0
+    # every GN pass takes its step in one launch, the first with the
+    # eigensolve: one a registration that ran
+    assert gn.KERNEL_LAUNCHES == fc.KERNEL_LAUNCHES
+    assert gn.EIGH_LAUNCHES == sum(r.registration_iters > 0 for r in results) > 0
     poses = np.stack([r.pose for r in results])
     assert np.isfinite(poses).all()
     assert np.abs(poses - sm.relative_truth(seq)).max() < 0.05
@@ -787,13 +873,16 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     staged = run.stage(batch)
     state, fes = run.init()
     R = cfg.registration.max_iterations
-    fc.KERNEL_LAUNCHES = 0
+    fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = gn.EIGH_LAUNCHES = 0
     run.capture(state, fes, staged)
     assert run.capture_seconds is not None
     # the warm-up's two eager scans launch the kernel at every GN pass; the
     # capture only records graph (a)'s R launches
     assert fc.KERNEL_LAUNCHES == 2 * R
     assert run.program.graph_launches == (R, 0)
+    # so does the GN step's kernel, the first pass with the eigensolve
+    assert (gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES) == (2 * R, 2)
+    assert run.program.gn_graph_launches == ((R, 1), (0, 0))
 
     def quiet(fn):
         def wrapped(*a, **k):
@@ -807,7 +896,7 @@ def test_graph_replay_matches_the_eager_replay(cuda):
 
     run.detector, run.full_correct = quiet(run.detector), quiet(run.full_correct)
     outs = []
-    fc.KERNEL_LAUNCHES = 0
+    fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = gn.EIGH_LAUNCHES = 0
     for _ in range(2):
         state, fes = run.init()
         torch.cuda.set_sync_debug_mode("error")
@@ -825,6 +914,8 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     # each replay of graph (a) launches the kernel R times; the cadence
     # calls' loop verifications (none here: no candidate) would add theirs
     assert fc.KERNEL_LAUNCHES == 2 * n_scans * R
+    assert (gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES) == (2 * n_scans * R,
+                                                      2 * n_scans)
 
 
 @pytest.mark.cuda

@@ -1,14 +1,17 @@
-"""The CUDA kernel `lio_slam_tpu_torch/ops/csrc/fused_corr.cu` compiled for
-the CPU against `tests/cuda_emulator.h` (g++, C++20) and bound through
-ctypes, so that the CPU tests hold the kernel's own source, its control
-flow and arithmetic, to the plain version.  The source is taken as it is,
-with four mechanical substitutions: the CUDA runtime header for the
-emulator's, the dynamic shared array for the emulator's buffer, the three
-cp.async helpers' bodies for plain copies, and the launch for
-`emu_launch`.  A substitution that no longer matches raises.
+"""The CUDA kernels `lio_slam_tpu_torch/ops/csrc/fused_corr.cu` and
+`gn_small.cu` compiled for the CPU against `tests/cuda_emulator.h` (g++,
+C++20) and bound through ctypes, so that the CPU tests hold the kernels'
+own source, their control flow and arithmetic, to the plain versions.  The
+sources are taken as they are, with mechanical substitutions: the CUDA
+runtime header for the emulator's, and each launch for `emu_launch`; in
+`fused_corr.cu` also the dynamic shared array for the emulator's buffer
+and the three cp.async helpers' bodies for plain copies.  A substitution
+that no longer matches raises.
 
     lib = build(tmp_dir)
     out = fused_ne_emulated(lib, table, hh, scan, mask, pose, counts=None, **kw)
+    gn = build_gn_small(tmp_dir)
+    out = gn_small_emulated(gn, AtA, Atb, eigh=True)
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
                       "fused_corr.cu")
+GN_SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
+                         "gn_small.cu")
 HEADER = os.path.join(ROOT, "tests", "cuda_emulator.h")
 
 
@@ -55,22 +60,36 @@ def emulated_source() -> str:
     return s
 
 
-def build(out_dir) -> ctypes.CDLL:
-    """Compile the emulated kernel into `out_dir` and bind it."""
+def gn_small_source() -> str:
+    """gn_small.cu with the substitutions that make it a CPU program."""
+    s = open(GN_SOURCE).read()
+    s = _sub("#include <cuda_runtime.h>", f'#include "{HEADER}"', s)
+    return _sub(r"([\w<>]+)<<<1, 1, 0, s>>>\(", r"emu_launch(\1, 1, 1, 0, ",
+                s, literal=False)
+
+
+def _compile(out_dir, name: str, source: str) -> ctypes.CDLL:
+    """g++ `source` into `out_dir` as lib<name>.so (no product fused into a
+    sum, as the kernels' --fmad=false) and load it."""
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
         raise RuntimeError("the kernel emulator needs g++ (or $CXX)")
-    src = os.path.join(str(out_dir), "fused_corr_emulated.cpp")
-    so = os.path.join(str(out_dir), "libfused_corr_emulated.so")
+    src = os.path.join(str(out_dir), f"{name}.cpp")
+    so = os.path.join(str(out_dir), f"lib{name}.so")
     with open(src, "w") as f:
-        f.write(emulated_source())
-    proc = subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                           "-pthread", "-w", "-o", so, src],
+        f.write(source)
+    proc = subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off",
+                           "-shared", "-fPIC", "-pthread", "-w", "-o", so, src],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed on the emulated kernel:\n"
                            f"{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(so)
+    return ctypes.CDLL(so)
+
+
+def build(out_dir) -> ctypes.CDLL:
+    """Compile the emulated fused kernel into `out_dir` and bind it."""
+    lib = _compile(out_dir, "fused_corr_emulated", emulated_source())
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.lio_fused_corr, lib.lio_fused_corr_floor):
         fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, vp,
@@ -113,3 +132,29 @@ def fused_ne_emulated(lib, table, hh, scan, mask, pose, nn_radius=1.0,
     if err != 0:
         raise RuntimeError(f"emulated launch refused: {err}")
     return fc._views(out)
+
+
+def build_gn_small(out_dir) -> ctypes.CDLL:
+    """Compile the emulated GN-step kernel into `out_dir` and bind it as
+    `ops/_build.bind_gn_small` binds the card's build."""
+    from lio_slam_tpu_torch.ops import _build
+
+    return _build.bind_gn_small(
+        _compile(out_dir, "gn_small_emulated", gn_small_source()))
+
+
+def gn_small_emulated(lib, AtA, Atb, eigh: bool):
+    """The kernel's results on CPU tensors as the wrapper returns them: dx,
+    and with `eigh` (dx, eigenvalues, eigenvectors as columns)."""
+    from lio_slam_tpu_torch.ops import gn_small as gs
+
+    AtA = AtA.to(torch.float32).contiguous()
+    Atb = Atb.to(torch.float32).contiguous()
+    out = torch.full((gs.OUT_WORDS[eigh],), float("nan"))
+    err = lib.lio_gn_small(AtA.data_ptr(), Atb.data_ptr(), int(eigh),
+                           out.data_ptr(), None)
+    if err != 0:
+        raise RuntimeError(f"emulated launch refused: {err}")
+    if not eigh:
+        return out
+    return out[:6], out[6:12], out[12:].view(6, 6)

@@ -570,3 +570,81 @@ def streamed_stage_case(case, cap, n_points=640, seed=0):
     mask[5::13] = False
     return (t(table), torch.from_numpy(hh), t(scan), torch.from_numpy(mask),
             torch.zeros(6))
+
+
+# the 6x6 systems the GN-step kernel (ops/csrc/gn_small.cu) is held to its
+# plain version on, in tests/test_torch_gn_small_emulated.py and on the card
+GN_SMALL_CASES = ("spd_0", "spd_1", "spd_2", "gn_plane", "rank_deficient",
+                  "collinear", "diagonal", "repeated_diagonal",
+                  "repeated_rotated", "signed_zeros", "zero", "negative_zero",
+                  "nan", "nan_diagonal")
+
+
+def gn_small_case(name):
+    """(AtA (6, 6), Atb (6,)) float32 numpy of case `name`: random SPD
+    systems; a GN system of a ground plane and a wall (`planar_scene`, the
+    fused pass's plain version); a direction no row constrains (a zero row
+    and column) and two equal Jacobian columns; diagonal systems (every
+    rotation takes the |apq| < 1e-30 branch), with equal eigenvalues and
+    with -0 beside +0 (the stable sort's ties); equal eigenvalues of a
+    rotated matrix; the all-zero system of a scan with no inliers, of +0
+    and of -0 words (the damping's sum turns -0 off the diagonal into +0); a
+    NaN off the diagonal and one on it (the clamp hands it on)."""
+    rs = np.random.RandomState(sum(map(ord, name)))
+    b = rs.randn(6).astype(np.float32)
+    if name.startswith("spd_"):
+        J = rs.randn(40, 6) * rs.uniform(0.01, 30.0, 6)
+        return (J.T @ J).astype(np.float32), b
+    if name == "gn_plane":
+        from lio_slam_tpu_torch.ops import fused_corr as fc
+        from lio_slam_tpu_torch.ops import voxel_grid as vg
+
+        map_pts, scan = planar_scene(3, n_map=4096, n_scan=400)
+        grid = vg.build_grid(t(map_pts), torch.ones(len(map_pts), dtype=torch.bool),
+                             1.0, 4096, 24)
+        pose = t(np.array([0.01, -0.02, 0.05, 0.1, -0.05, 0.02], np.float32))
+        AtA, Atb = fc.fused_normal_equations_ref(
+            grid, t(scan), torch.ones(len(scan), dtype=torch.bool), pose)[:2]
+        return AtA.numpy(), Atb.numpy()
+    if name in ("rank_deficient", "collinear"):
+        J = rs.randn(40, 6).astype(np.float32)
+        if name == "rank_deficient":
+            J[:, 1] = 0.0
+        else:
+            J[:, 4] = J[:, 3]
+        return (J.T @ J).astype(np.float32), b
+    if name == "diagonal":
+        return np.diag([40.0, 3.0, 700.0, 0.5, 12.0, 90.0]).astype(np.float32), b
+    if name == "repeated_diagonal":
+        return np.diag([5.0, 2.0, 5.0, 2.0, 7.0, 2.0]).astype(np.float32), b
+    if name == "repeated_rotated":
+        Q, _ = np.linalg.qr(rs.randn(6, 6))
+        A = (Q * [1.0, 1.0, 1.0, 4.0, 4.0, 9.0]) @ Q.T
+        return ((A + A.T) / 2).astype(np.float32), b
+    if name == "signed_zeros":
+        # a rotation's q-row sum turns a -0 on the diagonal into +0 (in torch
+        # as in the kernel), so only the first stays -0 beside the +0s
+        return np.diag([-0.0, 0.0, 3.0, -0.0, 0.0, 1.0]).astype(np.float32), b
+    if name == "zero":
+        return np.zeros((6, 6), np.float32), np.zeros(6, np.float32)
+    if name == "negative_zero":
+        return np.full((6, 6), -0.0, np.float32), np.full(6, -0.0, np.float32)
+    if name in ("nan", "nan_diagonal"):
+        J = rs.randn(40, 6)
+        A = (J.T @ J).astype(np.float32)
+        if name == "nan":
+            A[2, 3] = A[3, 2] = np.nan
+        else:
+            A[5, 5] = np.nan
+        return A, b
+    raise ValueError(name)
+
+
+def assert_same_bits(a: torch.Tensor, b: torch.Tensor):
+    """`a` and `b` hold the same float32 words, but that a NaN may be any
+    NaN (the card's canonical one, the CPU's with its sign and payload)."""
+    assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+    nan = torch.isnan(a)
+    assert torch.equal(nan, torch.isnan(b))
+    ia, ib = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    assert torch.equal(ia[~nan], ib[~nan]), (a, b)

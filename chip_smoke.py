@@ -278,18 +278,34 @@ ms a scan beside those of the sequential form.
    arithmetic), each as a launch inside a CUDA graph, a call through the
    wrapper, the latency bound (the dependent chain at the SM clock, the
    latencies estimated), and the plain version's host ms a call, device ms,
-   device operations and ms as a graph.  Every path above zeroes both
-   kernels' launch counters before its run: gn_small must launch once a
-   GN pass (the fused kernel's launches, or the sharded paths' GN
-   iterations) and with the eigensolve once a registration (exactly, where
-   the run registers only its scans).
+   device operations and ms as a graph.
+23. The keyframe save's window-system kernel (`ops/csrc/window_system.cu`),
+   run right after phase 22, at the main path's shapes (the default
+   preset's K = 2048, B = 2175, G = 520, W = 64; `window_graph`: stores of
+   2048, 1500 and 40 keyframes round the drive's circuit, with loops, stale
+   slots and GPS factors in and out of the window): H and b against the
+   plain version on the same card tensors, blockwise within the tests'
+   bounds (WINDOW_H_RTOL / WINDOW_B_RTOL), a second launch the same bits,
+   H symmetric; on the 1500-keyframe store the device ms a launch, in a
+   CUDA graph and through the wrapper, the bytes bound, and the plain
+   version's host ms a call, device ms and operations.
+Every path above zeroes the kernels' launch counters and a count of the
+keyframe saves (`lio._save_keyframe`'s calls outside a capture) before its
+run: gn_small must launch once a GN pass (the fused kernel's launches, or
+the sharded paths' GN iterations) and with the eigensolve once a
+registration (exactly, where the run registers only its scans);
+window_system twice a keyframe save, a scan replayed as a CUDA graph
+counting as one (the resident step saves on every scan), checked on every
+path and failed on after the last phase.
 Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels: fused_corr (its launches on every path driven, apart; a `layouts`
 object with each instantiation's offsets, cap, times, bound and error) and
 gn_small (its launches and those with the eigensolve on every path, apart,
-and phase 22's times), and last `{"ok": true, "device": {...}}`.  Exits
+and phase 22's times) and window_system (its launches and the keyframe
+saves on every path, apart, and phase 23's gaps and times), and last
+`{"ok": true, "device": {...}}`.  Exits
 non-zero, without that line, if there is no CUDA device or any check
 fails.
 """
@@ -343,6 +359,13 @@ GN_ROTATIONS = 8 * 15
 # gn_small's launches on each path driven, apart: path -> (launches, of them
 # with the eigensolve), each counted over the run that counts fused_corr's
 GN_PATHS = {}
+# window_system's launches on each path driven, apart: path -> (launches,
+# keyframe saves); SAVES[0] counts `lio._save_keyframe`'s calls outside a
+# capture since `zero_launches`, WS_FAULTS each path whose launches are not
+# two a save (the run fails on them after its last phase)
+WS_PATHS = {}
+SAVES = [0]
+WS_FAULTS = []
 # the kernel launch of each bag and corner path whose arguments the kernel
 # check reuses
 BAG_CAPTURE_AT = 200
@@ -481,24 +504,54 @@ def warm_profiler(dev):
             torch.cuda.synchronize()
 
 
+def count_saves():
+    """Wrap `lio._save_keyframe` (once a process) so that each call outside
+    a CUDA graph's capture adds 1 to SAVES[0]: a keyframe save of the
+    Runner's step, or a scan of the resident step run eagerly, which saves
+    on every scan and selects the result."""
+    import torch
+
+    from lio_slam_tpu_torch.pipeline import lio
+
+    save = lio._save_keyframe
+    if getattr(save, "counted", False):
+        return
+
+    def counted(*a, **k):
+        if not (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            SAVES[0] += 1
+        return save(*a, **k)
+    counted.counted = True
+    lio._save_keyframe = counted
+
+
 def zero_launches():
-    """Both kernels' launch counters to 0, just before a path's run."""
+    """The kernels' launch counters and the keyframe saves to 0, just
+    before a path's run."""
     from lio_slam_tpu_torch.ops import fused_corr as fc
     from lio_slam_tpu_torch.ops import gn_small as gs
+    from lio_slam_tpu_torch.ops import window_system as ws
 
+    count_saves()
     fc.KERNEL_LAUNCHES = 0
     gs.KERNEL_LAUNCHES = gs.EIGH_LAUNCHES = 0
+    ws.KERNEL_LAUNCHES = SAVES[0] = 0
 
 
-def gn_launches(path, passes, registrations=None, counts=None):
+def gn_launches(path, passes, registrations=None, counts=None,
+                graph_scans=0, ws_counts=None):
     """Add gn_small's launches since `zero_launches` (or `counts`, a rank's
     (launches, with the eigensolve)) to `GN_PATHS[path]`, and fail unless
     the GN step launched once a GN pass (`passes`: the fused kernel's
     launches over the same run, which the phase holds to the GN iterations,
     or the iterations where no fused kernel runs) and the eigensolve once a
     registration: `registrations` where the run holds none but the scans'
-    own, else at least once where any pass ran and at most once a pass."""
+    own, else at least once where any pass ran and at most once a pass.
+    Then `ws_launches(path, graph_scans, ws_counts)`."""
     from lio_slam_tpu_torch.ops import gn_small as gs
+
+    ws_launches(path, graph_scans, ws_counts)
 
     n, e = counts if counts is not None else (gs.KERNEL_LAUNCHES,
                                               gs.EIGH_LAUNCHES)
@@ -515,6 +568,28 @@ def gn_launches(path, passes, registrations=None, counts=None):
              f"for {passes} GN passes and "
              f"{'its' if registrations is None else registrations} "
              "registrations")
+
+
+def ws_launches(path, graph_scans=0, counts=None):
+    """Add window_system's launches and the keyframe saves since
+    `zero_launches` (or `counts`, a rank's (launches, saves)) to
+    `WS_PATHS[path]`, and note a fault in WS_FAULTS unless the window solve
+    launched twice a save: the eager saves (SAVES) plus `graph_scans`
+    scans replayed as CUDA graphs, whose resident step saves on every
+    scan."""
+    from lio_slam_tpu_torch.ops import window_system as ws
+
+    n, saves = counts if counts is not None else (ws.KERNEL_LAUNCHES,
+                                                  SAVES[0])
+    saves += graph_scans
+    had = WS_PATHS.get(path, (0, 0))
+    WS_PATHS[path] = (had[0] + n, had[1] + saves)
+    print(f"{path}: window_system launches {n} for {saves} keyframe saves"
+          + (f" ({graph_scans} of them scans of CUDA graphs)"
+             if graph_scans else ""), flush=True)
+    if n != 2 * saves:
+        WS_FAULTS.append(f"{path}: window_system launched {n} times for "
+                         f"{saves} keyframe saves")
 
 
 def named_kernel_ms(fn, name_part, reps=20, between=None):
@@ -907,6 +982,187 @@ def gn_small_phase(dev):
           f"{res['plain_solve_call_ms']:.3f} ms, device "
           f"{res['plain_solve_ms']:.3f} ms in {res['plain_solve_ops']}, "
           f"{res['plain_solve_graph_ms']:.3f} ms as a graph", flush=True)
+    return res
+
+
+# ---- phase 23: the keyframe save's window system ----
+
+# the tests' bounds on the kernel against the plain version
+# (tests/torch_port_helpers.py WINDOW_H_RTOL, WINDOW_B_RTOL): every block of
+# H and of b within these shares of its largest entry
+WINDOW_H_RTOL = 5e-5
+WINDOW_B_RTOL = 2e-5
+# phase 23's stores: keyframes held (a full store; a drive's mid-run one;
+# fewer than the window, the prior inside it)
+WINDOW_COUNTS = (2048, 1500, 40)
+WINDOW_LAP = 75           # keyframes a lap of the circuit, 1 m apart
+
+
+def window_graph(dev, count):
+    """(graph, count, W) of the window solve as the default preset holds
+    it (`lio.init_state(Config())`: K = 2048 keyframes, B = K - 1 + 16 x 8
+    between slots, G = 64 x 8 + 8 GPS slots, W = 64) after `count`
+    keyframes laid 1 m apart round a circuit of radius 12 m, the drive's:
+    odometry between consecutive keyframes, loop factors from the newest
+    keyframes back to the same place a lap earlier (one end in the window)
+    and 37 keyframes earlier (both ends in it, from the second lap on),
+    four stale loop slots (mask off) inside the window, GPS factors on
+    every fourth keyframe (two on the newest), the prior on keyframe 0;
+    the preset's information (`window_case` in tests/torch_port_helpers.py),
+    poses the truth plus seeded noise, measurements the truth's plus
+    1e-3."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.config import Config
+    from lio_slam_tpu_torch.graph import factors as F
+    from lio_slam_tpu_torch.utils import se3
+
+    cfg = Config()
+    s = cfg.static
+    K, W = s.max_keyframes, s.window_size
+    B = K - 1 + s.max_loop_queue * 8
+    G = s.max_gps_queue * 8 + s.max_archive_anchors
+    rs = np.random.RandomState(count)
+    k = np.arange(K)
+    yaw = k * (2 * np.pi / WINDOW_LAP)
+    truth = np.zeros((K, 6), np.float32)
+    truth[:, 2] = yaw
+    truth[:, 3] = 12.0 * np.sin(yaw)
+    truth[:, 4] = 12.0 * (1.0 - np.cos(yaw))
+    noise = rs.randn(K, 6) * [0.01, 0.01, 0.01, 0.05, 0.05, 0.05]
+    poses = truth + (noise * (k < count)[:, None]).astype(np.float32)
+    odom = [1e6, 1e6, 1e6, 1e4, 1e4, 1e4]
+    loop = [1e3, 1e3, 1e3, 1e2, 1e2, 1e2]
+    newest = range(count - 1, 0, -1)
+    lap = [(j - WINDOW_LAP, j) for j in newest if j >= WINDOW_LAP][::5][:100]
+    near = [(j - 37, j) for j in newest if j >= WINDOW_LAP][:8:2]
+    pairs = [(i, i + 1, odom) for i in range(count - 1)]
+    pairs += [(i, j, loop) for i, j in lap + near]
+    bt_i, bt_j = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    bt_meas, bt_info = np.zeros((B, 6), np.float32), np.zeros((B, 6), np.float32)
+    bt_mask = np.zeros(B, bool)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    for n, (i, j, info) in enumerate(pairs):
+        slot = n if n < count - 1 else K - 1 + n - (count - 1)
+        bt_i[slot], bt_j[slot] = i, j
+        bt_meas[slot] = se3.pose6_between(t(truth[i]), t(truth[j])).numpy() \
+            + rs.randn(6).astype(np.float32) * 1e-3
+        bt_info[slot] = info
+        bt_mask[slot] = True
+    stale = K - 1 + len(lap) + len(near)
+    for q in range(4):
+        if count > 2:
+            bt_i[stale + q] = max(count - 2 - q, 0)
+            bt_j[stale + q] = count - 1 - q // 2
+            bt_info[stale + q] = odom
+    gps = list(range(count - 1, -1, -4))[:G - s.max_archive_anchors - 1]
+    gps = gps[:1] + gps
+    gps_i, gps_meas = np.zeros(G, np.int32), np.zeros((G, 3), np.float32)
+    gps_info, gps_mask = np.zeros((G, 3), np.float32), np.zeros(G, bool)
+    for n, i in enumerate(gps):
+        gps_i[n] = i
+        gps_meas[n] = truth[i, 3:] + rs.randn(3) * 0.1
+        gps_info[n] = [1.0, 1.0, 0.5]
+        gps_mask[n] = True
+    on = lambda x: t(x).to(dev)
+    graph = F.PoseGraph(
+        poses=on(poses), pose_mask=on(k < count), prior_pose=on(truth[0]),
+        prior_info=on(np.array([100, 100, 0.1, 1e-8, 1e-8, 1e-8],
+                               np.float32)),
+        bt_i=on(bt_i), bt_j=on(bt_j), bt_meas=on(bt_meas),
+        bt_info=on(bt_info), bt_mask=on(bt_mask), gps_i=on(gps_i),
+        gps_meas=on(gps_meas), gps_info=on(gps_info), gps_mask=on(gps_mask))
+    return graph, torch.tensor(count, dtype=torch.int32, device=dev), W
+
+
+def window_gaps(got, ref, W):
+    """(H's, b's) largest blockwise gap of `got` from `ref` as a share of
+    the block's largest entry in `ref`, and whether the zero blocks of H
+    are the same."""
+    import torch
+
+    (Hg, bg), (Hr, br) = got, ref
+    blocks = lambda H: H.reshape(W, 6, W, 6).permute(0, 2, 1, 3)
+    scale = blocks(Hr).abs().amax((2, 3))
+    zeros = torch.equal(blocks(Hg).abs().amax((2, 3)) == 0, scale == 0)
+    gap = blocks(Hg - Hr).abs().amax((2, 3)) / scale.clamp(min=1e-30)
+    bscale = br.reshape(W, 6).abs().amax(1)
+    bgap = (bg - br).reshape(W, 6).abs().amax(1) / bscale.clamp(min=1e-30)
+    return float(gap.max()), float(bgap.max()), zeros
+
+
+def window_system_phase(dev):
+    """Phase 23: the keyframe save's window-system kernel
+    (`ops/csrc/window_system.cu`) at the main path's shapes
+    (`window_graph`, each of WINDOW_COUNTS): H and b against the plain
+    version (`solver.assemble_window_plain`) on the same card tensors,
+    blockwise within WINDOW_H_RTOL / WINDOW_B_RTOL, both printed beside
+    their gaps from the float64 plain version; H symmetric and a second
+    launch the same bits.  Then on the drive's store (1500 keyframes) the
+    device ms a launch, ms a launch inside a CUDA graph, ms a call through
+    the wrapper, the bytes bound, and the plain version's host ms a call,
+    device ms and device operations.  Returns the `kernels` entry's
+    numbers."""
+    import torch
+
+    from lio_slam_tpu_torch.graph import factors as F
+    from lio_slam_tpu_torch.graph import solver
+    from lio_slam_tpu_torch.ops import window_system as ws
+
+    res = {"max_h_gap": 0.0, "max_b_gap": 0.0}
+    for count in WINDOW_COUNTS:
+        graph, c, W = window_graph(dev, count)
+        got = ws.assemble(graph, c, W)
+        again = ws.assemble(graph, c, W)
+        ref = solver.assemble_window_plain(graph, c, W)
+        g64 = F.PoseGraph(*(x.double() if x.is_floating_point() else x
+                            for x in graph))
+        truth = solver.assemble_window_plain(g64, c, W)
+        wide = lambda hb: (hb[0].double(), hb[1].double())
+        h_gap, b_gap, zeros = window_gaps(got, ref, W)
+        k64, p64 = window_gaps(wide(got), truth, W), \
+            window_gaps(wide(ref), truth, W)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        sym = torch.equal(got[0], got[0].T)
+        print(f"window_system, {count} keyframes (K {graph.poses.shape[0]}, "
+              f"W {W}, B {graph.bt_i.shape[0]}, G {graph.gps_i.shape[0]}; "
+              f"{int(graph.bt_mask.sum())} between and "
+              f"{int(graph.gps_mask.sum())} GPS factors): H / b blockwise "
+              f"{h_gap:.3e} / {b_gap:.3e} from the plain version (limits "
+              f"{WINDOW_H_RTOL:g} / {WINDOW_B_RTOL:g}), zero blocks alike "
+              f"{zeros}; from float64: kernel {k64[0]:.3e} / {k64[1]:.3e}, "
+              f"plain {p64[0]:.3e} / {p64[1]:.3e}; a second launch the same "
+              f"bits {same}, H symmetric {sym}", flush=True)
+        if not (h_gap <= WINDOW_H_RTOL and b_gap <= WINDOW_B_RTOL and zeros
+                and same and sym):
+            fail(f"window_system at {count} keyframes parts from the plain "
+                 f"version: H {h_gap:.3e}, b {b_gap:.3e}, zero blocks "
+                 f"{zeros}, repeat {same}, symmetric {sym}")
+        res["max_h_gap"] = max(res["max_h_gap"], h_gap)
+        res["max_b_gap"] = max(res["max_b_gap"], b_gap)
+
+    graph, c, W = window_graph(dev, 1500)
+    B, G = graph.bt_i.shape[0], graph.gps_i.shape[0]
+    launch = lambda: ws.assemble(graph, c, W)
+    plain = lambda: solver.assemble_window_plain(graph, c, W)
+    # the bytes no launch can skip: H and b written, every slot's indices
+    # and mask read once
+    n_bytes = 4 * (36 * W * W + 6 * W) + 9 * B + 5 * G
+    res.update(ms=named_kernel_ms(launch, "window_system", reps=50),
+               graph_ms=launch_graph_ms(launch), call_ms=call_ms(launch),
+               bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S,
+               bound_by="hbm bytes (outputs, one read of the slot lists)")
+    _, res["plain_ms"], res["plain_ops"], _ = profiled_once(plain)
+    res["plain_call_ms"] = call_ms(plain, reps=3, runs=3, warmup=1)
+    print(f"window_system ({SMI}), 1500 keyframes: device ms a launch "
+          f"(torch.profiler) {res['ms']:.5f}, in a CUDA graph "
+          f"{res['graph_ms']:.5f}, a call through the wrapper "
+          f"{res['call_ms']:.5f}; bytes bound {res['bound_ms']:.5f} "
+          f"({n_bytes} bytes); the plain version (jacfwd and scatters) "
+          f"{res['plain_call_ms']:.3f} ms a call, device "
+          f"{res['plain_ms']:.3f} ms in {res['plain_ops']} operations",
+          flush=True)
     return res
 
 
@@ -2996,6 +3252,7 @@ def sharded_rank_work(backend, device_type):
     from lio_slam_tpu_torch.ops import fused_corr as fc
     from lio_slam_tpu_torch.ops import gn_small as gs
     from lio_slam_tpu_torch.ops import registration as reg
+    from lio_slam_tpu_torch.ops import window_system as ws
     from lio_slam_tpu_torch.parallel import mesh as mesh_mod
     from lio_slam_tpu_torch.parallel import multislice as ms
     from lio_slam_tpu_torch.parallel import registration as preg
@@ -3131,6 +3388,7 @@ def sharded_rank_work(backend, device_type):
     tail = i - sm.SHARDED_SCANS
     launches = fc.KERNEL_LAUNCHES
     gn = (gs.KERNEL_LAUNCHES, gs.EIGH_LAUNCHES)
+    ws_counts = (ws.KERNEL_LAUNCHES, SAVES[0])
     part_done("mission")
     rows = mesh_mod.all_gather(runner.state.map_grid.counts.sum().to(
         torch.int64), mesh).cpu().numpy()
@@ -3162,7 +3420,8 @@ def sharded_rank_work(backend, device_type):
         "keyframes_before": n_kf, "keyframes": int(runner.state.store.count),
         "accepted": bool(accepted),
         "correction_scans": list(runner.full_correction_scans),
-        "launches": launches, "gn": gn, "rows": rows, "checksums": sums,
+        "launches": launches, "gn": gn, "ws": ws_counts, "rows": rows,
+        "checksums": sums,
         "scans_per_s": (sm.SHARDED_SCANS - 5) / (stamps[-1] - stamps[4]),
         "tail": tail, "profiled_scans": n_prof,
         "mapping_host_ms": per("mapping_step", "cpu_time_total"),
@@ -3200,6 +3459,7 @@ def sharded_rank_work(backend, device_type):
     prof.stop()
     # the three registers' GN passes, and gn_small's launches over them
     gn = (gs.KERNEL_LAUNCHES, gs.EIGH_LAUNCHES)
+    ws_counts = (ws.KERNEL_LAUNCHES, SAVES[0])
     gn_passes = sum(int(r.iterations) for r in (warm, ms_res, profiled))
     psum_rows = [e for e in prof.key_averages()
                  if e.key == "collective:psum"
@@ -3222,7 +3482,8 @@ def sharded_rank_work(backend, device_type):
         reduce_ms[name] = t / SHARDED_REDUCE_REPS
     d = {"mesh": tuple(gmesh.mesh.shape),
          "shard_rows": int(placed[0].shape[0]),
-         "launches": fc.KERNEL_LAUNCHES, "gn": gn, "gn_passes": gn_passes,
+         "launches": fc.KERNEL_LAUNCHES, "gn": gn, "ws": ws_counts,
+         "gn_passes": gn_passes,
          "solver_ms": ms_solver_ms, "reg_ms": ms_reg_ms,
          "iters": int(ms_res.iterations),
          "psum_calls": psum_rows[0].count if psum_rows else 0,
@@ -3405,7 +3666,8 @@ def check_sharded(res, fixture):
     if m["launches"]:
         fail(f"{tag}: the sharded mapping path launched fused_corr")
     gn_launches(f"sharded_mission_world{D}", int(m["iters"].sum()),
-                int((m["iters"] > 0).sum()), counts=m["gn"])
+                int((m["iters"] > 0).sum()), counts=m["gn"],
+                ws_counts=m["ws"])
     d = res["multislice"]
     print(f"{tag} (d): global_mesh {d['mesh']} (\"slice\", \"data\"); "
           f"multislice solver K=2048: chain-only {d['chain_err']:.3e} from "
@@ -3443,7 +3705,7 @@ def check_sharded(res, fixture):
     if d["launches"]:
         fail(f"{tag} (d): the multislice paths launched fused_corr")
     gn_launches(f"multislice_register_world{D}", d["gn_passes"], 3,
-                counts=d["gn"])
+                counts=d["gn"], ws_counts=d["ws"])
 
 
 def sharded_phase():
@@ -3569,6 +3831,7 @@ def graph_ms(fn, reps=20):
 
     from lio_slam_tpu_torch.ops import fused_corr as fc
     from lio_slam_tpu_torch.ops import gn_small as gs
+    from lio_slam_tpu_torch.ops import window_system as ws
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -3580,10 +3843,12 @@ def graph_ms(fn, reps=20):
     graph = torch.cuda.CUDAGraph()
     n0 = fc.CAPTURED_LAUNCHES
     g0 = gs.CAPTURED_LAUNCHES, gs.CAPTURED_EIGH_LAUNCHES
+    w0 = ws.CAPTURED_LAUNCHES
     with torch.cuda.graph(graph, stream=side):
         fn()
     held = fc.CAPTURED_LAUNCHES - n0
     gn_held = (gs.CAPTURED_LAUNCHES - g0[0], gs.CAPTURED_EIGH_LAUNCHES - g0[1])
+    ws_held = ws.CAPTURED_LAUNCHES - w0
     graph.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -3596,6 +3861,7 @@ def graph_ms(fn, reps=20):
     fc.KERNEL_LAUNCHES += held * (reps + 1)
     gs.KERNEL_LAUNCHES += gn_held[0] * (reps + 1)
     gs.EIGH_LAUNCHES += gn_held[1] * (reps + 1)
+    ws.KERNEL_LAUNCHES += ws_held * (reps + 1)
     return a.elapsed_time(b) / reps
 
 
@@ -3805,7 +4071,8 @@ def pipeline_replay_phase():
         zero_launches()
         state, fes, outs = no_sync(run, state, fes, staged)
         launches = fc.KERNEL_LAUNCHES
-        gn_launches("pipeline_replay", launches)
+        gn_launches("pipeline_replay", launches,
+                    graph_scans=outs.poses.shape[0])
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     finally:
@@ -4072,7 +4339,7 @@ def loop_replay_phase():
         zero_launches()
         state, fes, outs = no_sync(cr.run, state, fes, chunks)
         launches = fc.KERNEL_LAUNCHES
-        gn_launches("loop_replay", launches)
+        gn_launches("loop_replay", launches, graph_scans=outs.poses.shape[0])
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     finally:
@@ -4489,7 +4756,8 @@ def layout_replay(label, mission):
         zero_launches()
         _, _, outs = no_sync(run, *run.init(), staged)
         launches = fc.KERNEL_LAUNCHES
-        gn_launches(f"layout_replay_{mission[0]}", launches)
+        gn_launches(f"layout_replay_{mission[0]}", launches,
+                    graph_scans=outs.poses.shape[0])
         torch.cuda.synchronize()
     finally:
         for undo in reversed(restore):
@@ -4582,7 +4850,8 @@ def rebuild_replay_phase():
         zero_launches()
         state, _, outs = no_sync(run, *run.init(), staged)
         launches = fc.KERNEL_LAUNCHES
-        gn_launches("rebuild_replay", launches)
+        gn_launches("rebuild_replay", launches,
+                    graph_scans=outs.poses.shape[0])
         torch.cuda.synchronize()
     finally:
         for undo in reversed(restore):
@@ -4707,7 +4976,8 @@ def corner_replay_phase():
             zero_launches()
             _, _, outs[name] = no_sync(run, *run.init(), staged)
             launches[name] = fc.KERNEL_LAUNCHES
-            gn_launches(f"corner_replay_{name}", launches[name])
+            gn_launches(f"corner_replay_{name}", launches[name],
+                        graph_scans=outs[name].poses.shape[0])
             torch.cuda.synchronize()
         finally:
             for undo in reversed(restore):
@@ -4793,6 +5063,8 @@ def main():
     layouts = phase("phase 20 (a) (the kernel at every gather layout)",
                     layout_kernel_phase, dev)
     gk = phase("phase 22 (the GN step's kernel)", gn_small_phase, dev)
+    wk = phase("phase 23 (the window system's kernel)", window_system_phase,
+               dev)
     launches, default_rate = phase("phases 3-5 (mission, carried, profiled)",
                                    mission_phase, dev, args.profile_dir)
     loop_map, loop_ver, loop_err = phase("phases 6-8 (loop mission, kernel "
@@ -4820,6 +5092,9 @@ def main():
     rebuild_replay, corner_replay, rebuild_err = phase(
         "phase 21 (resident replays at the rebuild-mode map and the corner "
         "config)", resident_modes_phase)
+    if WS_FAULTS:
+        fail("window_system's launches are not two a keyframe save: "
+             + "; ".join(WS_FAULTS))
     paths = {"mission": launches, "loop_mapping": loop_map,
              "loop_verification": loop_ver, **arch, "resume": resumed,
              "bag_mapping": bag_map, "bag_loop_verification": bag_ver,
@@ -4862,7 +5137,15 @@ def main():
         "eigh_launches": sum(e for _, e in GN_PATHS.values()),
         **{f"launches_{p}": n for p, (n, _) in GN_PATHS.items()},
         **{f"eigh_launches_{p}": e for p, (_, e) in GN_PATHS.items()},
-        **gk, "library_ms": None}]}), flush=True)
+        **gk, "library_ms": None}, {
+        "name": "window_system", "route": "cuda",
+        "source": "lio_slam_tpu_torch/ops/csrc/window_system.cu",
+        "replaces": None,
+        "launches": sum(n for n, _ in WS_PATHS.values()),
+        "saves": sum(v for _, v in WS_PATHS.values()),
+        **{f"launches_{p}": n for p, (n, _) in WS_PATHS.items()},
+        **{f"saves_{p}": v for p, (_, v) in WS_PATHS.items()},
+        **wk, "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -1,15 +1,18 @@
 """Gauss-Newton pose-graph solver (port of `lio_slam_tpu/graph/solver.py`,
 the reference's iSAM2 as mapOptmization.cpp:2082-2134 uses it).
 
-- `solve_window_compact`: the sliding-window solve, twice per keyframe.
+- `solve_window_compact`: the sliding-window solve, twice per keyframe;
+  `assemble_window` makes each iteration's system: one launch of
+  `ops/window_system` on the card, `assemble_window_plain` on the CPU.
 - `solve` / `marginal_covariance`: the dense full-graph solve (x5 after a
   loop or GPS factor, correctPoses :2173-2204) and the pose covariance that
   gates GPS factors (:2128-2133).  They assemble a (K*6)^2 system, so they
   serve capacities up to 512 keyframes; above that `graph/sparse.py` takes
   over (`pipeline/lio._use_sparse_solver`) and these are its yardstick.
 
-Repeated indices are summed with `index_put_(accumulate=True)`, which sorts
-the indices on CUDA, so two runs give the same bits.
+The torch systems (the full graph's, and the window's on the CPU) sum
+repeated indices with `index_put_(accumulate=True)`, which sorts the
+indices on CUDA, so two runs give the same bits.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from lio_slam_tpu_torch.graph import factors as F
+from lio_slam_tpu_torch.ops import window_system
 from lio_slam_tpu_torch.utils import se3
 from lio_slam_tpu_torch.utils.resident import constant
 
@@ -156,6 +160,86 @@ def marginal_covariance(graph: F.PoseGraph, idx: torch.Tensor) -> torch.Tensor:
     return cols[rows, :]
 
 
+def assemble_window(graph: F.PoseGraph, count: torch.Tensor, window: int):
+    """(H (6W, 6W), b (6W,)) of one GN iteration of `solve_window_compact`
+    at `graph.poses`, the window being the last `window` of `count`
+    keyframes; window slots past `count` get an identity diagonal block.
+    The device decides: a graph or count on the card launches
+    `ops/window_system` (which refuses a graph it does not take), a CPU one
+    runs `assemble_window_plain`."""
+    if any(x.is_cuda for x in (*graph, count)):
+        return window_system.assemble(graph, count, window)
+    return assemble_window_plain(graph, count, window)
+
+
+def assemble_window_plain(graph: F.PoseGraph, count: torch.Tensor,
+                          window: int):
+    """`assemble_window` in torch: every factor slot linearized with
+    `F.linearize_*`, its blocks scattered with `index_put_(accumulate=True)`
+    into (W+1)^2 blocks, the slots outside the window into the last one,
+    which is dropped."""
+    W = window
+    g = graph
+    dev = g.poses.device
+    dtype = g.poses.dtype
+    start = torch.clamp(count - W, min=0)
+    g_idx = (start + torch.arange(W, device=dev)).to(torch.int64)
+    slot_ok = g_idx < count
+
+    def local_of(gl):
+        return gl.to(torch.int64) - start
+
+    H = torch.zeros((W + 1, W + 1, 6, 6), dtype=dtype, device=dev)
+    b = torch.zeros((W + 1, 6), dtype=dtype, device=dev)
+
+    e0, J0 = F.linearize_prior(g)
+    l0 = local_of(torch.zeros((), dtype=torch.int64, device=dev))
+    l0 = torch.where((l0 >= 0) & (l0 < W), l0, torch.full_like(l0, W))
+    w0 = g.prior_info
+    l0 = l0.reshape(1)      # a 0-dim index would be read back (`at`)
+    H[l0, l0] += _weighted_block(J0, w0)
+    b[l0] += -J0.T @ (w0 * e0)
+
+    eb, Ji, Jj = F.linearize_between(g)
+    li, lj = local_of(g.bt_i), local_of(g.bt_j)
+    in_i = (li >= 0) & (li < W) & g.bt_mask
+    in_j = (lj >= 0) & (lj < W) & g.bt_mask
+    li = torch.where(in_i, li, torch.full_like(li, W))
+    lj = torch.where(in_j, lj, torch.full_like(lj, W))
+    wb = g.bt_info * g.bt_mask[:, None]
+    wb_i = wb * in_i[:, None]
+    wb_j = wb * in_j[:, None]
+    H.index_put_((li, li), _weighted_block(Ji, wb_i), accumulate=True)
+    H.index_put_((lj, lj), _weighted_block(Jj, wb_j), accumulate=True)
+    Hij = torch.einsum("bri,br,brj->bij", Ji, wb * (in_i & in_j)[:, None], Jj)
+    H.index_put_((li, lj), Hij, accumulate=True)
+    H.index_put_((lj, li), Hij.transpose(-1, -2), accumulate=True)
+    b.index_put_((li,), -torch.einsum("bri,br,br->bi", Ji, wb_i, eb),
+                 accumulate=True)
+    b.index_put_((lj,), -torch.einsum("bri,br,br->bi", Jj, wb_j, eb),
+                 accumulate=True)
+
+    eg, Jg = F.linearize_gps(g)
+    lg = local_of(g.gps_i)
+    in_g = (lg >= 0) & (lg < W) & g.gps_mask
+    lg = torch.where(in_g, lg, torch.full_like(lg, W))
+    wg = g.gps_info * in_g[:, None]
+    H.index_put_((lg, lg), _weighted_block(Jg, wg), accumulate=True)
+    b.index_put_((lg,), -torch.einsum("gri,gr,gr->gi", Jg, wg, eg),
+                 accumulate=True)
+
+    H = H[:W, :W]
+    b = b[:W]
+    act = slot_ok.to(dtype)
+    H = H * act[:, None, None, None] * act[None, :, None, None]
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    H = H + torch.einsum("k,ij->kij", 1.0 - act, eye6)[:, None] * \
+        torch.eye(W, dtype=dtype, device=dev)[:, :, None, None]
+    Hd = H.permute(0, 2, 1, 3).reshape(W * 6, W * 6)
+    bd = (b * act[:, None]).reshape(W * 6)
+    return Hd, bd
+
+
 def solve_window_compact(graph: F.PoseGraph, count: torch.Tensor,
                          window: int, iterations: int = 2) -> F.PoseGraph:
     """Fixed-lag GN over the last `window` keyframes: every factor touching
@@ -168,61 +252,9 @@ def solve_window_compact(graph: F.PoseGraph, count: torch.Tensor,
     slot_ok = g_idx < count
     g_idx_c = torch.clamp(g_idx, max=graph.poses.shape[0] - 1)
 
-    def local_of(gl):
-        return gl.to(torch.int64) - start
-
     g = graph
     for _ in range(iterations):
-        dtype = g.poses.dtype
-        H = torch.zeros((W + 1, W + 1, 6, 6), dtype=dtype, device=dev)
-        b = torch.zeros((W + 1, 6), dtype=dtype, device=dev)
-
-        e0, J0 = F.linearize_prior(g)
-        l0 = local_of(torch.zeros((), dtype=torch.int64, device=dev))
-        l0 = torch.where((l0 >= 0) & (l0 < W), l0, torch.full_like(l0, W))
-        w0 = g.prior_info
-        l0 = l0.reshape(1)      # a 0-dim index would be read back (`at`)
-        H[l0, l0] += _weighted_block(J0, w0)
-        b[l0] += -J0.T @ (w0 * e0)
-
-        eb, Ji, Jj = F.linearize_between(g)
-        li, lj = local_of(g.bt_i), local_of(g.bt_j)
-        in_i = (li >= 0) & (li < W) & g.bt_mask
-        in_j = (lj >= 0) & (lj < W) & g.bt_mask
-        li = torch.where(in_i, li, torch.full_like(li, W))
-        lj = torch.where(in_j, lj, torch.full_like(lj, W))
-        wb = g.bt_info * g.bt_mask[:, None]
-        wb_i = wb * in_i[:, None]
-        wb_j = wb * in_j[:, None]
-        H.index_put_((li, li), _weighted_block(Ji, wb_i), accumulate=True)
-        H.index_put_((lj, lj), _weighted_block(Jj, wb_j), accumulate=True)
-        Hij = torch.einsum("bri,br,brj->bij", Ji, wb * (in_i & in_j)[:, None], Jj)
-        H.index_put_((li, lj), Hij, accumulate=True)
-        H.index_put_((lj, li), Hij.transpose(-1, -2), accumulate=True)
-        b.index_put_((li,), -torch.einsum("bri,br,br->bi", Ji, wb_i, eb),
-                     accumulate=True)
-        b.index_put_((lj,), -torch.einsum("bri,br,br->bi", Jj, wb_j, eb),
-                     accumulate=True)
-
-        eg, Jg = F.linearize_gps(g)
-        lg = local_of(g.gps_i)
-        in_g = (lg >= 0) & (lg < W) & g.gps_mask
-        lg = torch.where(in_g, lg, torch.full_like(lg, W))
-        wg = g.gps_info * in_g[:, None]
-        H.index_put_((lg, lg), _weighted_block(Jg, wg), accumulate=True)
-        b.index_put_((lg,), -torch.einsum("gri,gr,gr->gi", Jg, wg, eg),
-                     accumulate=True)
-
-        H = H[:W, :W]
-        b = b[:W]
-        act = slot_ok.to(dtype)
-        H = H * act[:, None, None, None] * act[None, :, None, None]
-        eye6 = torch.eye(6, dtype=dtype, device=dev)
-        H = H + torch.einsum("k,ij->kij", 1.0 - act, eye6)[:, None] * \
-            torch.eye(W, dtype=dtype, device=dev)[:, :, None, None]
-        Hd = H.permute(0, 2, 1, 3).reshape(W * 6, W * 6)
-        bd = (b * act[:, None]).reshape(W * 6)
-
+        Hd, bd = assemble_window(g, count, W)
         delta = _equilibrated_cholesky_solve(Hd, bd).reshape(W, 6)
         delta = torch.where(slot_ok[:, None], delta, torch.zeros_like(delta))
 

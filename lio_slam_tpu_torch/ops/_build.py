@@ -1,8 +1,9 @@
 """Build the port's native libraries and bind them through ctypes.
 
 - The CUDA kernel library, compiled with nvcc from `ops/csrc/*.cu`: the
-  fused correspondence pass (`fused_corr.cu`) and the GN step's 6x6
-  linear algebra (`gn_small.cu`).
+  fused correspondence pass (`fused_corr.cu`), the GN step's 6x6
+  linear algebra (`gn_small.cu`) and the keyframe save's window system
+  (`window_system.cu`).
 - The host runtime (SPSC queues, the PCD fast path, a host voxel
   downsample), compiled with g++ from `io/csrc/liorf_runtime.cpp`; it needs
   no CUDA and builds on any machine with a C++17 compiler.
@@ -24,7 +25,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = (_PKG / "csrc" / "fused_corr.cu", _PKG / "csrc" / "gn_small.cu")
+_SOURCES = (_PKG / "csrc" / "fused_corr.cu", _PKG / "csrc" / "gn_small.cu",
+            _PKG / "csrc" / "window_system.cu")
 _HOST_SOURCES = (_PKG.parent / "io" / "csrc" / "liorf_runtime.cpp",)
 BUILD_DIR = _PKG.parents[1] / "build" / "lio_slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -83,7 +85,8 @@ def load_fused_corr() -> ctypes.CDLL:
     so = BUILD_DIR / f"liblio_kernels_{_digest(NVCC_FLAGS, _SOURCES)}.so"
     if not so.exists():
         BUILD_SECONDS, BUILD_LOG = _compile(_nvcc(), NVCC_FLAGS, _SOURCES, so)
-    _lib = bind_gn_small(bind_fused_corr(ctypes.CDLL(str(so))))
+    _lib = bind_window_system(
+        bind_gn_small(bind_fused_corr(ctypes.CDLL(str(so)))))
     return _lib
 
 
@@ -114,6 +117,19 @@ def bind_gn_small(lib: ctypes.CDLL) -> ctypes.CDLL:
     # the launch floor, which chip_smoke.py times: AtA, Atb, out, stream
     lib.lio_gn_small_floor.argtypes = [vp, vp, vp, vp]
     lib.lio_gn_small_floor.restype = ci
+    return lib
+
+
+def bind_window_system(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the functions of a build of `ops/csrc/window_system.cu` on
+    `lib`; returns `lib`."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    # poses, K, count, prior_pose, prior_info, bt_i, bt_j, bt_meas, bt_info,
+    # bt_mask, B, gps_i, gps_meas, gps_info, gps_mask, G, W, H, b, stream
+    lib.lio_window_system.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp,
+                                      vp, ci, vp, vp, vp, vp, ci, ci, vp, vp,
+                                      vp]
+    lib.lio_window_system.restype = ci
     return lib
 
 

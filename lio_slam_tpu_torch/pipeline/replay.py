@@ -43,8 +43,9 @@ Two forms:
   prep+predict+mapping step and (b) front-end correction + TransformFusion
   over the rate train, on static buffers that the graphs update in place;
   nothing is read back inside a scan or between the scans of a chunk.  The
-  kernel launches a graph holds count in `fused_corr.KERNEL_LAUNCHES` and
-  `gn_small.KERNEL_LAUNCHES` at each replay.  Capture happens once per
+  kernel launches a graph holds count in `fused_corr.KERNEL_LAUNCHES`,
+  `gn_small.KERNEL_LAUNCHES` and `window_system.KERNEL_LAUNCHES` at each
+  replay.  Capture happens once per
   program (at `capture` or the first call); a failed capture raises, and
   there is no fallback to the host-driven loop.  On the CPU (`device="cpu"`, the tests) the same
   resident step runs eagerly.
@@ -280,6 +281,7 @@ class _ScanProgram:
         self.graph_launches = (0, 0)     # fused_corr nodes of (a), (b)
         # gn_small nodes of (a), (b): (launches, of them with the eigensolve)
         self.gn_graph_launches = ((0, 0), (0, 0))
+        self.ws_graph_launches = (0, 0)  # window_system nodes of (a), (b)
         self.capture_seconds = None
         self._scan_span = None           # the open `replay.scan`
 
@@ -339,7 +341,7 @@ class _ScanProgram:
         self.capture_seconds = time.perf_counter() - t0
 
     def _capture(self, batch: ReplayBatch):
-        from lio_slam_tpu_torch.ops import fused_corr, gn_small
+        from lio_slam_tpu_torch.ops import fused_corr, gn_small, window_system
 
         def gn_captured():
             return (gn_small.CAPTURED_LAUNCHES,
@@ -358,10 +360,12 @@ class _ScanProgram:
         torch.cuda.synchronize(self.device)
         graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         n0, g0 = fused_corr.CAPTURED_LAUNCHES, gn_captured()
+        w0 = window_system.CAPTURED_LAUNCHES
         try:
             with torch.cuda.graph(graph_a, stream=side):
                 mapped = self._stage_a()
             n_a, g_a = fused_corr.CAPTURED_LAUNCHES - n0, gn_captured()
+            w_a = window_system.CAPTURED_LAUNCHES - w0
             with torch.cuda.graph(graph_b, pool=graph_a.pool(), stream=side):
                 pose, fused = self._stage_b(mapped)
         except Exception as exc:
@@ -372,6 +376,8 @@ class _ScanProgram:
         g_b = gn_captured()
         self.gn_graph_launches = (tuple(a - b for a, b in zip(g_a, g0)),
                                   tuple(a - b for a, b in zip(g_b, g_a)))
+        self.ws_graph_launches = (w_a,
+                                  window_system.CAPTURED_LAUNCHES - w0 - w_a)
         self.graphs = (graph_a, graph_b)
         self._a, self._b = mapped, (pose, fused)
 
@@ -388,12 +394,13 @@ class _ScanProgram:
 
     def _replay(self, k: int):
         """Replay graph `k`; its kernel launches count here."""
-        from lio_slam_tpu_torch.ops import fused_corr, gn_small
+        from lio_slam_tpu_torch.ops import fused_corr, gn_small, window_system
 
         self.graphs[k].replay()
         fused_corr.KERNEL_LAUNCHES += self.graph_launches[k]
         gn_small.KERNEL_LAUNCHES += self.gn_graph_launches[k][0]
         gn_small.EIGH_LAUNCHES += self.gn_graph_launches[k][1]
+        window_system.KERNEL_LAUNCHES += self.ws_graph_launches[k]
 
     def finish_scan(self, mapped: _ScanMapped, outs: ReplayOut, i: int):
         """Stage (b) of the scan, its outputs written at row `i` of

@@ -1,10 +1,10 @@
-// A CPU emulator of the CUDA features `lio_slam_tpu_torch/ops/csrc/
-// fused_corr.cu` uses, for the tests (tests/torch_port_cuda_emulator.py
-// compiles the kernel's own source against it with g++): one std::thread a
-// CUDA thread, a block at a time; __syncthreads, __syncwarp and the
-// shuffles are barriers over the threads their mask names (a group of 8
-// lanes or the whole warp); shared memory is static storage; cp.async is a
-// plain copy.  It runs the kernel's control flow and arithmetic, not its
+// A CPU emulator of the CUDA features the kernels of `lio_slam_tpu_torch/
+// ops/csrc/` use, for the tests (tests/torch_port_cuda_emulator.py
+// compiles a kernel's own source against it with g++): one std::thread a
+// CUDA thread, a block at a time; __syncthreads, __syncwarp, the shuffles
+// and the ballot are barriers over the threads their mask names (a group of
+// 8 lanes or the whole warp); shared memory is static storage; cp.async is
+// a plain copy.  It runs the kernel's control flow and arithmetic, not its
 // timing, and finds no race that the barriers hide.
 #pragma once
 #include <math.h>
@@ -20,6 +20,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(x)
 #define __align__(x)
 #define __restrict__
@@ -73,6 +74,17 @@ template <class T> T __shfl_down_sync(unsigned m, T v, int off) {
   const int lane = threadIdx.x & 31;
   return emu_shuffle(m, v, lane + off < 32 ? lane + off : lane);
 }
+inline unsigned __ballot_sync(unsigned m, int pred) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  emu_slots[w][lane] = pred != 0;
+  emu_barrier_for(m)->arrive_and_wait();
+  unsigned out = 0;
+  for (int l = 0; l < 32; ++l)
+    if (emu_slots[w][l]) out |= 1u << l;
+  emu_barrier_for(m)->arrive_and_wait();
+  return out;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __syncwarp(unsigned m = 0xffffffffu) {
   emu_barrier_for(m)->arrive_and_wait();
 }

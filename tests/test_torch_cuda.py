@@ -11,14 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import (GN_SMALL_CASES, assert_same_bits,
+from torch_port_helpers import (GN_SMALL_CASES, WINDOW_CASES,
+                                assert_same_bits, assert_window_close,
                                 gn_small_case, planar_scene,
-                                streamed_stage_case, t)
+                                streamed_stage_case, t, window_case,
+                                window_pose_atol, window_truth)
 from lio_slam_tpu_torch.config import Config, LoopClosureConfig
+from lio_slam_tpu_torch.graph import solver
 from lio_slam_tpu_torch.io import synthetic
 from lio_slam_tpu_torch.ops import fused_corr as fc
 from lio_slam_tpu_torch.ops import gn_small as gn
 from lio_slam_tpu_torch.ops import voxel_grid as vg
+from lio_slam_tpu_torch.ops import window_system as ws
 from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
 from lio_slam_tpu_torch.pipeline.runner import Runner
 
@@ -384,6 +388,84 @@ def test_gn_small_in_a_cuda_graph(cuda):
             assert_same_bits(a.cpu(), b.cpu())
 
 
+def window_graph_on(dev, case):
+    graph, count, W = window_case(case)
+    return (type(graph)(*(x.to(dev) for x in graph)), count.to(dev), W), \
+        (graph, count, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_window_system_matches_the_plain_version_on_the_card(cuda, case):
+    """The window-system kernel against the plain version on the CPU and
+    its float64 form, blockwise (`torch_port_helpers.assert_window_close`);
+    one launch a system, H symmetric bit for bit, a second launch the same
+    bits; then `solve_window_compact` on the card, two launches, its poses
+    within the CPU tests' bounds of the CPU solve's."""
+    on_card, on_cpu = window_graph_on(cuda, case)
+    before = ws.KERNEL_LAUNCHES
+    H, b = ws.assemble(*on_card)
+    again = ws.assemble(*on_card)
+    torch.cuda.synchronize()
+    assert ws.KERNEL_LAUNCHES == before + 2
+    assert H.device.type == "cuda" and H.dtype == torch.float32
+    assert torch.equal(H, again[0]) and torch.equal(b, again[1])
+    assert torch.equal(H, H.T)
+    assert_window_close((H.cpu(), b.cpu()),
+                        solver.assemble_window_plain(*on_cpu),
+                        on_cpu[2], truth=window_truth(case, *on_cpu))
+    got = solver.solve_window_compact(*on_card, iterations=2)
+    ref = solver.solve_window_compact(*on_cpu, iterations=2)
+    assert ws.KERNEL_LAUNCHES == before + 4
+    torch.testing.assert_close(got.poses.cpu(), ref.poses, rtol=0,
+                               atol=window_pose_atol(case, *on_cpu[1:]))
+
+
+@pytest.mark.cuda
+def test_window_system_in_a_cuda_graph(cuda):
+    """Two window-solve iterations captured in one CUDA graph (they count as
+    captured, not as launches) and replayed on other graphs copied into the
+    static leaves: the same words as eager solves on those graphs."""
+    (graph, count, W), _ = window_graph_on(cuda, "loops")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        solver.solve_window_compact(graph, count, W, iterations=2)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    cuda_graph = torch.cuda.CUDAGraph()
+    counts = ws.KERNEL_LAUNCHES, ws.CAPTURED_LAUNCHES
+    with torch.cuda.graph(cuda_graph):
+        out = solver.solve_window_compact(graph, count, W, iterations=2)
+    assert (ws.KERNEL_LAUNCHES, ws.CAPTURED_LAUNCHES) == (counts[0],
+                                                          counts[1] + 2)
+    for case in ("chain", "gps", "loops"):
+        (other, other_count, _), _ = window_graph_on(cuda, case)
+        for dst, src in zip(graph, other):
+            dst.copy_(src)
+        count.copy_(other_count)
+        cuda_graph.replay()
+        eager = solver.solve_window_compact(other, other_count, W,
+                                            iterations=2)
+        torch.cuda.synchronize()
+        assert_same_bits(out.poses.cpu(), eager.poses.cpu())
+
+
+@pytest.mark.cuda
+def test_window_system_refuses_what_the_kernel_does_not_take(cuda):
+    """A CUDA graph with int64 indices, float64 poses, a leaf on the CPU,
+    a float count or a window over MAX_WINDOW raises ValueError."""
+    (graph, count, W), _ = window_graph_on(cuda, "chain")
+    bad = [(graph._replace(bt_i=graph.bt_i.long()), count, W),
+           (graph._replace(poses=graph.poses.double()), count, W),
+           (graph._replace(gps_mask=graph.gps_mask.cpu()), count, W),
+           (graph, count.float(), W),
+           (graph, count, ws.MAX_WINDOW + 1)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            ws.assemble(*args)
+
+
 @pytest.mark.cuda
 def test_loop_mission_on_the_card_is_repeatable(cuda):
     """Loop closure and GPS through `Runner` on the card: launches equal the
@@ -408,7 +490,7 @@ def test_loop_mission_on_the_card_is_repeatable(cuda):
     for _ in range(2):
         runner = Runner(cfg, loop_every=6)
         assert runner.device.type == "cuda"
-        fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = 0
+        fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = ws.KERNEL_LAUNCHES = 0
         results, ver = [], 0
         for i in range(20):
             results.append(runner.process_scan(scans[i], imu=imus[i],
@@ -418,6 +500,7 @@ def test_loop_mission_on_the_card_is_repeatable(cuda):
         assert ver > 0 and fc.KERNEL_LAUNCHES \
             == sum(r.registration_iters for r in results) + ver
         assert gn.KERNEL_LAUNCHES == fc.KERNEL_LAUNCHES
+        assert ws.KERNEL_LAUNCHES == 2 * sum(r.is_keyframe for r in results)
         assert int(runner.state.gps_count) >= 1 and runner.full_correction_scans
         runs.append(np.stack([r.pose for r in results]))
     assert np.isfinite(runs[0]).all()
@@ -488,21 +571,27 @@ def test_runner_goes_through_the_kernel(cuda):
     scans, imus = sm.synthetic_inputs(seq, cfg)
     runner = Runner(cfg, device=cuda)
     fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = gn.EIGH_LAUNCHES = 0
+    ws.KERNEL_LAUNCHES = 0
     results = [runner.process_scan(scans[i], imu=imus[i]) for i in range(6)]
     assert fc.KERNEL_LAUNCHES == sum(r.registration_iters for r in results) > 0
     # every GN pass takes its step in one launch, the first with the
     # eigensolve: one a registration that ran
     assert gn.KERNEL_LAUNCHES == fc.KERNEL_LAUNCHES
     assert gn.EIGH_LAUNCHES == sum(r.registration_iters > 0 for r in results) > 0
+    # the keyframe save's window solve: one launch an iteration, two a save
+    assert ws.KERNEL_LAUNCHES == 2 * sum(r.is_keyframe for r in results) > 0
     poses = np.stack([r.pose for r in results])
     assert np.isfinite(poses).all()
     assert np.abs(poses - sm.relative_truth(seq)).max() < 0.05
 
 
-def circuit_state(dev, n_scans=11):
+def circuit_state(dev, n_scans=11, seed=3):
     """The port's mapping step over a circuit of 2048-point scans on `dev`
-    (five keyframes): a state whose newest keyframe verifies against the
-    world points of all of them."""
+    (five keyframes at seeds 0 and 3): a state whose newest keyframe
+    registers against the world points of all of them.  At seed 3 that
+    registration runs all its GN passes unconverged, on the CPU and on the
+    card; at seed 0 it converges in 3 passes, and in 3 to 5 with every
+    keyframe pose moved by 1e-6 to 1e-5 m (CPU)."""
     from lio_slam_tpu_torch.config import RegistrationConfig, StaticConfig
     from lio_slam_tpu_torch.pipeline import lio
     from lio_slam_tpu_torch.utils import pointcloud as pc
@@ -514,7 +603,7 @@ def circuit_state(dev, n_scans=11):
                                      max_archive_anchors=2),
                  registration=RegistrationConfig(degeneracy_eig_thresh=10.0),
                  loop=LoopClosureConfig(search_num=3))
-    seq = synthetic.make_sequence(n_scans=n_scans, n_points=2048, seed=3,
+    seq = synthetic.make_sequence(n_scans=n_scans, n_points=2048, seed=seed,
                                   speed=2.0, yaw_rate=2 * np.pi / 4.5)
     step = lio.make_lio_step(cfg, device=dev)
     state = lio.init_state(cfg, device=dev)
@@ -552,7 +641,7 @@ def test_archive_verifier_on_the_card(cuda, monkeypatch):
     from lio_slam_tpu_torch.pipeline import archive
     from lio_slam_tpu_torch.pipeline import keyframes as kf
 
-    cfg, _, state = circuit_state(cuda)
+    cfg, _, state = circuit_state(cuda, seed=0)
     n_kf = int(state.store.count)
     assert n_kf == 5
     world = kf.transform_keyframe_clouds(state.store)[:n_kf][state.store.cloud_masks[:n_kf]]
@@ -874,6 +963,7 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     state, fes = run.init()
     R = cfg.registration.max_iterations
     fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = gn.EIGH_LAUNCHES = 0
+    ws.KERNEL_LAUNCHES = 0
     run.capture(state, fes, staged)
     assert run.capture_seconds is not None
     # the warm-up's two eager scans launch the kernel at every GN pass; the
@@ -883,6 +973,9 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     # so does the GN step's kernel, the first pass with the eigensolve
     assert (gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES) == (2 * R, 2)
     assert run.program.gn_graph_launches == ((R, 1), (0, 0))
+    # and the masked keyframe save's window solve, two iterations a scan
+    assert ws.KERNEL_LAUNCHES == 2 * 2
+    assert run.program.ws_graph_launches == (2, 0)
 
     def quiet(fn):
         def wrapped(*a, **k):
@@ -897,6 +990,7 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     run.detector, run.full_correct = quiet(run.detector), quiet(run.full_correct)
     outs = []
     fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = gn.EIGH_LAUNCHES = 0
+    ws.KERNEL_LAUNCHES = 0
     for _ in range(2):
         state, fes = run.init()
         torch.cuda.set_sync_debug_mode("error")
@@ -916,6 +1010,7 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     assert fc.KERNEL_LAUNCHES == 2 * n_scans * R
     assert (gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES) == (2 * n_scans * R,
                                                       2 * n_scans)
+    assert ws.KERNEL_LAUNCHES == 2 * n_scans * 2
 
 
 @pytest.mark.cuda

@@ -32,7 +32,11 @@ T_LOCAL = 512
 N_SCANS = 12
 N_CORRECTION = 8        # scans before the injected loop
 N_RUNNER = 10           # scans before the checkpoint
-DEADLINE_S = 150.0
+# the ranks' deadline from their spawn: alone the D=2 ranks take about 95 s
+# for their six cases (8 CPU cores), and under the tier-1 run's six
+# workers, beside this file's own JAX side and the D=4 ranks, two to three
+# times that, which passed 150 s; the D=4 rank's one case takes 27 s alone
+DEADLINE_S = 480.0
 
 
 def mission_config(m, halo="z", cap=8):

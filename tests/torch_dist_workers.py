@@ -432,9 +432,14 @@ def main():
     with open(os.path.join(a.dir, "cases.pkl"), "rb") as f:
         cases = pickle.load(f)
     out = {}
+    t_start = time.monotonic()
     for name, shape, kwargs in cases:
+        t0 = time.monotonic()
         out[name] = CASES[kwargs.pop("case", name)](make_case_mesh(shape),
                                                    **kwargs)
+        # the log the deadline's error shows: how far the ranks got
+        print(f"case {name}: {time.monotonic() - t0:.1f} s "
+              f"({time.monotonic() - t_start:.1f} s in)", flush=True)
     tmp = os.path.join(a.dir, f"result_{a.rank}.pkl.tmp")
     with open(tmp, "wb") as f:
         pickle.dump(out, f)

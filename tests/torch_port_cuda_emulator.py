@@ -1,17 +1,19 @@
-"""The CUDA kernels `lio_slam_tpu_torch/ops/csrc/fused_corr.cu` and
-`gn_small.cu` compiled for the CPU against `tests/cuda_emulator.h` (g++,
-C++20) and bound through ctypes, so that the CPU tests hold the kernels'
-own source, their control flow and arithmetic, to the plain versions.  The
-sources are taken as they are, with mechanical substitutions: the CUDA
-runtime header for the emulator's, and each launch for `emu_launch`; in
-`fused_corr.cu` also the dynamic shared array for the emulator's buffer
-and the three cp.async helpers' bodies for plain copies.  A substitution
-that no longer matches raises.
+"""The CUDA kernels `lio_slam_tpu_torch/ops/csrc/fused_corr.cu`,
+`gn_small.cu` and `window_system.cu` compiled for the CPU against
+`tests/cuda_emulator.h` (g++, C++20) and bound through ctypes, so that the
+CPU tests hold the kernels' own source, their control flow and arithmetic,
+to the plain versions.  The sources are taken as they are, with mechanical
+substitutions: the CUDA runtime header for the emulator's, and each launch
+for `emu_launch`; in `fused_corr.cu` also the dynamic shared array for the
+emulator's buffer and the three cp.async helpers' bodies for plain copies.
+A substitution that no longer matches raises.
 
     lib = build(tmp_dir)
     out = fused_ne_emulated(lib, table, hh, scan, mask, pose, counts=None, **kw)
     gn = build_gn_small(tmp_dir)
     out = gn_small_emulated(gn, AtA, Atb, eigh=True)
+    ws = build_window_system(tmp_dir)
+    H, b = window_system_emulated(ws, graph, count, window)
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
                       "fused_corr.cu")
 GN_SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
                          "gn_small.cu")
+WS_SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
+                         "window_system.cu")
 HEADER = os.path.join(ROOT, "tests", "cuda_emulator.h")
 
 
@@ -158,3 +162,43 @@ def gn_small_emulated(lib, AtA, Atb, eigh: bool):
     if not eigh:
         return out
     return out[:6], out[6:12], out[12:].view(6, 6)
+
+
+def window_system_source() -> str:
+    """window_system.cu with the substitutions that make it a CPU program."""
+    s = open(WS_SOURCE).read()
+    s = _sub("#include <cuda_runtime.h>", f'#include "{HEADER}"', s)
+    return _sub("window_system<<<W, THREADS, 0, s>>>(",
+                "emu_launch(window_system, W, THREADS, 0, ", s)
+
+
+def build_window_system(out_dir) -> ctypes.CDLL:
+    """Compile the emulated window-system kernel into `out_dir` and bind it
+    as `ops/_build.bind_window_system` binds the card's build."""
+    from lio_slam_tpu_torch.ops import _build
+
+    return _build.bind_window_system(
+        _compile(out_dir, "window_system_emulated", window_system_source()))
+
+
+def window_system_emulated(lib, graph, count, window: int):
+    """The kernel's (H (6W, 6W), b (6W,)) of a CPU `PoseGraph` (the
+    wrapper's dtypes) at `count` keyframes, through the emulated launcher;
+    the outputs start as NaN, so a word the kernel leaves unwritten shows."""
+    from lio_slam_tpu_torch.graph import factors as F
+
+    g = F.PoseGraph(*(x.contiguous() for x in graph))
+    count = torch.as_tensor(count, dtype=torch.int32).reshape(())
+    W = window
+    H = torch.full((6 * W, 6 * W), float("nan"))
+    b = torch.full((6 * W,), float("nan"))
+    err = lib.lio_window_system(
+        g.poses.data_ptr(), g.poses.shape[0], count.data_ptr(),
+        g.prior_pose.data_ptr(), g.prior_info.data_ptr(), g.bt_i.data_ptr(),
+        g.bt_j.data_ptr(), g.bt_meas.data_ptr(), g.bt_info.data_ptr(),
+        g.bt_mask.data_ptr(), g.bt_i.shape[0], g.gps_i.data_ptr(),
+        g.gps_meas.data_ptr(), g.gps_info.data_ptr(), g.gps_mask.data_ptr(),
+        g.gps_i.shape[0], W, H.data_ptr(), b.data_ptr(), None)
+    if err != 0:
+        raise RuntimeError(f"emulated launch refused: {err}")
+    return H, b

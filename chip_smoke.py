@@ -143,10 +143,6 @@
    `HostDrivenReplay` on the card with the point times and with zeros: the
    deskewed ATE under 0.2 m and within 10 % of the reference's, the ATE
    without deskew at least 4.5 times larger; launches of both runs.
-Then both preintegration forms on one front-end window on the card: the
-parallel form held to the sequential one, host and device ms and operator
-calls of each; phases 3-5 also print the IMU front-end's host and device
-ms a scan beside those of the sequential form.
 18. Sharded mission (`lio_slam_tpu_torch/parallel/`), spawned (start
    method `spawn`) twice on cuda:0: world 1 on NCCL and world 2 on gloo
    (NCCL refuses two ranks on one card), each rank a process that joins
@@ -289,14 +285,26 @@ ms a scan beside those of the sequential form.
    H symmetric; on the 1500-keyframe store the device ms a launch, in a
    CUDA graph and through the wrapper, the bytes bound, and the plain
    version's host ms a call, device ms and operations.
+24. The IMU front end's kernels (`ops/csrc/imu_frontend.cu`: the
+   correction, the rate prediction, TransformFusion), run right after
+   phase 23: on the tests' calls (`torch_port_helpers.IMU_CASES`) against
+   the plain front end on the same card tensors and in float64 on the CPU,
+   within the tests' bounds (IMU_*), a second launch the same words; at W =
+   512, on the stream's window (50 valid slots) and on a full one, each
+   kernel's device ms a launch, in a CUDA graph and through the wrapper,
+   its dependent-chain bound, and the plain version's host ms a call,
+   device ms, operations and ms as a graph.
 Every path above zeroes the kernels' launch counters and a count of the
 keyframe saves (`lio._save_keyframe`'s calls outside a capture) before its
 run: gn_small must launch once a GN pass (the fused kernel's launches, or
 the sharded paths' GN iterations) and with the eigensolve once a
 registration (exactly, where the run registers only its scans);
 window_system twice a keyframe save, a scan replayed as a CUDA graph
-counting as one (the resident step saves on every scan), checked on every
-path and failed on after the last phase.
+counting as one (the resident step saves on every scan); the front end's
+correction and prediction kernels once a correction and a prediction
+(`make_frontend`'s calls outside a capture, and one of each a scan
+replayed as CUDA graphs), checked on every path and failed on after the
+last phase.
 Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line describing the
@@ -304,7 +312,9 @@ kernels: fused_corr (its launches on every path driven, apart; a `layouts`
 object with each instantiation's offsets, cap, times, bound and error) and
 gn_small (its launches and those with the eigensolve on every path, apart,
 and phase 22's times) and window_system (its launches and the keyframe
-saves on every path, apart, and phase 23's gaps and times), and last
+saves on every path, apart, and phase 23's gaps and times) and
+imu_frontend (the correction's and the prediction's launches and calls on
+every path, apart, and phase 24's gaps and times), and last
 `{"ok": true, "device": {...}}`.  Exits
 non-zero, without that line, if there is no CUDA device or any check
 fails.
@@ -366,6 +376,14 @@ GN_PATHS = {}
 WS_PATHS = {}
 SAVES = [0]
 WS_FAULTS = []
+# the front end's kernels on each path driven, apart: path -> (correction
+# launches, corrections, prediction launches, predictions); IMU_CALLS counts
+# the corrections and predictions of `make_frontend`'s functions outside a
+# capture since `zero_launches`, IMU_FAULTS each path whose launches are not
+# one a call (the run fails on them after its last phase)
+IMU_PATHS = {}
+IMU_CALLS = {"correct": 0, "predict": 0}
+IMU_FAULTS = []
 # the kernel launch of each bag and corner path whose arguments the kernel
 # check reuses
 BAG_CAPTURE_AT = 200
@@ -381,12 +399,6 @@ HARD_CAPTURE_AT = 100
 # the reference's front-end state carried in at 2, scan 59 a last step
 # 0.04808 cm (reference, stops) against 0.05048 cm (port, goes on) at the
 # 0.05 cm threshold, scan 58 a sixth step that doubles in the reference.
-# the same stages with the sequential preintegration, before the front-end
-# integrated in log depth (this script on an NVIDIA H100 80GB HBM3,
-# 700.00 W): imu_frontend host and device ms a scan, device kernels and
-# copies a scan
-SEQUENTIAL_IMU_FRONTEND_MS = (83.593, 7.155)
-SEQUENTIAL_DEVICE_KERNELS_A_SCAN = 15528
 # RIG_ATE.json's "default" row, hard tier (the JAX package's record)
 RIG_ATE_DEFAULT = (0.0653, 3.86)
 
@@ -526,21 +538,61 @@ def count_saves():
     lio._save_keyframe = counted
 
 
+def count_frontend_calls():
+    """Wrap `imu_frontend.make_frontend` (once a process, before anything
+    makes a front end) so that the correction and the prediction it returns
+    add 1 to IMU_CALLS at each call outside a CUDA graph's capture."""
+    import torch
+
+    from lio_slam_tpu_torch.pipeline import imu_frontend as fe
+
+    make = fe.make_frontend
+    if getattr(make, "counted", False):
+        return
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            if not (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                IMU_CALLS[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    def counted(cfg):
+        correct, predict, fusion = make(cfg)
+        return count("correct", correct), count("predict", predict), fusion
+    counted.counted = True
+    fe.make_frontend = counted
+
+
+def imu_counts():
+    """(correction launches, corrections, prediction launches, predictions)
+    since `zero_launches`."""
+    from lio_slam_tpu_torch.ops import imu_frontend as imu
+
+    return (imu.KERNEL_LAUNCHES["correct"], IMU_CALLS["correct"],
+            imu.KERNEL_LAUNCHES["predict"], IMU_CALLS["predict"])
+
+
 def zero_launches():
-    """The kernels' launch counters and the keyframe saves to 0, just
-    before a path's run."""
+    """The kernels' launch counters, the keyframe saves and the front end's
+    calls to 0, just before a path's run."""
     from lio_slam_tpu_torch.ops import fused_corr as fc
     from lio_slam_tpu_torch.ops import gn_small as gs
+    from lio_slam_tpu_torch.ops import imu_frontend as imu
     from lio_slam_tpu_torch.ops import window_system as ws
 
     count_saves()
     fc.KERNEL_LAUNCHES = 0
     gs.KERNEL_LAUNCHES = gs.EIGH_LAUNCHES = 0
     ws.KERNEL_LAUNCHES = SAVES[0] = 0
+    for k in imu.KERNEL_LAUNCHES:
+        imu.KERNEL_LAUNCHES[k] = 0
+    IMU_CALLS.update(correct=0, predict=0)
 
 
 def gn_launches(path, passes, registrations=None, counts=None,
-                graph_scans=0, ws_counts=None):
+                graph_scans=0, ws_counts=None, imu=None):
     """Add gn_small's launches since `zero_launches` (or `counts`, a rank's
     (launches, with the eigensolve)) to `GN_PATHS[path]`, and fail unless
     the GN step launched once a GN pass (`passes`: the fused kernel's
@@ -548,10 +600,12 @@ def gn_launches(path, passes, registrations=None, counts=None,
     or the iterations where no fused kernel runs) and the eigensolve once a
     registration: `registrations` where the run holds none but the scans'
     own, else at least once where any pass ran and at most once a pass.
-    Then `ws_launches(path, graph_scans, ws_counts)`."""
+    Then `ws_launches(path, graph_scans, ws_counts)` and
+    `imu_launches(path, graph_scans, imu)`."""
     from lio_slam_tpu_torch.ops import gn_small as gs
 
     ws_launches(path, graph_scans, ws_counts)
+    imu_launches(path, graph_scans, imu)
 
     n, e = counts if counts is not None else (gs.KERNEL_LAUNCHES,
                                               gs.EIGH_LAUNCHES)
@@ -590,6 +644,26 @@ def ws_launches(path, graph_scans=0, counts=None):
     if n != 2 * saves:
         WS_FAULTS.append(f"{path}: window_system launched {n} times for "
                          f"{saves} keyframe saves")
+
+
+def imu_launches(path, graph_scans=0, counts=None):
+    """Add the front end's launches and calls since `zero_launches` (or
+    `counts`, a rank's `imu_counts()`) to `IMU_PATHS[path]`, and note a
+    fault in IMU_FAULTS unless the correction's kernel launched once a
+    correction and the prediction's once a prediction: the eager calls plus
+    one of each a scan of the `graph_scans` replayed as CUDA graphs."""
+    c_n, c, p_n, p = counts if counts is not None else imu_counts()
+    c, p = c + graph_scans, p + graph_scans
+    had = IMU_PATHS.get(path, (0, 0, 0, 0))
+    IMU_PATHS[path] = tuple(a + b for a, b in zip(had, (c_n, c, p_n, p)))
+    print(f"{path}: imu_frontend launches: correct {c_n} for {c} "
+          f"corrections, predict {p_n} for {p} predictions"
+          + (f" ({graph_scans} of each in scans of CUDA graphs)"
+             if graph_scans else ""), flush=True)
+    if (c_n, p_n) != (c, p):
+        IMU_FAULTS.append(f"{path}: imu_frontend launched correct {c_n} "
+                          f"times for {c} corrections, predict {p_n} for {p} "
+                          "predictions")
 
 
 def named_kernel_ms(fn, name_part, reps=20, between=None):
@@ -1166,6 +1240,133 @@ def window_system_phase(dev):
     return res
 
 
+# ---- phase 24: the IMU front end's kernels ----
+
+# Their chains, beside GN_SOLVE_CHAIN's latencies (estimated, not measured):
+# a dependent float64 add or multiply and an IEEE float64 division, in SM
+# clock cycles, and a float32 sin, cos, atan2 or asin as some 20 dependent
+# instructions.  A valid sample of the correction: Ahat's 3-term dot and its
+# products into A, then A P and (A P) A^T, 9 dependent adds and multiplies
+# each; of the prediction: a 3x3 product's 3-term dot, then the running
+# sums of v and p.  The correction's tail: Exp, predict, the 15x15
+# products' 15-term dots (F cov, (F cov) F^T, (I - K H) P, its product
+# with (I - K H)^T, K r), the six elimination steps and the six back
+# substitutions, Log and Exp.  TransformFusion: three rotations from rpy,
+# two 3x3 products and three rpy.  Barriers are not counted.
+DFP_CYCLES, DDIV_CYCLES, TRIG_CYCLES = 8, 60, 80
+IMU_SAMPLE_CHAIN = {"correct": (0, 0, 2 * 9 * 2 + 3 * 2 + 2),
+                    "predict": (0, 0, 3 * 2 + 2 * 3)}
+IMU_TAIL_CHAIN = {"correct": (4, 2 * 5 * 15 + 2 * 15, 12, 6),
+                  "predict": (1, 0, 0, 4),
+                  "fusion": (0, 0, 0, 3 * 2 + 3 * 2)}
+
+
+def imu_chain_ms(kernel, n_valid):
+    """The dependent chain of a launch with `n_valid` valid samples at the
+    SM clock (IMU_SAMPLE_CHAIN, IMU_TAIL_CHAIN: roots, float64 adds and
+    multiplies, float64 divisions, sin / cos / atan2 / asin)."""
+    per = IMU_SAMPLE_CHAIN.get(kernel, (0, 0, 0))[2] * FP_CYCLES
+    roots, dfp, ddiv, trig = IMU_TAIL_CHAIN[kernel]
+    cycles = (n_valid * per + roots * SQRT_CYCLES + dfp * DFP_CYCLES
+              + ddiv * DDIV_CYCLES + trig * TRIG_CYCLES
+              + (2 * TRIG_CYCLES + SQRT_CYCLES if kernel != "fusion" else 0))
+    return 1e3 * cycles / SM_CLOCK_HZ
+
+
+def imu_frontend_phase(dev):
+    """Phase 24: the IMU front end's three kernels (`ops/csrc/
+    imu_frontend.cu`) against the plain front end on the tests' calls
+    (`torch_port_helpers.IMU_CASES`) on the card and in float64 on the
+    CPU, within the tests' bounds; then at W = 512, on the stream's window
+    (50 valid slots, `imu_case("conditioned")`) and a full one, each
+    kernel's device ms a launch, in a CUDA graph and through the wrapper,
+    its chain bound (`imu_chain_ms`), and the plain version's host ms a
+    call, device ms, operations and ms as a graph.  Returns the `kernels`
+    entry's numbers."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    threads = torch.get_num_threads()
+    import torch_port_helpers as H
+    torch.set_num_threads(threads)       # the helpers' single thread is theirs
+
+    from lio_slam_tpu_torch.config import ImuConfig
+    from lio_slam_tpu_torch.pipeline import imu_frontend as fe
+
+    cfg = ImuConfig()
+    kernels = fe.make_frontend(cfg)
+    plain = fe.make_frontend_plain(cfg)
+    on = lambda x: ((type(x)(*map(on, x)) if hasattr(x, "_fields")
+                     else tuple(map(on, x))) if isinstance(x, tuple)
+                    else x.to(dev))
+
+    def calls(front, case):
+        correct, predict, fusion = front
+        state, window, pose, degenerate = case
+        train = predict(state, *window)
+        return (*H.imu_state_leaves(correct(state, *window, pose,
+                                            degenerate)),
+                train, fusion(pose, train[0], train))
+
+    gaps = {"state": 0, "pose": 0.0}
+    for name in H.IMU_CASES:
+        case = H.imu_case(name)
+        got, again = calls(kernels, on(case)), calls(kernels, on(case))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"imu_frontend on case {name}: a second launch differs")
+        for ref in (calls(plain, on(case)),
+                    calls(plain, H.imu_case_float64(*case))):
+            try:
+                H.assert_imu_state_close(got[:8], ref[:8])
+            except AssertionError as exc:
+                fail(f"imu_frontend on case {name} parts from the plain "
+                     f"front end: {exc}")
+            pose = max(float((a.cpu().double() - b.cpu().double()).abs().max())
+                       for a, b in zip(got[8:], ref[8:]))
+            gaps["pose"] = max(gaps["pose"], pose)
+            if pose > H.IMU_POSE_ATOL:
+                fail(f"imu_frontend on case {name}: pose trains {pose} from "
+                     "the plain front end's")
+    print(f"imu_frontend: {len(H.IMU_CASES)} cases within the tests' bounds "
+          f"of the plain front end on the card and in float64 (pose trains "
+          f"{gaps['pose']:.3e}, limit {H.IMU_POSE_ATOL}); a second launch the "
+          "same words", flush=True)
+
+    res = {"bound_by": "latency", "max_pose_err": gaps["pose"]}
+    for label, name in (("", "conditioned"), ("full_", "full")):
+        state, window, pose, degenerate = on(H.imu_case(name))
+        n_valid = int(window[3].sum())
+        train = kernels[1](state, *window)
+        for kernel, front in (("correct", 0), ("predict", 1),
+                              ("fusion", 2)):
+            args = ((state, *window, pose, degenerate), (state, *window),
+                    (pose, train[0], train))[front]
+            fn = lambda f=kernels[front], a=args: f(*a)
+            ref = lambda f=plain[front], a=args: f(*a)
+            key = f"{label}{kernel}_"
+            res[f"{key}ms"] = named_kernel_ms(fn, f"imu_{kernel}", reps=50)
+            res[f"{key}graph_ms"] = launch_graph_ms(fn)
+            res[f"{key}call_ms"] = call_ms(fn)
+            res[f"{key}bound_ms"] = imu_chain_ms(kernel, n_valid)
+            _, res[f"{key}plain_ms"], res[f"{key}plain_ops"], _ = \
+                profiled_once(ref)
+            res[f"{key}plain_call_ms"] = call_ms(ref, reps=3, runs=3, warmup=1)
+            res[f"{key}plain_graph_ms"] = graph_ms(ref)
+            print(f"imu_{kernel} ({SMI}), W = {window[0].shape[0]}, "
+                  f"{n_valid} valid: device ms a launch (torch.profiler) "
+                  f"{res[key + 'ms']:.5f}, in a CUDA graph "
+                  f"{res[key + 'graph_ms']:.5f}, a call through the wrapper "
+                  f"{res[key + 'call_ms']:.5f}; chain bound "
+                  f"{res[key + 'bound_ms']:.5f} (time over it "
+                  f"{res[key + 'ms'] / res[key + 'bound_ms']:.2f}); the "
+                  f"plain version {res[key + 'plain_call_ms']:.3f} ms a call, "
+                  f"device {res[key + 'plain_ms']:.4f} ms in "
+                  f"{res[key + 'plain_ops']} operations, "
+                  f"{res[key + 'plain_graph_ms']:.4f} ms as a graph",
+                  flush=True)
+    return res
+
+
 def mission_phase(dev, profile_dir):
     import numpy as np
     import torch
@@ -1231,9 +1432,6 @@ def mission_phase(dev, profile_dir):
         fail("IMU front-end reported a mapping error")
     host = {k: round(v["mean_ms"], 3) for k, v in runner.timer.as_dict().items()}
     print(f"mission stages, host ms/scan (unsynchronized): {json.dumps(host)}",
-          flush=True)
-    print(f"mission: imu_frontend (preintegrate_parallel) {host['imu_frontend']} "
-          f"host ms/scan; sequential: {SEQUENTIAL_IMU_FRONTEND_MS[0]} ({SMI})",
           flush=True)
 
     carried_phase(dev, cfg, scans, imus, fixture)
@@ -1328,12 +1526,10 @@ def profiled_phase(dev, cfg, scans, imus, profile_dir):
           f"stage; host: the range under the profiler): {json.dumps(stages)}",
           flush=True)
     front = stages.get("imu_frontend", {})
-    print(f"profiled: imu_frontend {front.get('device_ms')} device ms/scan, "
-          f"{front.get('host_ms')} host ms/scan under the profiler "
-          f"(sequential: {SEQUENTIAL_IMU_FRONTEND_MS[1]} device ms/scan); "
-          f"{n_dev / 10:.1f} device kernels and copies a scan (sequential: "
-          f"{SEQUENTIAL_DEVICE_KERNELS_A_SCAN}) "
-          f"({SMI})", flush=True)
+    print(f"profiled: imu_frontend {front.get('host_ms')} host ms/scan under "
+          f"the profiler (its kernel, launched through ctypes, is not "
+          f"attributed to the range); {n_dev / 10:.1f} device kernels and "
+          f"copies a scan ({SMI})", flush=True)
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
         with open(os.path.join(profile_dir, "mission_profile.txt"), "w") as f:
@@ -2654,73 +2850,6 @@ def corner_mission_phase(mode):
     return launches, err
 
 
-def operator_calls(fn) -> int:
-    """The aten operator calls `fn()` makes (counted by a torch dispatch
-    mode)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Counting(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
-
-    with Counting() as mode:
-        fn()
-    return mode.n
-
-
-def preintegration_phase(dev):
-    """Both preintegration forms on the card over one front-end window (64
-    samples, 10 valid, 100 Hz): the parallel form held to the sequential
-    one at the tolerances of tests/test_preintegration_parallel.py, host ms
-    a call (the host's clock, unsynchronized, mean of 20), device ms a call
-    (torch.profiler) and operator calls of each."""
-    import numpy as np
-    import torch
-
-    from lio_slam_tpu_torch.ops import preintegration as pre
-
-    rs = np.random.RandomState(0)
-    T, valid = 64, 10
-    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-    args = (f32(rs.randn(T, 3) * 0.5 + [0.0, 0.0, 9.80511]),
-            f32(rs.randn(T, 3) * 0.3), f32(np.full(T, 0.01)),
-            torch.from_numpy(np.arange(T) < valid).to(dev),
-            f32(np.zeros(3)), f32(np.zeros(3)), 1e-2, 1e-3)
-    out, results = {}, {}
-    for name in ("preintegrate", "preintegrate_parallel"):
-        fn = getattr(pre, name)
-        results[name] = fn(*args)
-        ops = operator_calls(lambda: fn(*args))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            fn(*args)
-        host = 1e3 * (time.perf_counter() - t0) / 20
-        torch.cuda.synchronize()
-        out[name] = {"host_ms": round(host, 4),
-                     "device_ms": round(device_ms(lambda: fn(*args), reps=5), 4),
-                     "operator_calls": ops}
-    seq, par = results["preintegrate"], results["preintegrate_parallel"]
-    g = lambda x: x.detach().double().cpu().numpy()
-    limits = {"dR": 2e-5, "dv": 2e-4, "dp": 2e-4, "dt": 1e-6,
-              **{k: 5e-3 for k in ("dR_dbg", "dv_dbg", "dv_dba", "dp_dbg",
-                                   "dp_dba")},
-              "cov": 2e-2 * float(g(seq.cov).__abs__().max()) + 1e-10}
-    diffs = {k: float(np.abs(g(getattr(par, k)) - g(getattr(seq, k))).max())
-             for k in limits}
-    print(f"preintegration on the card ({SMI}; a 64-sample window, 10 valid): "
-          f"{json.dumps(out)}; parallel - sequential, largest difference: "
-          f"{json.dumps({k: float(f'{v:.3e}') for k, v in diffs.items()})}",
-          flush=True)
-    over = [k for k in limits if not diffs[k] <= limits[k]]
-    if over:
-        fail(f"preintegrate_parallel differs from preintegrate on the card in "
-             f"{over}: {[diffs[k] for k in over]}")
-
-
 def profiling_between(prof, first, last):
     """`run_wrapped` wrappers for a replay's `_prep_predict` and
     `transform_fusion` (the first and the last stage of a scan): the
@@ -3261,6 +3390,7 @@ def sharded_rank_work(backend, device_type):
     from lio_slam_tpu_torch.pipeline.runner import Runner
     from lio_slam_tpu_torch.utils import se3
 
+    count_frontend_calls()
     mesh = mesh_mod.make_mesh(world, device_type=device_type)
     dev = mesh_mod.mesh_device(mesh)
     t_start = time.perf_counter()
@@ -3420,7 +3550,8 @@ def sharded_rank_work(backend, device_type):
         "keyframes_before": n_kf, "keyframes": int(runner.state.store.count),
         "accepted": bool(accepted),
         "correction_scans": list(runner.full_correction_scans),
-        "launches": launches, "gn": gn, "ws": ws_counts, "rows": rows,
+        "launches": launches, "gn": gn, "ws": ws_counts,
+        "imu": imu_counts(), "rows": rows,
         "checksums": sums,
         "scans_per_s": (sm.SHARDED_SCANS - 5) / (stamps[-1] - stamps[4]),
         "tail": tail, "profiled_scans": n_prof,
@@ -3483,6 +3614,7 @@ def sharded_rank_work(backend, device_type):
     d = {"mesh": tuple(gmesh.mesh.shape),
          "shard_rows": int(placed[0].shape[0]),
          "launches": fc.KERNEL_LAUNCHES, "gn": gn, "ws": ws_counts,
+         "imu": imu_counts(),
          "gn_passes": gn_passes,
          "solver_ms": ms_solver_ms, "reg_ms": ms_reg_ms,
          "iters": int(ms_res.iterations),
@@ -3667,7 +3799,7 @@ def check_sharded(res, fixture):
         fail(f"{tag}: the sharded mapping path launched fused_corr")
     gn_launches(f"sharded_mission_world{D}", int(m["iters"].sum()),
                 int((m["iters"] > 0).sum()), counts=m["gn"],
-                ws_counts=m["ws"])
+                ws_counts=m["ws"], imu=m["imu"])
     d = res["multislice"]
     print(f"{tag} (d): global_mesh {d['mesh']} (\"slice\", \"data\"); "
           f"multislice solver K=2048: chain-only {d['chain_err']:.3e} from "
@@ -3705,7 +3837,7 @@ def check_sharded(res, fixture):
     if d["launches"]:
         fail(f"{tag} (d): the multislice paths launched fused_corr")
     gn_launches(f"multislice_register_world{D}", d["gn_passes"], 3,
-                counts=d["gn"], ws_counts=d["ws"])
+                counts=d["gn"], ws_counts=d["ws"], imu=d["imu"])
 
 
 def sharded_phase():
@@ -5019,6 +5151,7 @@ def main():
     sys.path.insert(0, ROOT)
     from lio_slam_tpu_torch.ops import _build
 
+    count_frontend_calls()
     global SMI
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5065,6 +5198,8 @@ def main():
     gk = phase("phase 22 (the GN step's kernel)", gn_small_phase, dev)
     wk = phase("phase 23 (the window system's kernel)", window_system_phase,
                dev)
+    ik = phase("phase 24 (the IMU front end's kernels)", imu_frontend_phase,
+               dev)
     launches, default_rate = phase("phases 3-5 (mission, carried, profiled)",
                                    mission_phase, dev, args.profile_dir)
     loop_map, loop_ver, loop_err = phase("phases 6-8 (loop mission, kernel "
@@ -5082,7 +5217,6 @@ def main():
     hard_map, hard_ver, hard_err = phase("phase 16 (hard-tier replay)",
                                          hard_replay_phase)
     deskewed = phase("phase 17 (deskew mission)", deskew_phase)
-    phase("preintegration on the card", preintegration_phase, dev)
     phase("phase 18 (sharded mission)", sharded_phase)
     pipe, pipe_graph, loop_replay, pipe_err = phase(
         "phase 19 (device-resident replay programs)", resident_replay_phase)
@@ -5095,6 +5229,9 @@ def main():
     if WS_FAULTS:
         fail("window_system's launches are not two a keyframe save: "
              + "; ".join(WS_FAULTS))
+    if IMU_FAULTS:
+        fail("imu_frontend's launches are not one a call: "
+             + "; ".join(IMU_FAULTS))
     paths = {"mission": launches, "loop_mapping": loop_map,
              "loop_verification": loop_ver, **arch, "resume": resumed,
              "bag_mapping": bag_map, "bag_loop_verification": bag_ver,
@@ -5145,7 +5282,14 @@ def main():
         "saves": sum(v for _, v in WS_PATHS.values()),
         **{f"launches_{p}": n for p, (n, _) in WS_PATHS.items()},
         **{f"saves_{p}": v for p, (_, v) in WS_PATHS.items()},
-        **wk, "library_ms": None}]}), flush=True)
+        **wk, "library_ms": None}, {
+        "name": "imu_frontend", "route": "cuda",
+        "source": "lio_slam_tpu_torch/ops/csrc/imu_frontend.cu",
+        "replaces": None,
+        **{f"{kind}_{p}": v[i] for p, v in IMU_PATHS.items()
+           for i, kind in enumerate(("correct_launches", "corrections",
+                                     "predict_launches", "predictions"))},
+        **ik, "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

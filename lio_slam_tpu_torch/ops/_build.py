@@ -2,8 +2,8 @@
 
 - The CUDA kernel library, compiled with nvcc from `ops/csrc/*.cu`: the
   fused correspondence pass (`fused_corr.cu`), the GN step's 6x6
-  linear algebra (`gn_small.cu`) and the keyframe save's window system
-  (`window_system.cu`).
+  linear algebra (`gn_small.cu`), the keyframe save's window system
+  (`window_system.cu`) and the IMU front end (`imu_frontend.cu`).
 - The host runtime (SPSC queues, the PCD fast path, a host voxel
   downsample), compiled with g++ from `io/csrc/liorf_runtime.cpp`; it needs
   no CUDA and builds on any machine with a C++17 compiler.
@@ -26,7 +26,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 _SOURCES = (_PKG / "csrc" / "fused_corr.cu", _PKG / "csrc" / "gn_small.cu",
-            _PKG / "csrc" / "window_system.cu")
+            _PKG / "csrc" / "window_system.cu",
+            _PKG / "csrc" / "imu_frontend.cu")
 _HOST_SOURCES = (_PKG.parent / "io" / "csrc" / "liorf_runtime.cpp",)
 BUILD_DIR = _PKG.parents[1] / "build" / "lio_slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -85,8 +86,8 @@ def load_fused_corr() -> ctypes.CDLL:
     so = BUILD_DIR / f"liblio_kernels_{_digest(NVCC_FLAGS, _SOURCES)}.so"
     if not so.exists():
         BUILD_SECONDS, BUILD_LOG = _compile(_nvcc(), NVCC_FLAGS, _SOURCES, so)
-    _lib = bind_window_system(
-        bind_gn_small(bind_fused_corr(ctypes.CDLL(str(so)))))
+    _lib = bind_imu_frontend(bind_window_system(
+        bind_gn_small(bind_fused_corr(ctypes.CDLL(str(so))))))
     return _lib
 
 
@@ -130,6 +131,27 @@ def bind_window_system(lib: ctypes.CDLL) -> ctypes.CDLL:
                                       vp, ci, vp, vp, vp, vp, ci, ci, vp, vp,
                                       vp]
     lib.lio_window_system.restype = ci
+    return lib
+
+
+def bind_imu_frontend(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the functions of a build of `ops/csrc/imu_frontend.cu` on
+    `lib`; returns `lib`."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    cf, cd = ctypes.c_float, ctypes.c_double
+    # R, p, v, bias_gyr, bias_acc, cov, initialized, acc, gyr, dt, mask, W,
+    # pose6, degenerate, gravity, pileup_dt, fallback_dt, acc_noise,
+    # gyr_noise, init_cov, acc_bias_var, gyr_bias_var, out, stream
+    lib.lio_imu_correct.argtypes = [vp] * 11 + [ci, vp, vp] + [cf] * 6 + [
+        cd, cd, vp, vp]
+    lib.lio_imu_correct.restype = ci
+    # R, p, v, bias_gyr, bias_acc, acc, gyr, dt, mask, W, gravity,
+    # pileup_dt, fallback_dt, out, stream
+    lib.lio_imu_predict.argtypes = [vp] * 9 + [ci, cf, cf, cf, vp, vp]
+    lib.lio_imu_predict.restype = ci
+    # lidar, front, back, N, out, stream
+    lib.lio_imu_fusion.argtypes = [vp, vp, vp, ci, vp, vp]
+    lib.lio_imu_fusion.restype = ci
     return lib
 
 

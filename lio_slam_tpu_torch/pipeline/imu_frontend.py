@@ -14,6 +14,13 @@ The JAX `lax.cond`s (initialized?, failure reset) are device selects in
 `correct`: every branch runs and the result is picked on the device, so
 the correction reads nothing back (the device-resident replay captures
 it in a CUDA graph).
+
+`make_frontend` chooses by device, as `solver.assemble_window` and
+`ops/gn_small` do: CPU tensors run the plain versions above
+(`make_frontend_plain`, the tests' oracle), CUDA tensors launch one
+kernel a call (`ops/imu_frontend`), and a CUDA input the kernels do not
+take (not float32, a mask not bool, devices mixed) raises `ValueError`.
+There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from lio_slam_tpu_torch.config import ImuConfig
+from lio_slam_tpu_torch.ops import imu_frontend as kernels
 from lio_slam_tpu_torch.ops import preintegration as pre
 from lio_slam_tpu_torch.utils import se3
 from lio_slam_tpu_torch.utils.resident import constant, select
@@ -73,12 +81,49 @@ def reinitialize(state: ImuFrontendState,
     return _anchored(lidar_pose6, state.bias_gyr, state.bias_acc, False)
 
 
+def pileup_min_dt(cfg: ImuConfig) -> float:
+    """The pileup threshold from the rig's nominal rate: half the period,
+    capped at the fork's 10 ms (see preintegration.apply_pileup_gate)."""
+    return min(0.01, 0.5 / max(cfg.imu_rate, 1.0))
+
+
 def make_frontend(cfg: ImuConfig):
-    """(correct, predict_rate, transform_fusion) for `cfg`."""
+    """(correct, predict_rate, transform_fusion) for `cfg`: one kernel
+    launch a call on CUDA tensors, `make_frontend_plain`'s on CPU ones."""
+    plain_correct, plain_predict, plain_fusion = make_frontend_plain(cfg)
+    params = kernels.params(cfg, pileup_min_dt(cfg))
+
+    def correct(state: ImuFrontendState, acc, gyr, dt, mask,
+                lidar_pose6: torch.Tensor,
+                degenerate: torch.Tensor) -> ImuFrontendState:
+        if not kernels.on_card(acc, gyr, dt, lidar_pose6,
+                               masks=(mask, degenerate), state=state):
+            return plain_correct(state, acc, gyr, dt, mask, lidar_pose6,
+                                 degenerate)
+        R, p, v, bg, ba, cov, initialized, failure = kernels.correct(
+            state, acc, gyr, dt, mask, lidar_pose6, degenerate, params)
+        return ImuFrontendState(nav=pre.NavState(R=R, p=p, v=v),
+                                bias_gyr=bg, bias_acc=ba, cov=cov,
+                                initialized=initialized, failure=failure)
+
+    def predict_rate(state: ImuFrontendState, acc, gyr, dt, mask):
+        if not kernels.on_card(acc, gyr, dt, masks=(mask,), state=state):
+            return plain_predict(state, acc, gyr, dt, mask)
+        return kernels.predict(state, acc, gyr, dt, mask, params)
+
+    def transform_fusion(lidar_odom6, imu_front6, imu_back6):
+        if not kernels.on_card(lidar_odom6, imu_front6, imu_back6):
+            return plain_fusion(lidar_odom6, imu_front6, imu_back6)
+        return kernels.fusion(lidar_odom6, imu_front6, imu_back6)
+
+    return correct, predict_rate, transform_fusion
+
+
+def make_frontend_plain(cfg: ImuConfig):
+    """(correct, predict_rate, transform_fusion) for `cfg` as torch
+    operations, on any device and dtype: the JAX front-end's forms."""
     g = cfg.gravity
-    # pileup threshold from the rig's nominal rate (half the period, capped
-    # at the fork's 10 ms) — see preintegration.apply_pileup_gate
-    min_dt = min(0.01, 0.5 / max(cfg.imu_rate, 1.0))
+    min_dt = pileup_min_dt(cfg)
 
     def update(state: ImuFrontendState, acc, gyr, dt, mask,
                lidar_pose6: torch.Tensor, degenerate: torch.Tensor):

@@ -44,8 +44,8 @@ Two forms:
   over the rate train, on static buffers that the graphs update in place;
   nothing is read back inside a scan or between the scans of a chunk.  The
   kernel launches a graph holds count in `fused_corr.KERNEL_LAUNCHES`,
-  `gn_small.KERNEL_LAUNCHES` and `window_system.KERNEL_LAUNCHES` at each
-  replay.  Capture happens once per
+  `gn_small.KERNEL_LAUNCHES`, `window_system.KERNEL_LAUNCHES` and
+  `imu_frontend.KERNEL_LAUNCHES` at each replay.  Capture happens once per
   program (at `capture` or the first call); a failed capture raises, and
   there is no fallback to the host-driven loop.  On the CPU (`device="cpu"`, the tests) the same
   resident step runs eagerly.
@@ -282,6 +282,8 @@ class _ScanProgram:
         # gn_small nodes of (a), (b): (launches, of them with the eigensolve)
         self.gn_graph_launches = ((0, 0), (0, 0))
         self.ws_graph_launches = (0, 0)  # window_system nodes of (a), (b)
+        # imu_frontend nodes of (a), (b), by kernel
+        self.imu_graph_launches = ({}, {})
         self.capture_seconds = None
         self._scan_span = None           # the open `replay.scan`
 
@@ -341,7 +343,8 @@ class _ScanProgram:
         self.capture_seconds = time.perf_counter() - t0
 
     def _capture(self, batch: ReplayBatch):
-        from lio_slam_tpu_torch.ops import fused_corr, gn_small, window_system
+        from lio_slam_tpu_torch.ops import (fused_corr, gn_small,
+                                            imu_frontend, window_system)
 
         def gn_captured():
             return (gn_small.CAPTURED_LAUNCHES,
@@ -361,11 +364,13 @@ class _ScanProgram:
         graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         n0, g0 = fused_corr.CAPTURED_LAUNCHES, gn_captured()
         w0 = window_system.CAPTURED_LAUNCHES
+        i0 = dict(imu_frontend.CAPTURED_LAUNCHES)
         try:
             with torch.cuda.graph(graph_a, stream=side):
                 mapped = self._stage_a()
             n_a, g_a = fused_corr.CAPTURED_LAUNCHES - n0, gn_captured()
             w_a = window_system.CAPTURED_LAUNCHES - w0
+            i_a = dict(imu_frontend.CAPTURED_LAUNCHES)
             with torch.cuda.graph(graph_b, pool=graph_a.pool(), stream=side):
                 pose, fused = self._stage_b(mapped)
         except Exception as exc:
@@ -378,6 +383,9 @@ class _ScanProgram:
                                   tuple(a - b for a, b in zip(g_b, g_a)))
         self.ws_graph_launches = (w_a,
                                   window_system.CAPTURED_LAUNCHES - w0 - w_a)
+        self.imu_graph_launches = tuple(
+            {k: hi[k] - lo[k] for k in lo}
+            for lo, hi in ((i0, i_a), (i_a, imu_frontend.CAPTURED_LAUNCHES)))
         self.graphs = (graph_a, graph_b)
         self._a, self._b = mapped, (pose, fused)
 
@@ -394,13 +402,16 @@ class _ScanProgram:
 
     def _replay(self, k: int):
         """Replay graph `k`; its kernel launches count here."""
-        from lio_slam_tpu_torch.ops import fused_corr, gn_small, window_system
+        from lio_slam_tpu_torch.ops import (fused_corr, gn_small,
+                                            imu_frontend, window_system)
 
         self.graphs[k].replay()
         fused_corr.KERNEL_LAUNCHES += self.graph_launches[k]
         gn_small.KERNEL_LAUNCHES += self.gn_graph_launches[k][0]
         gn_small.EIGH_LAUNCHES += self.gn_graph_launches[k][1]
         window_system.KERNEL_LAUNCHES += self.ws_graph_launches[k]
+        for name, n in self.imu_graph_launches[k].items():
+            imu_frontend.KERNEL_LAUNCHES[name] += n
 
     def finish_scan(self, mapped: _ScanMapped, outs: ReplayOut, i: int):
         """Stage (b) of the scan, its outputs written at row `i` of

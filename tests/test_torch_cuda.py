@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import (GN_SMALL_CASES, WINDOW_CASES,
+from torch_port_helpers import (GN_SMALL_CASES, IMU_CASES, IMU_POSE_ATOL,
+                                WINDOW_CASES, assert_imu_state_close,
                                 assert_same_bits, assert_window_close,
-                                gn_small_case, planar_scene,
+                                gn_small_case, imu_case, imu_case_float64,
+                                imu_state_leaves, planar_scene,
                                 streamed_stage_case, t, window_case,
                                 window_pose_atol, window_truth)
 from lio_slam_tpu_torch.config import Config, LoopClosureConfig
@@ -21,6 +23,7 @@ from lio_slam_tpu_torch.graph import solver
 from lio_slam_tpu_torch.io import synthetic
 from lio_slam_tpu_torch.ops import fused_corr as fc
 from lio_slam_tpu_torch.ops import gn_small as gn
+from lio_slam_tpu_torch.ops import imu_frontend as imu
 from lio_slam_tpu_torch.ops import voxel_grid as vg
 from lio_slam_tpu_torch.ops import window_system as ws
 from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
@@ -583,6 +586,213 @@ def test_runner_goes_through_the_kernel(cuda):
     poses = np.stack([r.pose for r in results])
     assert np.isfinite(poses).all()
     assert np.abs(poses - sm.relative_truth(seq)).max() < 0.05
+
+
+def imu_case_on(dev, name):
+    """`imu_case(name)` with its tensors on `dev`, and as it is."""
+    case = imu_case(name)
+    on = lambda x: ((type(x)(*map(on, x)) if hasattr(x, "_fields")
+                     else tuple(map(on, x))) if isinstance(x, tuple)
+                    else x.to(dev))
+    return on(case), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", IMU_CASES)
+def test_imu_kernels_match_the_plain_front_end_on_the_card(cuda, case):
+    """The front end's three kernels against the plain front end run as
+    torch ops on the same CUDA tensors and in float64 on the CPU, within
+    the IMU_* bounds; one launch a call, and a second launch of each the
+    same words."""
+    from lio_slam_tpu_torch.config import ImuConfig
+    from lio_slam_tpu_torch.pipeline import imu_frontend as fe
+
+    (state, window, pose, degenerate), on_cpu = imu_case_on(cuda, case)
+    correct, predict, fusion = fe.make_frontend(ImuConfig())
+    plain = fe.make_frontend_plain(ImuConfig())
+    before = dict(imu.KERNEL_LAUNCHES)
+    outs = []
+    for _ in range(2):
+        train = predict(state, *window)
+        outs.append((*imu_state_leaves(correct(state, *window, pose,
+                                               degenerate)),
+                     train, fusion(pose, train[0], train)))
+    torch.cuda.synchronize()
+    assert imu.KERNEL_LAUNCHES == {k: before[k] + 2 for k in before}
+    assert all(x.device.type == "cuda" for x in outs[0])
+    assert outs[0][5].dtype == torch.float32
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    f64 = imu_case_float64(*on_cpu)
+    for (c, p, f), (st, win, ps, dg) in ((plain, (state, window, pose,
+                                                    degenerate)),
+                                         (fe.make_frontend_plain(ImuConfig()),
+                                          f64)):
+        ref_train = p(st, *win)
+        assert_imu_state_close(outs[0][:8], imu_state_leaves(
+            c(st, *win, ps, dg)))
+        for a, b in ((outs[0][8], ref_train),
+                     (outs[0][9], f(ps, ref_train[0], ref_train))):
+            assert float((a.cpu().double() - b.cpu().double()).abs().max()) \
+                <= IMU_POSE_ATOL
+
+
+@pytest.mark.cuda
+def test_imu_kernels_refuse_what_they_do_not_take(cuda):
+    """A float64 CUDA input, a mask that is not bool and a state on another
+    device raise ValueError; nothing launches and the plain front end does
+    not run in the kernels' place."""
+    from lio_slam_tpu_torch.config import ImuConfig
+    from lio_slam_tpu_torch.pipeline import imu_frontend as fe
+
+    (state, (acc, gyr, dt, mask), pose, degenerate), _ = imu_case_on(
+        cuda, "w64")
+    correct, predict, fusion = fe.make_frontend(ImuConfig())
+    before = dict(imu.KERNEL_LAUNCHES)
+    bad = [(state, (acc.double(), gyr, dt, mask)),
+           (state, (acc, gyr, dt, mask.float())),
+           (state._replace(cov=state.cov.cpu()), (acc, gyr, dt, mask))]
+    for st, window in bad:
+        with pytest.raises(ValueError, match="float32"):
+            correct(st, *window, pose, degenerate)
+        with pytest.raises(ValueError, match="float32"):
+            predict(st, *window)
+    with pytest.raises(ValueError, match="float32"):
+        fusion(pose.double(), pose, pose)
+    with pytest.raises(ValueError, match="float32"):
+        fusion(pose, pose.cpu(), pose)
+    assert imu.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_imu_kernels_in_a_cuda_graph(cuda):
+    """The three launches captured in one CUDA graph (they count as
+    captured, not as launches) and replayed on other cases copied into the
+    static inputs: the same words as eager launches on those inputs."""
+    from lio_slam_tpu_torch.config import ImuConfig
+    from lio_slam_tpu_torch.pipeline import imu_frontend as fe
+
+    correct, predict, fusion = fe.make_frontend(ImuConfig())
+    (state, window, pose, degenerate), _ = imu_case_on(cuda, "conditioned")
+
+    def calls():
+        train = predict(state, *window)
+        return (*imu_state_leaves(correct(state, *window, pose, degenerate)),
+                train, fusion(pose, train[0], train))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    counts = dict(imu.KERNEL_LAUNCHES), dict(imu.CAPTURED_LAUNCHES)
+    with torch.cuda.graph(graph):
+        out = calls()
+    assert imu.KERNEL_LAUNCHES == counts[0]
+    assert imu.CAPTURED_LAUNCHES == {k: v + 1 for k, v in counts[1].items()}
+    for name in ("first_update", "diverged", "scattered", "empty"):
+        (other, other_window, other_pose, other_degenerate), _ = imu_case_on(
+            cuda, name)
+        for dst, src in zip((*imu_state_leaves(state)[:7], *window, pose,
+                             degenerate),
+                            (*imu_state_leaves(other)[:7], *other_window,
+                             other_pose, other_degenerate)):
+            dst.copy_(src)
+        graph.replay()
+        eager = calls()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager)), name
+
+
+@pytest.mark.cuda
+def test_runner_mission_through_the_imu_kernels(cuda):
+    """The 40-scan smoke mission (`synthetic_mission.bench_config()`) on
+    the card against the JAX reference run recorded in
+    fixtures/smoke_mission_jax.npz, within chip_smoke's limits (0.02 m,
+    0.1 deg, the same keyframes): one correction and one prediction launch
+    a call of each, TransformFusion once a prediction."""
+    import math
+    import os
+
+    from lio_slam_tpu_torch.pipeline import imu_frontend as fe
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    fixture = np.load(os.path.join(root, "lio_slam_tpu_torch", "fixtures",
+                                   "smoke_mission_jax.npz"))
+    cfg = sm.bench_config()
+    seq = synthetic.make_sequence(n_scans=sm.SMOKE_SCANS,
+                                  n_points=sm.SMOKE_POINTS, seed=sm.SMOKE_SEED,
+                                  speed=sm.SMOKE_SPEED)
+    scans, imus = sm.synthetic_inputs(seq, cfg)
+    calls = {"correct": 0, "predict": 0}
+    runner = Runner(cfg, device=cuda)
+    correct, predict = runner.correct, runner.predict_rate
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    runner.correct = counted("correct", correct)
+    runner.predict_rate = counted("predict", predict)
+    before = dict(imu.KERNEL_LAUNCHES)
+    results = [runner.process_scan(scans[i], imu=imus[i])
+               for i in range(len(scans))]
+    torch.cuda.synchronize()
+    launched = {k: imu.KERNEL_LAUNCHES[k] - before[k] for k in before}
+    assert calls["correct"] == launched["correct"] > 0
+    assert calls["predict"] == launched["predict"] > 0
+    assert launched["fusion"] == calls["predict"]
+    assert isinstance(runner.imu_state, fe.ImuFrontendState)
+    assert runner.imu_state.cov.device.type == "cuda"
+    poses = np.stack([r.pose for r in results])
+    assert np.isfinite(poses).all() and not runner.mapping_error
+    assert np.abs(poses[:, 3:] - fixture["poses"][:, 3:]).max() <= 0.02
+    assert np.abs(poses[:, :3] - fixture["poses"][:, :3]).max() \
+        <= math.radians(0.1)
+    assert int(runner.state.store.count) == int(fixture["keyframes"])
+
+
+@pytest.mark.cuda
+def test_resident_replay_through_the_imu_kernels(cuda):
+    """`make_pipeline_replay` on the card over the 120-scan replay of
+    `synthetic_mission.pipeline_replay_inputs` against the JAX monolith's
+    run (fixtures/pipeline_replay_jax.npz), within chip_smoke's limits
+    (0.02 m, 0.1 deg, the same degenerate flags): graph (a) holds the
+    prediction, graph (b) the correction and TransformFusion, counted once
+    a scan at each replay."""
+    import math
+    import os
+
+    from lio_slam_tpu_torch.pipeline import replay
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    fixture = np.load(os.path.join(root, "lio_slam_tpu_torch", "fixtures",
+                                   "pipeline_replay_jax.npz"))
+    cfg = sm.bench_config()
+    _, batch = sm.pipeline_replay_inputs()
+    assert sm.batch_sha256(batch) == str(fixture["batch_sha256"])
+    run = replay.make_pipeline_replay(cfg, loop_every=sm.LOOP_EVERY,
+                                      device=cuda)
+    staged = run.stage(batch)
+    run.capture(*run.init(), staged)
+    assert run.program.imu_graph_launches == (
+        {"correct": 0, "predict": 1, "fusion": 0},
+        {"correct": 1, "predict": 0, "fusion": 1})
+    before = dict(imu.KERNEL_LAUNCHES)
+    _, _, outs = run(*run.init(), staged)
+    torch.cuda.synchronize()
+    n = outs.poses.shape[0]
+    assert {k: imu.KERNEL_LAUNCHES[k] - before[k] for k in before} == \
+        dict.fromkeys(before, n)
+    poses = outs.poses.cpu().numpy()
+    assert np.isfinite(poses).all()
+    assert (outs.degenerate.cpu().numpy() == fixture["degenerate"]).all()
+    assert np.abs(poses[:, 3:] - fixture["poses"][:, 3:]).max() <= 0.02
+    assert np.abs(poses[:, :3] - fixture["poses"][:, :3]).max() \
+        <= math.radians(0.1)
 
 
 def circuit_state(dev, n_scans=11, seed=3):

@@ -1,5 +1,5 @@
 """The CUDA kernels `lio_slam_tpu_torch/ops/csrc/fused_corr.cu`,
-`gn_small.cu` and `window_system.cu` compiled for the CPU against
+`gn_small.cu`, `window_system.cu` and `imu_frontend.cu` compiled for the CPU against
 `tests/cuda_emulator.h` (g++, C++20) and bound through ctypes, so that the
 CPU tests hold the kernels' own source, their control flow and arithmetic,
 to the plain versions.  The sources are taken as they are, with mechanical
@@ -14,6 +14,8 @@ A substitution that no longer matches raises.
     out = gn_small_emulated(gn, AtA, Atb, eigh=True)
     ws = build_window_system(tmp_dir)
     H, b = window_system_emulated(ws, graph, count, window)
+    imu = build_imu_frontend(tmp_dir)    # launched through ops/imu_frontend's
+                                         # *_launch with CPU tensors
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ GN_SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
                          "gn_small.cu")
 WS_SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
                          "window_system.cu")
+IMU_SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
+                          "imu_frontend.cu")
 HEADER = os.path.join(ROOT, "tests", "cuda_emulator.h")
 
 
@@ -202,3 +206,22 @@ def window_system_emulated(lib, graph, count, window: int):
     if err != 0:
         raise RuntimeError(f"emulated launch refused: {err}")
     return H, b
+
+
+def imu_frontend_source() -> str:
+    """imu_frontend.cu with the substitutions that make it a CPU program."""
+    s = open(IMU_SOURCE).read()
+    s = _sub("#include <cuda_runtime.h>", f'#include "{HEADER}"', s)
+    return _sub(r"(\w+)<<<(\w+), THREADS, 0, s>>>\(",
+                r"emu_launch(\1, \2, THREADS, 0, ", s, literal=False)
+
+
+def build_imu_frontend(out_dir) -> ctypes.CDLL:
+    """Compile the emulated front-end kernels into `out_dir` and bind them
+    as `ops/_build.bind_imu_frontend` binds the card's build; launch them
+    through `ops/imu_frontend`'s `correct_launch`, `predict_launch` and
+    `fusion_launch` with CPU tensors and no stream."""
+    from lio_slam_tpu_torch.ops import _build
+
+    return _build.bind_imu_frontend(
+        _compile(out_dir, "imu_frontend_emulated", imu_frontend_source()))

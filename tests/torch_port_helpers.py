@@ -826,3 +826,144 @@ def window_float64_system(graph, count, W):
     g = F.PoseGraph(*(x.double() if x.is_floating_point() else x
                       for x in graph))
     return solver.assemble_window_plain(g, count, W)
+
+
+# the front-end calls the IMU kernels (ops/csrc/imu_frontend.cu) are held to
+# their plain versions on, in tests/test_torch_imu_frontend_emulated.py and
+# on the card: state, window and W of each
+IMU_CASES = ("uninitialized", "first_update", "conditioned", "degenerate",
+             "diverged", "piled_up", "empty", "full", "scattered", "w64",
+             "w32")
+IMU_DT = 0.002              # the default preset's 500 Hz
+
+
+def imu_window(seed, W, valid, dt=IMU_DT):
+    """(acc, gyr, dt, mask) float32 / bool numpy of a W-slot window whose
+    slots `valid` (an index array or slice) are samples of a turning,
+    accelerating rig; the others hold stale values, as a reused buffer
+    would."""
+    rs = np.random.RandomState(seed)
+    acc = (np.array([0.3, -0.1, 9.80511]) + rs.randn(W, 3) * 0.05)
+    gyr = np.array([0.01, -0.02, 0.2]) + rs.randn(W, 3) * 0.01
+    dts = np.full(W, dt)
+    mask = np.zeros(W, bool)
+    mask[valid] = True
+    stale = ~mask
+    acc[stale] = rs.randn(stale.sum(), 3) * 50.0
+    gyr[stale] = rs.randn(stale.sum(), 3) * 10.0
+    dts[stale] = rs.uniform(-1.0, 1.0, stale.sum())
+    return (acc.astype(np.float32), gyr.astype(np.float32),
+            dts.astype(np.float32), mask)
+
+
+def imu_case(name):
+    """(state, (acc, gyr, dt, mask), lidar pose, degenerate) of case `name`,
+    CPU tensors, the state an `ImuFrontendState` the plain front end made:
+    - "uninitialized": the initial state (the correction anchors);
+    - "first_update": the state just anchored, its 1e8 velocity prior met by
+      a window (the update cancels about 8 digits there);
+    - "conditioned", "degenerate": after three updates, degenerate False
+      and True;
+    - "diverged": the conditioned state at 40 m/s, which the divergence
+      check resets;
+    - "piled_up": samples closer than the pileup gate's threshold and with
+      zero and negative dt among the valid ones;
+    - "empty", "full": no valid slot, all 512;
+    - "scattered": valid slots that are not a prefix;
+    - "w64", "w32": the synthetic missions' windows, 64 and 32 slots.
+    W is 512 (the presets') but for "w64" and "w32"; 50 slots valid (a
+    scan at 500 Hz) but where named."""
+    from lio_slam_tpu_torch.config import ImuConfig
+    from lio_slam_tpu_torch.pipeline import imu_frontend as fe
+
+    correct, predict, _ = fe.make_frontend_plain(ImuConfig())
+    W = {"w64": 64, "w32": 32}.get(name, 512)
+    state = fe.init_state()
+
+    def pose_after(state, window, k):
+        """The window's predicted end pose, nudged as a registration would."""
+        rs = np.random.RandomState(100 + k)
+        end = predict(state, *window)[-1]
+        return end + t((rs.randn(6) * [0.002, 0.002, 0.004, 0.01, 0.01, 0.02])
+                       .astype(np.float32))
+
+    warm = 0 if name == "uninitialized" else 1 if name == "first_update" \
+        else 4
+    for k in range(warm):
+        window = tuple(map(t, imu_window(k, 64, slice(0, 50))))
+        pose = t(np.array([0.0, 0.0, 0.1 * k, 0.1 * k, 0.0, 0.0], np.float32)) \
+            if k == 0 else pose_after(state, window, k)
+        state = correct(state, *window, pose, torch.tensor(False))
+    valid = {"empty": [], "full": slice(None),
+             "scattered": np.r_[3:9, 40, 41, 97:130, 300:311, 511]}.get(
+                 name, slice(0, 50))
+    if name in ("w64", "w32"):
+        valid = slice(0, 10)
+    acc, gyr, dts, mask = imu_window(sum(map(ord, name)), W, valid)
+    if name == "piled_up":
+        dts[[2, 7, 8, 30]] = [0.0005, 0.0, -0.003, 0.0009]
+    if name == "diverged":
+        state = state._replace(nav=state.nav._replace(
+            v=torch.tensor([40.0, 0.0, 0.0])))
+    window = tuple(map(t, (acc, gyr, dts, mask)))
+    pose = pose_after(state, window, 50) if warm else t(
+        np.array([0.02, -0.01, 0.3, 1.0, 2.0, 0.5], np.float32))
+    return state, window, pose, torch.tensor(name == "degenerate")
+
+
+def imu_case_float64(state, window, pose, degenerate):
+    """The case's tensors in float64 (the masks and flags as they are), for
+    the plain version's float64 answer."""
+    f64 = lambda x: x.double() if x.is_floating_point() else x
+    tree = lambda s: type(s)(*(tree(x) if isinstance(x, tuple) else f64(x)
+                               for x in s))
+    return tree(state), tuple(map(f64, window)), f64(pose), degenerate
+
+
+# The bounds on the front-end kernels against the plain front end, on the
+# IMU_CASES.  The kernels integrate the window in one pass in slot order,
+# the plain version in log depth (preintegrate_parallel): the same sums
+# reassociated, so each is held to the other and both to the plain version
+# run in float64.  The widest gaps come from "full", 512 samples (CPU,
+# emulated kernel; at 50 samples they are 5-10 times smaller):
+# - R, a rotation's entries: kernel 5.5e-6 and plain 8.6e-6 from float64,
+#   3.3e-6 apart;
+IMU_R_ATOL = 2e-5
+# - p, v (m, m/s; |v| about 2 m/s after a second of 0.3 m/s^2): p 4.4e-6
+#   from float64, v 2.3e-5 (kernel) and 7.9e-6 (plain), 1.5e-5 apart;
+IMU_P_ATOL = 2e-5
+IMU_V_ATOL = 5e-5
+# - the biases, which move by 1e-4 of the rad/s and m/s^2 an update: 6e-10;
+IMU_BIAS_ATOL = 5e-9
+# - the 15x15 covariance, entry (i, j) relative to sqrt(P_ii P_jj) of the
+#   float64 answer (its diagonal spans 1e-8 to 1e4): kernel 9.4e-6, plain
+#   1.7e-5 from float64;
+IMU_COV_RTOL = 5e-5
+# - the pose trains of the prediction and of TransformFusion (rad and m,
+#   positions up to 40 m out): 1.8e-6 and 3.2e-6 from float64.
+IMU_POSE_ATOL = 1e-5
+
+
+def imu_state_leaves(s) -> tuple:
+    """(R, p, v, bias_gyr, bias_acc, cov, initialized, failure) of an
+    `ImuFrontendState`."""
+    return (s.nav.R, s.nav.p, s.nav.v, s.bias_gyr, s.bias_acc, s.cov,
+            s.initialized, s.failure)
+
+
+def assert_imu_state_close(got, ref):
+    """Two front-end states' leaves (`imu_state_leaves`, any device) within
+    the IMU_* bounds, the flags equal; the covariance relative to `ref`'s
+    diagonal."""
+    got = [x.detach().cpu().double() for x in got]
+    ref = [x.detach().cpu().double() for x in ref]
+    for name, g, r, tol in zip(("R", "p", "v", "bias_gyr", "bias_acc"), got,
+                               ref, (IMU_R_ATOL, IMU_P_ATOL, IMU_V_ATOL,
+                                     IMU_BIAS_ATOL, IMU_BIAS_ATOL)):
+        gap = float((g - r).abs().max())
+        assert gap <= tol, (name, gap)
+    d = ref[5].diagonal().abs()
+    scale = torch.sqrt(torch.outer(d, d)).clamp(min=1e-30)
+    gap = float(((got[5] - ref[5]).abs() / scale).max())
+    assert gap <= IMU_COV_RTOL, ("cov", gap)
+    assert bool(got[6]) == bool(ref[6]) and bool(got[7]) == bool(ref[7])

@@ -294,27 +294,26 @@
    kernel's device ms a launch, in a CUDA graph and through the wrapper,
    its dependent-chain bound, and the plain version's host ms a call,
    device ms, operations and ms as a graph.
-Every path above zeroes the kernels' launch counters and a count of the
-keyframe saves (`lio._save_keyframe`'s calls outside a capture) before its
-run: gn_small must launch once a GN pass (the fused kernel's launches, or
-the sharded paths' GN iterations) and with the eigensolve once a
-registration (exactly, where the run registers only its scans);
-window_system twice a keyframe save, a scan replayed as a CUDA graph
-counting as one (the resident step saves on every scan); the front end's
-correction and prediction kernels once a correction and a prediction
-(`make_frontend`'s calls outside a capture, and one of each a scan
-replayed as CUDA graphs), checked on every path and failed on after the
-last phase.
+Every path above zeroes `_build.LAUNCHES` (every kernel's launches, by
+key) and the count of the calls they are held to (`CALLS`: keyframe saves
+and the front end's corrections and predictions outside a capture) before
+its run, and `check_launches` holds each key to those calls: gn_small and
+gn_small_eigh together once a GN pass (the fused kernel's launches, or the
+sharded paths' GN iterations), gn_small_eigh once a registration (exactly,
+where the run registers only its scans); window_system twice a keyframe
+save; imu_correct and imu_predict once a call; a scan replayed as CUDA
+graphs counting as one save, correction and prediction (the resident step
+saves on every scan).  A fault fails the run after the last phase.
 Each phase prints its wall time.
 
-Prints the card's name and power limit, one JSON line describing the
-kernels: fused_corr (its launches on every path driven, apart; a `layouts`
-object with each instantiation's offsets, cap, times, bound and error) and
-gn_small (its launches and those with the eigensolve on every path, apart,
-and phase 22's times) and window_system (its launches and the keyframe
-saves on every path, apart, and phase 23's gaps and times) and
-imu_frontend (the correction's and the prediction's launches and calls on
-every path, apart, and phase 24's gaps and times), and last
+Prints the card's name and power limit, one JSON line with the launches
+of every path driven by key (`paths`) and describing the kernels:
+fused_corr (its launches on every path driven, apart; a `layouts` object
+with each instantiation's offsets, cap, times, bound and error) and
+gn_small (its launches, those with the eigensolve, and phase 22's times)
+and window_system (its launches, the keyframe saves, and phase 23's gaps
+and times) and imu_frontend (each kernel's launches and phase 24's gaps
+and times), and last
 `{"ok": true, "device": {...}}`.  Exits
 non-zero, without that line, if there is no CUDA device or any check
 fails.
@@ -323,6 +322,7 @@ fails.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -366,24 +366,18 @@ SQRT_CYCLES, DIV_CYCLES, FP_CYCLES = 40, 45, 4
 GN_SOLVE_CHAIN = (6, 17, 45)  # roots, divisions, adds and multiplies
 GN_ROTATION_CHAIN = (2, 3, 15)
 GN_ROTATIONS = 8 * 15
-# gn_small's launches on each path driven, apart: path -> (launches, of them
-# with the eigensolve), each counted over the run that counts fused_corr's
-GN_PATHS = {}
-# window_system's launches on each path driven, apart: path -> (launches,
-# keyframe saves); SAVES[0] counts `lio._save_keyframe`'s calls outside a
-# capture since `zero_launches`, WS_FAULTS each path whose launches are not
-# two a save (the run fails on them after its last phase)
-WS_PATHS = {}
-SAVES = [0]
-WS_FAULTS = []
-# the front end's kernels on each path driven, apart: path -> (correction
-# launches, corrections, prediction launches, predictions); IMU_CALLS counts
-# the corrections and predictions of `make_frontend`'s functions outside a
-# capture since `zero_launches`, IMU_FAULTS each path whose launches are not
-# one a call (the run fails on them after its last phase)
-IMU_PATHS = {}
-IMU_CALLS = {"correct": 0, "predict": 0}
-IMU_FAULTS = []
+# the kernels' launches on each path driven, apart: path -> Counter by
+# `_build.LAUNCHES` key, with the calls they are held to ("save", "correct",
+# "predict": CALLS, a scan of CUDA graphs counting one of each), summed
+# over the path's runs
+PATHS = {}
+# the calls outside a CUDA graph's capture since `zero_launches`: keyframe
+# saves (`lio._save_keyframe`), the front end's corrections and predictions
+# (`make_frontend`'s functions)
+CALLS = collections.Counter()
+# each path whose launches are not what its calls ask (the run fails on them
+# after its last phase)
+FAULTS = []
 # the kernel launch of each bag and corner path whose arguments the kernel
 # check reuses
 BAG_CAPTURE_AT = 200
@@ -516,154 +510,84 @@ def warm_profiler(dev):
             torch.cuda.synchronize()
 
 
-def count_saves():
-    """Wrap `lio._save_keyframe` (once a process) so that each call outside
-    a CUDA graph's capture adds 1 to SAVES[0]: a keyframe save of the
-    Runner's step, or a scan of the resident step run eagerly, which saves
-    on every scan and selects the result."""
-    import torch
-
-    from lio_slam_tpu_torch.pipeline import lio
-
-    save = lio._save_keyframe
-    if getattr(save, "counted", False):
-        return
-
-    def counted(*a, **k):
-        if not (torch.cuda.is_available()
-                and torch.cuda.is_current_stream_capturing()):
-            SAVES[0] += 1
-        return save(*a, **k)
-    counted.counted = True
-    lio._save_keyframe = counted
-
-
-def count_frontend_calls():
-    """Wrap `imu_frontend.make_frontend` (once a process, before anything
-    makes a front end) so that the correction and the prediction it returns
-    add 1 to IMU_CALLS at each call outside a CUDA graph's capture."""
+def count_calls():
+    """Wrap `lio._save_keyframe` and `imu_frontend.make_frontend` (once a
+    process, before anything makes a front end) so that each keyframe save
+    and each call of the correction and the prediction it returns adds 1 to
+    CALLS outside a CUDA graph's capture.  A scan of the resident step run
+    eagerly saves on every scan and selects the result."""
     import torch
 
     from lio_slam_tpu_torch.pipeline import imu_frontend as fe
-
-    make = fe.make_frontend
-    if getattr(make, "counted", False):
-        return
+    from lio_slam_tpu_torch.pipeline import lio
 
     def count(name, fn):
-        def wrapped(*a, **k):
+        def counted(*a, **k):
             if not (torch.cuda.is_available()
                     and torch.cuda.is_current_stream_capturing()):
-                IMU_CALLS[name] += 1
+                CALLS[name] += 1
             return fn(*a, **k)
-        return wrapped
+        counted.counted = True
+        return counted
 
-    def counted(cfg):
-        correct, predict, fusion = make(cfg)
-        return count("correct", correct), count("predict", predict), fusion
-    counted.counted = True
-    fe.make_frontend = counted
+    if not getattr(lio._save_keyframe, "counted", False):
+        lio._save_keyframe = count("save", lio._save_keyframe)
+    make = fe.make_frontend
+    if not getattr(make, "counted", False):
+        def counted_make(cfg):
+            correct, predict, fusion = make(cfg)
+            return count("correct", correct), count("predict", predict), fusion
+        counted_make.counted = True
+        fe.make_frontend = counted_make
 
 
-def imu_counts():
-    """(correction launches, corrections, prediction launches, predictions)
-    since `zero_launches`."""
-    from lio_slam_tpu_torch.ops import imu_frontend as imu
+def tally() -> collections.Counter:
+    """The launches by key and the calls since `zero_launches`."""
+    from lio_slam_tpu_torch.ops import _build
 
-    return (imu.KERNEL_LAUNCHES["correct"], IMU_CALLS["correct"],
-            imu.KERNEL_LAUNCHES["predict"], IMU_CALLS["predict"])
+    return _build.LAUNCHES + CALLS
 
 
 def zero_launches():
-    """The kernels' launch counters, the keyframe saves and the front end's
-    calls to 0, just before a path's run."""
-    from lio_slam_tpu_torch.ops import fused_corr as fc
-    from lio_slam_tpu_torch.ops import gn_small as gs
-    from lio_slam_tpu_torch.ops import imu_frontend as imu
-    from lio_slam_tpu_torch.ops import window_system as ws
+    """The kernels' launches and the calls to 0, just before a path's
+    run."""
+    from lio_slam_tpu_torch.ops import _build
 
-    count_saves()
-    fc.KERNEL_LAUNCHES = 0
-    gs.KERNEL_LAUNCHES = gs.EIGH_LAUNCHES = 0
-    ws.KERNEL_LAUNCHES = SAVES[0] = 0
-    for k in imu.KERNEL_LAUNCHES:
-        imu.KERNEL_LAUNCHES[k] = 0
-    IMU_CALLS.update(correct=0, predict=0)
+    count_calls()
+    _build.LAUNCHES.clear()
+    CALLS.clear()
 
 
-def gn_launches(path, passes, registrations=None, counts=None,
-                graph_scans=0, ws_counts=None, imu=None):
-    """Add gn_small's launches since `zero_launches` (or `counts`, a rank's
-    (launches, with the eigensolve)) to `GN_PATHS[path]`, and fail unless
-    the GN step launched once a GN pass (`passes`: the fused kernel's
-    launches over the same run, which the phase holds to the GN iterations,
-    or the iterations where no fused kernel runs) and the eigensolve once a
-    registration: `registrations` where the run holds none but the scans'
-    own, else at least once where any pass ran and at most once a pass.
-    Then `ws_launches(path, graph_scans, ws_counts)` and
-    `imu_launches(path, graph_scans, imu)`."""
-    from lio_slam_tpu_torch.ops import gn_small as gs
-
-    ws_launches(path, graph_scans, ws_counts)
-    imu_launches(path, graph_scans, imu)
-
-    n, e = counts if counts is not None else (gs.KERNEL_LAUNCHES,
-                                              gs.EIGH_LAUNCHES)
-    had = GN_PATHS.get(path, (0, 0))
-    GN_PATHS[path] = (had[0] + n, had[1] + e)
-    ok = (n == passes and e <= n and (e > 0) == (n > 0)
-          and (registrations is None or e == registrations))
-    print(f"{path}: gn_small launches {n} for {passes} GN passes, {e} with "
-          f"the eigensolve for "
-          f"{'the' if registrations is None else registrations} "
-          "registrations", flush=True)
-    if not ok:
-        fail(f"{path}: gn_small launched {n} times ({e} with the eigensolve) "
-             f"for {passes} GN passes and "
-             f"{'its' if registrations is None else registrations} "
-             "registrations")
-
-
-def ws_launches(path, graph_scans=0, counts=None):
-    """Add window_system's launches and the keyframe saves since
-    `zero_launches` (or `counts`, a rank's (launches, saves)) to
-    `WS_PATHS[path]`, and note a fault in WS_FAULTS unless the window solve
-    launched twice a save: the eager saves (SAVES) plus `graph_scans`
-    scans replayed as CUDA graphs, whose resident step saves on every
-    scan."""
-    from lio_slam_tpu_torch.ops import window_system as ws
-
-    n, saves = counts if counts is not None else (ws.KERNEL_LAUNCHES,
-                                                  SAVES[0])
-    saves += graph_scans
-    had = WS_PATHS.get(path, (0, 0))
-    WS_PATHS[path] = (had[0] + n, had[1] + saves)
-    print(f"{path}: window_system launches {n} for {saves} keyframe saves"
-          + (f" ({graph_scans} of them scans of CUDA graphs)"
-             if graph_scans else ""), flush=True)
-    if n != 2 * saves:
-        WS_FAULTS.append(f"{path}: window_system launched {n} times for "
-                         f"{saves} keyframe saves")
-
-
-def imu_launches(path, graph_scans=0, counts=None):
-    """Add the front end's launches and calls since `zero_launches` (or
-    `counts`, a rank's `imu_counts()`) to `IMU_PATHS[path]`, and note a
-    fault in IMU_FAULTS unless the correction's kernel launched once a
-    correction and the prediction's once a prediction: the eager calls plus
-    one of each a scan of the `graph_scans` replayed as CUDA graphs."""
-    c_n, c, p_n, p = counts if counts is not None else imu_counts()
-    c, p = c + graph_scans, p + graph_scans
-    had = IMU_PATHS.get(path, (0, 0, 0, 0))
-    IMU_PATHS[path] = tuple(a + b for a, b in zip(had, (c_n, c, p_n, p)))
-    print(f"{path}: imu_frontend launches: correct {c_n} for {c} "
-          f"corrections, predict {p_n} for {p} predictions"
-          + (f" ({graph_scans} of each in scans of CUDA graphs)"
-             if graph_scans else ""), flush=True)
-    if (c_n, p_n) != (c, p):
-        IMU_FAULTS.append(f"{path}: imu_frontend launched correct {c_n} "
-                          f"times for {c} corrections, predict {p_n} for {p} "
-                          "predictions")
+def check_launches(path, passes, first=None, graph_scans=0, counts=None):
+    """Add the launches and calls since `zero_launches` (or `counts`, a
+    rank's `tally()`) to PATHS[path], print each kernel's against what the
+    calls ask, and note a fault in FAULTS unless they agree:
+    - the GN step once a GN pass (`passes`: the fused kernel's launches over
+      the same run, which the phase holds to the GN iterations, or the
+      iterations where no fused kernel runs), with the eigensolve once a
+      registration (`first`; where the run holds others than the scans'
+      own, None: at least once where any pass ran and at most once a pass);
+    - the window solve twice a keyframe save;
+    - the correction and the prediction once a call;
+    each of `graph_scans` scans replayed as CUDA graphs counting a save, a
+    correction and a prediction (the resident step saves on every scan)."""
+    got = collections.Counter(counts if counts is not None else tally())
+    got.update(save=graph_scans, correct=graph_scans, predict=graph_scans)
+    PATHS[path] = PATHS.get(path, collections.Counter()) + got
+    lo, e = min(passes, 1), got["gn_small_eigh"]
+    if first is None:
+        first = min(max(e, lo), passes)
+    want = {"gn_small": passes - first, "gn_small_eigh": first,
+            "window_system": 2 * got["save"],
+            "imu_correct": got["correct"], "imu_predict": got["predict"]}
+    line = ", ".join(f"{k} {got[k]} of {v}" for k, v in want.items())
+    print(f"{path}: launches {line}; fused_corr {got['fused_corr']}, "
+          f"imu_fusion {got['imu_fusion']} ({passes} GN passes, "
+          f"{got['save']} saves, {got['correct']} corrections, "
+          f"{got['predict']} predictions, {graph_scans} scans of each "
+          "in CUDA graphs)", flush=True)
+    if any(got[k] != v for k, v in want.items()) or not lo <= first <= passes:
+        FAULTS.append(f"{path}: {line} ({passes} GN passes)")
 
 
 def named_kernel_ms(fn, name_part, reps=20, between=None):
@@ -755,7 +679,7 @@ def floor_ms(table, hh, scan, mask, pose, between=None, **kw):
     from lio_slam_tpu_torch.ops import _build
     from lio_slam_tpu_torch.ops import fused_corr as fc
 
-    lib = _build.load_fused_corr()
+    lib = _build.load_kernels()
     dev = table.device
     scratch = fc.prepare_stream(dev)
     out = torch.empty(fc.OUT_WORDS, dtype=torch.float32, device=dev)
@@ -1006,7 +930,7 @@ def gn_small_phase(dev):
         if not all(same):
             fail(f"gn_small on the {name} system parts from smallmat {same}")
 
-    lib = _build.load_fused_corr()
+    lib = _build.load_kernels()
     out = torch.empty(gs.OUT_WORDS[True], dtype=torch.float32, device=dev)
 
     def raw(eigh):
@@ -1393,8 +1317,8 @@ def mission_phase(dev, profile_dir):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = fc.KERNEL_LAUNCHES
-    gn_launches("mission", launches,
-                sum(r.registration_iters > 0 for r in results))
+    check_launches("mission", launches,
+                   sum(r.registration_iters > 0 for r in results))
 
     poses = np.stack([r.pose for r in results])
     if not np.isfinite(poses).all():
@@ -1791,7 +1715,7 @@ def loop_mission_phase(profile_dir=None):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = fc.KERNEL_LAUNCHES
-    gn_launches("loop", launches)
+    check_launches("loop", launches)
     vg.build_grid = build_grid
     runner.full_correct, runner.detector = full_correct, detector
 
@@ -2056,7 +1980,7 @@ def products_phase(runner, cfg, seq, fixture, reg_iters, tmp):
         zero_launches()
         r, ms = synced_ms(lambda: reloc(runner.state, cloud))
         n_launch = fc.KERNEL_LAUNCHES
-        gn_launches("relocalization", n_launch)
+        check_launches("relocalization", n_launch)
         iters = sum(it for _, it in reg_iters[n_reg:])
         launches += n_launch
         pose = r.pose.cpu().numpy()
@@ -2171,7 +2095,7 @@ def archive_mission_phase(profile_dir=None):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = fc.KERNEL_LAUNCHES
-        gn_launches("archive", launches)
+        check_launches("archive", launches)
         h = runner.health()
         runner.close()           # the last auto-checkpoint; the log is whole
         for undo in restore[1:]:
@@ -2314,8 +2238,8 @@ def resume_phase(dev):
         out = [resumed.process_scan(scans[i], imu=imus[i])
                for i in range(at, len(scans))]
         launches = fc.KERNEL_LAUNCHES
-        gn_launches("resume", launches,
-                    sum(r.registration_iters > 0 for r in out))
+        check_launches("resume", launches,
+                       sum(r.registration_iters > 0 for r in out))
         size = os.path.getsize(path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2378,7 +2302,7 @@ def replay_on_card(runner, path, topics, capture_at, label):
     """`replay_bag(runner, path, BagTopics(**topics), use_native=True)` with
     host timers around the cloud decode, the feed's IMU windowing and
     `process_scan`, and the arguments of kernel launch number `capture_at`
-    cloned for the kernel check; gn_small's launches go to `GN_PATHS[label]`.
+    cloned for the kernel check; the kernels' launches go to `PATHS[label]`.
     Returns (results, loop and GPS factor counts after each scan, seconds,
     the LiveFeed, timers, captured arguments, launches)."""
     import torch
@@ -2418,9 +2342,9 @@ def replay_on_card(runner, path, topics, capture_at, label):
         seconds = time.perf_counter() - t0
         launches = fc.KERNEL_LAUNCHES
         # a config without loop closure registers only its scans
-        gn_launches(label, launches,
-                    sum(r.registration_iters > 0 for r in results)
-                    if not runner.cfg.loop.enabled else None)
+        check_launches(label, launches,
+                       sum(r.registration_iters > 0 for r in results)
+                       if not runner.cfg.loop.enabled else None)
     finally:
         for undo in restore:
             undo()
@@ -2794,8 +2718,9 @@ def corner_mission_phase(mode):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = fc.KERNEL_LAUNCHES
-        gn_launches("corner" if mode == "incremental" else "rebuild", launches,
-                    sum(r.registration_iters > 0 for r in results))
+        check_launches("corner" if mode == "incremental" else "rebuild",
+                       launches,
+                       sum(r.registration_iters > 0 for r in results))
     finally:
         for undo in restore:
             undo()
@@ -2955,7 +2880,7 @@ def hard_replay_phase():
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = fc.KERNEL_LAUNCHES
-        gn_launches("hard_replay", launches)
+        check_launches("hard_replay", launches)
     finally:
         for undo in restore:
             undo()
@@ -3170,10 +3095,10 @@ def carried_replay(cfg, scans, fixture):
     restore += gn_tracing(hd, traces)
     try:
         state, fes = hd.init()
-        fc.KERNEL_LAUNCHES = 0
+        launches = -fc.KERNEL_LAUNCHES
         _, _, outs = hd.run(state, fes, scans)
         torch.cuda.synchronize()
-        launches = fc.KERNEL_LAUNCHES
+        launches += fc.KERNEL_LAUNCHES
     finally:
         for undo in restore:
             undo()
@@ -3227,7 +3152,8 @@ def deskew_phase():
         _, _, outs = hd.run(state, fes, scans)
         torch.cuda.synchronize()
         launches += fc.KERNEL_LAUNCHES
-        gn_launches("deskew", fc.KERNEL_LAUNCHES, int((outs.iters > 0).sum()))
+        check_launches("deskew", fc.KERNEL_LAUNCHES,
+                       int((outs.iters > 0).sum()))
         iters += int(outs.iters.sum())
         ates.append(synthetic.ate_rmse(outs.poses.cpu().numpy(),
                                        sm.relative_truth(seq)))
@@ -3379,9 +3305,7 @@ def sharded_rank_work(backend, device_type):
     from lio_slam_tpu_torch.graph import sparse as gsparse
     from lio_slam_tpu_torch.io import synthetic
     from lio_slam_tpu_torch.ops import fused_corr as fc
-    from lio_slam_tpu_torch.ops import gn_small as gs
     from lio_slam_tpu_torch.ops import registration as reg
-    from lio_slam_tpu_torch.ops import window_system as ws
     from lio_slam_tpu_torch.parallel import mesh as mesh_mod
     from lio_slam_tpu_torch.parallel import multislice as ms
     from lio_slam_tpu_torch.parallel import registration as preg
@@ -3390,7 +3314,7 @@ def sharded_rank_work(backend, device_type):
     from lio_slam_tpu_torch.pipeline.runner import Runner
     from lio_slam_tpu_torch.utils import se3
 
-    count_frontend_calls()
+    count_calls()
     mesh = mesh_mod.make_mesh(world, device_type=device_type)
     dev = mesh_mod.mesh_device(mesh)
     t_start = time.perf_counter()
@@ -3516,9 +3440,7 @@ def sharded_rank_work(backend, device_type):
     sync()
     correction_ms = 1e3 * runner.timer.last().get("full_correction", 0.0)
     tail = i - sm.SHARDED_SCANS
-    launches = fc.KERNEL_LAUNCHES
-    gn = (gs.KERNEL_LAUNCHES, gs.EIGH_LAUNCHES)
-    ws_counts = (ws.KERNEL_LAUNCHES, SAVES[0])
+    launches, counts = fc.KERNEL_LAUNCHES, dict(tally())
     part_done("mission")
     rows = mesh_mod.all_gather(runner.state.map_grid.counts.sum().to(
         torch.int64), mesh).cpu().numpy()
@@ -3550,8 +3472,7 @@ def sharded_rank_work(backend, device_type):
         "keyframes_before": n_kf, "keyframes": int(runner.state.store.count),
         "accepted": bool(accepted),
         "correction_scans": list(runner.full_correction_scans),
-        "launches": launches, "gn": gn, "ws": ws_counts,
-        "imu": imu_counts(), "rows": rows,
+        "launches": launches, "tally": counts, "rows": rows,
         "checksums": sums,
         "scans_per_s": (sm.SHARDED_SCANS - 5) / (stamps[-1] - stamps[4]),
         "tail": tail, "profiled_scans": n_prof,
@@ -3589,8 +3510,7 @@ def sharded_rank_work(backend, device_type):
     sync()
     prof.stop()
     # the three registers' GN passes, and gn_small's launches over them
-    gn = (gs.KERNEL_LAUNCHES, gs.EIGH_LAUNCHES)
-    ws_counts = (ws.KERNEL_LAUNCHES, SAVES[0])
+    counts = dict(tally())
     gn_passes = sum(int(r.iterations) for r in (warm, ms_res, profiled))
     psum_rows = [e for e in prof.key_averages()
                  if e.key == "collective:psum"
@@ -3613,8 +3533,7 @@ def sharded_rank_work(backend, device_type):
         reduce_ms[name] = t / SHARDED_REDUCE_REPS
     d = {"mesh": tuple(gmesh.mesh.shape),
          "shard_rows": int(placed[0].shape[0]),
-         "launches": fc.KERNEL_LAUNCHES, "gn": gn, "ws": ws_counts,
-         "imu": imu_counts(),
+         "launches": fc.KERNEL_LAUNCHES, "tally": counts,
          "gn_passes": gn_passes,
          "solver_ms": ms_solver_ms, "reg_ms": ms_reg_ms,
          "iters": int(ms_res.iterations),
@@ -3797,9 +3716,8 @@ def check_sharded(res, fixture):
         fail(f"{tag}: the ranks' replicated leaves differ")
     if m["launches"]:
         fail(f"{tag}: the sharded mapping path launched fused_corr")
-    gn_launches(f"sharded_mission_world{D}", int(m["iters"].sum()),
-                int((m["iters"] > 0).sum()), counts=m["gn"],
-                ws_counts=m["ws"], imu=m["imu"])
+    check_launches(f"sharded_mission_world{D}", int(m["iters"].sum()),
+                   int((m["iters"] > 0).sum()), counts=m["tally"])
     d = res["multislice"]
     print(f"{tag} (d): global_mesh {d['mesh']} (\"slice\", \"data\"); "
           f"multislice solver K=2048: chain-only {d['chain_err']:.3e} from "
@@ -3836,8 +3754,8 @@ def check_sharded(res, fixture):
         fail(f"{tag} (d): psum_staged differs from the flat reduction")
     if d["launches"]:
         fail(f"{tag} (d): the multislice paths launched fused_corr")
-    gn_launches(f"multislice_register_world{D}", d["gn_passes"], 3,
-                counts=d["gn"], ws_counts=d["ws"], imu=d["imu"])
+    check_launches(f"multislice_register_world{D}", d["gn_passes"], 3,
+                   counts=d["tally"])
 
 
 def sharded_phase():
@@ -3961,9 +3879,8 @@ def graph_ms(fn, reps=20):
     between its nodes, as the replay's own graphs do."""
     import torch
 
+    from lio_slam_tpu_torch.ops import _build
     from lio_slam_tpu_torch.ops import fused_corr as fc
-    from lio_slam_tpu_torch.ops import gn_small as gs
-    from lio_slam_tpu_torch.ops import window_system as ws
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -3973,14 +3890,10 @@ def graph_ms(fn, reps=20):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    n0 = fc.CAPTURED_LAUNCHES
-    g0 = gs.CAPTURED_LAUNCHES, gs.CAPTURED_EIGH_LAUNCHES
-    w0 = ws.CAPTURED_LAUNCHES
+    c0 = _build.CAPTURED.copy()
     with torch.cuda.graph(graph, stream=side):
         fn()
-    held = fc.CAPTURED_LAUNCHES - n0
-    gn_held = (gs.CAPTURED_LAUNCHES - g0[0], gs.CAPTURED_EIGH_LAUNCHES - g0[1])
-    ws_held = ws.CAPTURED_LAUNCHES - w0
+    held = _build.CAPTURED - c0
     graph.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -3990,10 +3903,7 @@ def graph_ms(fn, reps=20):
         graph.replay()
     b.record()
     b.synchronize()
-    fc.KERNEL_LAUNCHES += held * (reps + 1)
-    gs.KERNEL_LAUNCHES += gn_held[0] * (reps + 1)
-    gs.EIGH_LAUNCHES += gn_held[1] * (reps + 1)
-    ws.KERNEL_LAUNCHES += ws_held * (reps + 1)
+    _build.LAUNCHES.update({k: n * (reps + 1) for k, n in held.items()})
     return a.elapsed_time(b) / reps
 
 
@@ -4123,9 +4033,9 @@ def profiled_chunk(run, staged, lo, hi):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                fc.KERNEL_LAUNCHES = 0
+                counted = -fc.KERNEL_LAUNCHES
                 run(st, fs, part(lo, hi), last)
-                counted = fc.KERNEL_LAUNCHES
+                counted += fc.KERNEL_LAUNCHES
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t0)
         finally:
@@ -4203,8 +4113,8 @@ def pipeline_replay_phase():
         zero_launches()
         state, fes, outs = no_sync(run, state, fes, staged)
         launches = fc.KERNEL_LAUNCHES
-        gn_launches("pipeline_replay", launches,
-                    graph_scans=outs.poses.shape[0])
+        check_launches("pipeline_replay", launches,
+                       graph_scans=outs.poses.shape[0])
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     finally:
@@ -4228,8 +4138,8 @@ def pipeline_replay_phase():
           f"{int(fixture['registration_iters'].sum())}); drift {drift:.4f} m "
           f"(JAX {float(fixture['drift_m']):.4f} m, bench.py's limit 3 m); "
           f"keyframes {int(state.store.count)} (JAX "
-          f"{int(fixture['keyframes'])}); fused_corr nodes of graphs (a), "
-          f"(b): {run.program.graph_launches}", flush=True)
+          f"{int(fixture['keyframes'])}); kernel nodes of graphs (a), (b): "
+          f"{[dict(c) for c in run.program.launches]}", flush=True)
     _, failures = check_replay_launches(label, launches, len(outs.iters), R,
                                         cycles)
     if not np.isfinite(poses).all():
@@ -4471,7 +4381,8 @@ def loop_replay_phase():
         zero_launches()
         state, fes, outs = no_sync(cr.run, state, fes, chunks)
         launches = fc.KERNEL_LAUNCHES
-        gn_launches("loop_replay", launches, graph_scans=outs.poses.shape[0])
+        check_launches("loop_replay", launches,
+                       graph_scans=outs.poses.shape[0])
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     finally:
@@ -4511,9 +4422,9 @@ def loop_replay_phase():
 
 def resident_replay_phase():
     """Phase 19: (a) `pipeline_replay_phase`, (b) `loop_replay_phase`."""
-    a, graph_launches, err = pipeline_replay_phase()
+    a, profiled, err = pipeline_replay_phase()
     b = loop_replay_phase()
-    return a, graph_launches, b, err
+    return a, profiled, b, err
 
 
 # phase 20 (a): (name, grid_halo, bucket cap, scan sorted by cell), each
@@ -4598,7 +4509,7 @@ def layout_kernel_phase(dev):
                               between=lambda: flush.fill_(1.0))
         bound = kernel_bound(grid.table, hh, scan, mask, grid.counts)
         ms = min(on_device[1:3])
-        warps = _build.load_fused_corr().lio_fused_corr_block_warps(
+        warps = _build.load_kernels().lio_fused_corr_block_warps(
             int(hh.shape[0]), cap)
         print(f"{label} ({SMI}): {warps} warps a block; "
               f"{int(grid.counts.sum())} slots filled in the grid; "
@@ -4670,8 +4581,8 @@ def layout_mission(dev, cfg, scans, imus, carried_from=None, probe=(),
         torch.cuda.synchronize()
         launches = fc.KERNEL_LAUNCHES
         if path is not None:
-            gn_launches(path, launches,
-                        sum(r.registration_iters > 0 for r in results))
+            check_launches(path, launches,
+                           sum(r.registration_iters > 0 for r in results))
     finally:
         undo()
     return (results, launches, (len(scans) - 5) / (stamps[-1] - stamps[4]),
@@ -4725,7 +4636,7 @@ def prefix_probe(label, probed):
     from lio_slam_tpu_torch.ops import _build
     from lio_slam_tpu_torch.ops import fused_corr as fc
 
-    lib = _build.load_fused_corr()
+    lib = _build.load_kernels()
     out = {}
     for i, (table, hh, scan, mask, pose, kw) in sorted(probed.items()):
         counts = kw["counts"]
@@ -4888,8 +4799,8 @@ def layout_replay(label, mission):
         zero_launches()
         _, _, outs = no_sync(run, *run.init(), staged)
         launches = fc.KERNEL_LAUNCHES
-        gn_launches(f"layout_replay_{mission[0]}", launches,
-                    graph_scans=outs.poses.shape[0])
+        check_launches(f"layout_replay_{mission[0]}", launches,
+                       graph_scans=outs.poses.shape[0])
         torch.cuda.synchronize()
     finally:
         for undo in reversed(restore):
@@ -4982,8 +4893,8 @@ def rebuild_replay_phase():
         zero_launches()
         state, _, outs = no_sync(run, *run.init(), staged)
         launches = fc.KERNEL_LAUNCHES
-        gn_launches("rebuild_replay", launches,
-                    graph_scans=outs.poses.shape[0])
+        check_launches("rebuild_replay", launches,
+                       graph_scans=outs.poses.shape[0])
         torch.cuda.synchronize()
     finally:
         for undo in reversed(restore):
@@ -5006,8 +4917,8 @@ def rebuild_replay_phase():
           f"iterations {int(iters.sum())} (JAX "
           f"{int(ref['registration_iters'].sum())}); keyframes "
           f"{int(state.store.count)} (JAX {int(ref['keyframes'])}); ATE "
-          f"{ate:.5f} m (JAX {float(ref['ate_rmse_m']):.5f} m); fused_corr "
-          f"nodes of graphs (a), (b): {run.program.graph_launches}",
+          f"{ate:.5f} m (JAX {float(ref['ate_rmse_m']):.5f} m); kernel nodes "
+          f"of graphs (a), (b): {[dict(c) for c in run.program.launches]}",
           flush=True)
     if not all(same.values()):
         failures.append(f"{label}: not bit-equal to the host-driven replay "
@@ -5108,8 +5019,8 @@ def corner_replay_phase():
             zero_launches()
             _, _, outs[name] = no_sync(run, *run.init(), staged)
             launches[name] = fc.KERNEL_LAUNCHES
-            gn_launches(f"corner_replay_{name}", launches[name],
-                        graph_scans=outs[name].poses.shape[0])
+            check_launches(f"corner_replay_{name}", launches[name],
+                           graph_scans=outs[name].poses.shape[0])
             torch.cuda.synchronize()
         finally:
             for undo in reversed(restore):
@@ -5151,7 +5062,7 @@ def main():
     sys.path.insert(0, ROOT)
     from lio_slam_tpu_torch.ops import _build
 
-    count_frontend_calls()
+    count_calls()
     global SMI
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5173,7 +5084,7 @@ def main():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         host = pool.submit(lambda: (native.load(), time.perf_counter() - t0))
-        _build.load_fused_corr()
+        _build.load_kernels()
         kernel_s = time.perf_counter() - t0
         host_s = host.result()[1]
     built = ("an existing build" if _build.BUILD_SECONDS is None
@@ -5226,12 +5137,10 @@ def main():
     rebuild_replay, corner_replay, rebuild_err = phase(
         "phase 21 (resident replays at the rebuild-mode map and the corner "
         "config)", resident_modes_phase)
-    if WS_FAULTS:
-        fail("window_system's launches are not two a keyframe save: "
-             + "; ".join(WS_FAULTS))
-    if IMU_FAULTS:
-        fail("imu_frontend's launches are not one a call: "
-             + "; ".join(IMU_FAULTS))
+    if FAULTS:
+        fail("kernel launches are not what the paths' calls ask: "
+             + "; ".join(FAULTS))
+    total = sum(PATHS.values(), collections.Counter())
     paths = {"mission": launches, "loop_mapping": loop_map,
              "loop_verification": loop_ver, **arch, "resume": resumed,
              "bag_mapping": bag_map, "bag_loop_verification": bag_ver,
@@ -5242,7 +5151,8 @@ def main():
              "loop_replay": loop_replay,
              **{f"layout_{k}": v for k, v in layout_launches.items()},
              "rebuild_replay": rebuild_replay, "corner_replay": corner_replay}
-    print(json.dumps({"kernels": [{
+    print(json.dumps({"paths": {p: dict(c) for p, c in PATHS.items()},
+                      "kernels": [{
         "name": "fused_corr", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/fused_corr.cu",
         "replaces": "lio_slam_tpu/ops/fused_corr.py:124",
@@ -5257,7 +5167,7 @@ def main():
         "bound_by": k["bound_by"], "library_ms": None, "cold_ms": k["cold_ms"],
         "entry_ms": k["entry_ms"], "entry_plain_ms": k["entry_plain_ms"],
         "layouts": {"z": {"halo": "z", "offsets": 9, "cap": CAP,
-                          "warps": _build.load_fused_corr(
+                          "warps": _build.load_kernels(
                               ).lio_fused_corr_block_warps(9, CAP),
                           "sorted_scan": False, "ms": k["ms"],
                           "plain_ms": k["plain_ms"], "cold_ms": k["cold_ms"],
@@ -5270,25 +5180,18 @@ def main():
                           "max_abs_err": k["max_abs_err"]}, **layouts}}, {
         "name": "gn_small", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/gn_small.cu", "replaces": None,
-        "launches": sum(n for n, _ in GN_PATHS.values()),
-        "eigh_launches": sum(e for _, e in GN_PATHS.values()),
-        **{f"launches_{p}": n for p, (n, _) in GN_PATHS.items()},
-        **{f"eigh_launches_{p}": e for p, (_, e) in GN_PATHS.items()},
-        **gk, "library_ms": None}, {
+        "launches": total["gn_small"] + total["gn_small_eigh"],
+        "eigh_launches": total["gn_small_eigh"], **gk, "library_ms": None}, {
         "name": "window_system", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/window_system.cu",
         "replaces": None,
-        "launches": sum(n for n, _ in WS_PATHS.values()),
-        "saves": sum(v for _, v in WS_PATHS.values()),
-        **{f"launches_{p}": n for p, (n, _) in WS_PATHS.items()},
-        **{f"saves_{p}": v for p, (_, v) in WS_PATHS.items()},
-        **wk, "library_ms": None}, {
+        "launches": total["window_system"], "saves": total["save"], **wk,
+        "library_ms": None}, {
         "name": "imu_frontend", "route": "cuda",
         "source": "lio_slam_tpu_torch/ops/csrc/imu_frontend.cu",
         "replaces": None,
-        **{f"{kind}_{p}": v[i] for p, v in IMU_PATHS.items()
-           for i, kind in enumerate(("correct_launches", "corrections",
-                                     "predict_launches", "predictions"))},
+        **{f"{k}_launches": total[f"imu_{k}"]
+           for k in ("correct", "predict", "fusion")},
         **ik, "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

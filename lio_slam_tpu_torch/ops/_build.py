@@ -12,10 +12,20 @@ Each is compiled on first use into `build/lio_slam_tpu_torch/` at the
 repository root (listed in .gitignore), named by a hash of its sources and
 flags, so an edited source rebuilds.  Nothing here runs at import time: the
 CPU-only tests import every module.
+
+Every kernel of the library is launched through `launch`, which counts it
+in `LAUNCHES` under one key: "fused_corr", "gn_small" (the solve alone),
+"gn_small_eigh" (the solve and the eigensolve), "window_system",
+"imu_correct", "imu_predict", "imu_fusion".  A launch recorded into a CUDA
+graph counts in `CAPTURED` instead; the graph's owner adds what a graph
+holds to `LAUNCHES` at each replay, where the kernels run
+(`pipeline/replay._ScanProgram`).  Adding a kernel touches its `.cu` file,
+its wrapper, `_SOURCES` and its binder.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -23,6 +33,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 _SOURCES = (_PKG / "csrc" / "fused_corr.cu", _PKG / "csrc" / "gn_small.cu",
@@ -39,6 +51,8 @@ _lib = None
 _host_lib = None
 BUILD_SECONDS = None      # wall time of this process's compile (None if cached)
 BUILD_LOG = ""            # nvcc's output (ptxas register / spill report)
+LAUNCHES = collections.Counter()    # kernel launches by key
+CAPTURED = collections.Counter()    # launches recorded into CUDA graphs
 
 
 def _nvcc() -> str:
@@ -77,7 +91,7 @@ def _compile(compiler: str, flags, sources, so: Path) -> tuple:
     return seconds, log
 
 
-def load_fused_corr() -> ctypes.CDLL:
+def load_kernels() -> ctypes.CDLL:
     """Return the kernel library, compiling it if these sources have no build.
     BUILD_SECONDS and BUILD_LOG describe the compile this call made."""
     global _lib, BUILD_SECONDS, BUILD_LOG
@@ -89,6 +103,28 @@ def load_fused_corr() -> ctypes.CDLL:
     _lib = bind_imu_frontend(bind_window_system(
         bind_gn_small(bind_fused_corr(ctypes.CDLL(str(so))))))
     return _lib
+
+
+def launch(kernel: str, device, fn, *args):
+    """Launch `kernel` through `fn(*args, stream)`, which returns (the
+    launcher's cudaError_t, the results), and return the results.  On a
+    CUDA device `fn` runs with that device current and gets its current
+    stream; on the CPU (the tests' emulated builds) it gets None.  A nonzero
+    error raises `RuntimeError` and counts nothing; otherwise the launch
+    counts once under `kernel`, in `CAPTURED` while the stream captures a
+    CUDA graph, else in `LAUNCHES`."""
+    dev = torch.device(device)
+    captured = False
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):    # the launcher's current device
+            err, out = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+            captured = torch.cuda.is_current_stream_capturing()
+    else:
+        err, out = fn(*args, None)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")
+    (CAPTURED if captured else LAUNCHES)[kernel] += 1
+    return out
 
 
 def bind_fused_corr(lib: ctypes.CDLL) -> ctypes.CDLL:

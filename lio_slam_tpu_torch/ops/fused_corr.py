@@ -37,11 +37,8 @@ on the input's device; nothing here waits for the device.
   sums come out NaN; its loaders (the vendor adapters of `io/formats.py`,
   not ported yet) remove such points before they get here.  `pose6` must
   be finite.
-- `KERNEL_LAUNCHES` counts launches of the kernel and nothing else.  A
-  launch recorded into a CUDA graph is not one: it counts in
-  `CAPTURED_LAUNCHES` instead, and the graph's owner adds its captured
-  count to `KERNEL_LAUNCHES` at each replay, where the kernel runs
-  (`pipeline/replay._ScanProgram`).
+- A launch counts in `_build.LAUNCHES["fused_corr"]` (graph replays
+  included, `ops/_build.launch`); `KERNEL_LAUNCHES` reads that count.
 - Under capture the launch must find its scratch made: `prepare_stream`
   on the capture stream, before the capture, makes it outside the graph's
   memory pool.
@@ -59,6 +56,7 @@ import math
 
 import torch
 
+from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.ops import voxel_grid as vg
 from lio_slam_tpu_torch.utils import se3
 
@@ -69,14 +67,18 @@ KERNEL_OFFSETS = (1, 3, 9, 27)
 # the kernel's output words: AtA (6x6, symmetric), Atb (6), Σs, Σs·|pd2| as
 # float32, then n_inliers as an int32
 OUT_WORDS = 45
-KERNEL_LAUNCHES = 0
-CAPTURED_LAUNCHES = 0         # launches recorded into CUDA graphs
 # zeroed scratch (ticket + per-block partials) per (device index, stream):
 # the kernel's last block resets the ticket, so a buffer serves every call
 # on its stream.  Calls on one stream run in order, so one host thread
 # launches on a stream at a time; a launch that is aborted part-way (a
 # device fault) leaves the ticket unusable, like the rest of the context.
 _SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def __getattr__(name):
+    if name == "KERNEL_LAUNCHES":     # the kernel's launches, replays included
+        return _build.LAUNCHES["fused_corr"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _views(out: torch.Tensor):
@@ -300,6 +302,29 @@ def _kernel_args(table, hh, scan, scan_mask, pose6, nn_radius,
             ctypes.c_float(robust_weight_floor))
 
 
+def kernel_launch(lib, table, hh, scan, scan_mask, pose6, nn_radius,
+                  plane_dist_thresh, robust_weight_floor, counts, scratch,
+                  stream):
+    """One launch of the kernel through `lib` on `stream` (the card's
+    build, or the tests' emulated one with CPU tensors and no stream):
+    (cudaError_t, the 45 output words).  `scratch` is the zeroed scratch to
+    launch with, None for the one of `stream` on the card."""
+    if scratch is None:
+        scratch = _SCRATCH.get((table.device.index, stream))
+    if scratch is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused_corr: no scratch on the capturing "
+                               "stream; call prepare_stream() on it before "
+                               "the capture")
+        scratch = prepare_stream(table.device)
+    out = torch.empty(OUT_WORDS, dtype=torch.float32, device=table.device)
+    err = lib.lio_fused_corr(
+        *_kernel_args(table, hh, scan, scan_mask, pose6, nn_radius,
+                      plane_dist_thresh, robust_weight_floor, counts),
+        scratch.data_ptr(), scratch.numel(), out.data_ptr(), stream)
+    return err, out
+
+
 def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
                              scan: torch.Tensor, scan_mask: torch.Tensor,
                              pose6: torch.Tensor, k: int = KNN,
@@ -325,46 +350,21 @@ def fused_ne_from_bucket_ids(table: torch.Tensor, hh: torch.Tensor,
     if k != KNN:
         raise ValueError(f"the kernel selects {KNN} neighbours, got k={k}")
     _check_cuda_inputs(table, hh, scan, scan_mask, pose6, counts)
-    from lio_slam_tpu_torch.ops import _build
-
-    lib = _build.load_fused_corr()
-    dev = table.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    capturing = torch.cuda.is_current_stream_capturing()
-    scratch = _SCRATCH.get((dev.index, stream))
-    if scratch is None:
-        if capturing:
-            raise RuntimeError("fused_corr: no scratch on the capturing "
-                               "stream; call prepare_stream() on it before "
-                               "the capture")
-        scratch = prepare_stream(dev)
-    out = torch.empty(OUT_WORDS, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):      # the launcher works on the current device
-        err = lib.lio_fused_corr(
-            *_kernel_args(table, hh, scan, scan_mask, pose6, nn_radius,
-                          plane_dist_thresh, robust_weight_floor, counts),
-            scratch.data_ptr(), scratch.numel(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_corr kernel launch failed: cudaError_t {err}")
-    global KERNEL_LAUNCHES, CAPTURED_LAUNCHES
-    if capturing:
-        CAPTURED_LAUNCHES += 1
-    else:
-        KERNEL_LAUNCHES += 1
-    return _views(out)
+    return _views(_build.launch(
+        "fused_corr", table.device, kernel_launch, _build.load_kernels(),
+        table, hh, scan, scan_mask, pose6, nn_radius, plane_dist_thresh,
+        robust_weight_floor, counts, None))
 
 
 def prepare_stream(device) -> torch.Tensor:
     """The zeroed scratch of the kernel on `device`'s current stream, made
     where there is none yet (never while that stream captures)."""
-    from lio_slam_tpu_torch.ops import _build
-
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if key not in _SCRATCH:
-        n = _build.load_fused_corr().lio_fused_corr_scratch_floats()
+        n = _build.load_kernels().lio_fused_corr_scratch_floats()
         _SCRATCH[key] = torch.zeros(n, dtype=torch.float32, device=dev)
     return _SCRATCH[key]
 

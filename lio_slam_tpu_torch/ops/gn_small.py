@@ -18,27 +18,21 @@ so its results are the plain version's bit for bit.
 - On the card the results are views of one buffer the kernel wrote whole,
   allocated with `torch.empty`, so the launch can be captured in a CUDA
   graph; nothing here waits for the device.
-- `KERNEL_LAUNCHES` counts launches, `EIGH_LAUNCHES` those of them with the
-  eigensolve (first passes).  A launch recorded into a CUDA graph counts in
-  `CAPTURED_LAUNCHES` / `CAPTURED_EIGH_LAUNCHES` instead, and the graph's
-  owner adds its captured counts at each replay
-  (`pipeline/replay._ScanProgram`), as with `fused_corr`.
+- A launch counts in `_build.LAUNCHES` (`ops/_build.launch`) under
+  "gn_small", or "gn_small_eigh" with the eigensolve (first passes).
 """
 
 from __future__ import annotations
 
 import torch
 
+from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.utils import smallmat
 
 EPS = 1e-6                # the Levenberg damping of the solve
 # the kernel's output words: dx, then with the eigensolve the eigenvalues
 # and the eigenvectors (row-major, one a column)
 OUT_WORDS = {False: 6, True: 6 + 6 + 36}
-KERNEL_LAUNCHES = 0
-EIGH_LAUNCHES = 0
-CAPTURED_LAUNCHES = 0     # launches recorded into CUDA graphs
-CAPTURED_EIGH_LAUNCHES = 0
 
 
 def _on_card(AtA: torch.Tensor, Atb: torch.Tensor) -> bool:
@@ -56,28 +50,20 @@ def _on_card(AtA: torch.Tensor, Atb: torch.Tensor) -> bool:
     return True
 
 
-def _launch(AtA: torch.Tensor, Atb: torch.Tensor, eigh: bool) -> torch.Tensor:
-    from lio_slam_tpu_torch.ops import _build
-
-    global KERNEL_LAUNCHES, EIGH_LAUNCHES, CAPTURED_LAUNCHES, \
-        CAPTURED_EIGH_LAUNCHES
-    lib = _build.load_fused_corr()
-    dev = AtA.device
+def kernel_launch(lib, AtA: torch.Tensor, Atb: torch.Tensor, eigh: bool,
+                  stream):
+    """One launch of the kernel through `lib` on `stream` (the card's
+    build, or the tests' emulated one with CPU tensors and no stream):
+    (cudaError_t, the output words)."""
     AtA, Atb = AtA.contiguous(), Atb.contiguous()
-    out = torch.empty(OUT_WORDS[eigh], dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):      # the launcher works on the current device
-        err = lib.lio_gn_small(AtA.data_ptr(), Atb.data_ptr(), int(eigh),
-                               out.data_ptr(),
-                               torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gn_small kernel launch failed: cudaError_t {err}")
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED_LAUNCHES += 1
-        CAPTURED_EIGH_LAUNCHES += eigh
-    else:
-        KERNEL_LAUNCHES += 1
-        EIGH_LAUNCHES += eigh
-    return out
+    out = torch.empty(OUT_WORDS[eigh], dtype=torch.float32, device=AtA.device)
+    return lib.lio_gn_small(AtA.data_ptr(), Atb.data_ptr(), int(eigh),
+                            out.data_ptr(), stream), out
+
+
+def _launch(AtA: torch.Tensor, Atb: torch.Tensor, eigh: bool) -> torch.Tensor:
+    return _build.launch("gn_small_eigh" if eigh else "gn_small", AtA.device,
+                         kernel_launch, _build.load_kernels(), AtA, Atb, eigh)
 
 
 def solve(AtA: torch.Tensor, Atb: torch.Tensor) -> torch.Tensor:

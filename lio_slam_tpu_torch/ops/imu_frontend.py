@@ -28,10 +28,8 @@ launch can be captured in a CUDA graph; nothing here waits for the device.
 The kernels agree with the plain versions to rounding, not bit for bit
 (the source says where their sums part), and repeat their bits.
 
-`KERNEL_LAUNCHES` counts launches by kernel ("correct", "predict",
-"fusion"); a launch recorded into a CUDA graph counts in
-`CAPTURED_LAUNCHES` instead, and the graph's owner adds its captured counts
-at each replay (`pipeline/replay._ScanProgram`), as with `fused_corr`.
+A launch counts in `_build.LAUNCHES` (`ops/_build.launch`) under
+"imu_correct", "imu_predict" or "imu_fusion".
 """
 
 from __future__ import annotations
@@ -40,9 +38,8 @@ from typing import NamedTuple
 
 import torch
 
-KERNELS = ("correct", "predict", "fusion")
-KERNEL_LAUNCHES = dict.fromkeys(KERNELS, 0)
-CAPTURED_LAUNCHES = dict.fromkeys(KERNELS, 0)    # recorded into CUDA graphs
+from lio_slam_tpu_torch.ops import _build
+
 # the correction's output words: R (9), p, v, bias_gyr, bias_acc (3 each),
 # the covariance (225), the flags' word
 OUT_WORDS = 21 + 225 + 1
@@ -119,28 +116,12 @@ def _check_state(state):
         raise ValueError(f"the IMU front end's state has shapes {shapes}")
 
 
-def _count(kernel: str):
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED_LAUNCHES[kernel] += 1
-    else:
-        KERNEL_LAUNCHES[kernel] += 1
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _raise_on(err: int, kernel: str):
-    if err != 0:
-        raise RuntimeError(f"imu_frontend {kernel} kernel launch failed: "
-                           f"cudaError_t {err}")
-
-
 def correct_launch(lib, state, acc, gyr, dt, mask, lidar_pose6, degenerate,
                    p: Params, stream) -> tuple:
     """One launch of the correction through `lib` on `stream` (the card's
-    build, or the tests' emulated one with CPU tensors): the leaves of the
-    corrected state, views of one buffer."""
+    build, or the tests' emulated one with CPU tensors and no stream):
+    (cudaError_t, the leaves of the corrected state, views of one
+    buffer)."""
     W = _check_window(acc, gyr, dt, mask)
     _check_state(state)
     if tuple(lidar_pose6.shape) != (6,) or tuple(degenerate.shape) != ():
@@ -156,16 +137,15 @@ def correct_launch(lib, state, acc, gyr, dt, mask, lidar_pose6, degenerate,
         *(x.data_ptr() for x in held[11:]), p.gravity, p.pileup_dt,
         p.fallback_dt, p.acc_noise, p.gyr_noise, p.init_cov, p.acc_bias_var,
         p.gyr_bias_var, out.data_ptr(), stream)
-    _raise_on(err, "correct")
     flags = out[-1:].view(torch.bool)
-    return (out[:9].view(3, 3), out[9:12], out[12:15], out[15:18],
-            out[18:21], out[21:246].view(15, 15), flags[0], flags[1])
+    return err, (out[:9].view(3, 3), out[9:12], out[12:15], out[15:18],
+                 out[18:21], out[21:246].view(15, 15), flags[0], flags[1])
 
 
 def predict_launch(lib, state, acc, gyr, dt, mask, p: Params,
-                   stream) -> torch.Tensor:
-    """One launch of the rate prediction through `lib` on `stream`: the
-    (W, 6) pose train."""
+                   stream) -> tuple:
+    """One launch of the rate prediction through `lib` on `stream`:
+    (cudaError_t, the (W, 6) pose train)."""
     W = _check_window(acc, gyr, dt, mask)
     _check_state(state)
     out = torch.empty((W, 6), dtype=torch.float32, device=acc.device)
@@ -173,14 +153,13 @@ def predict_launch(lib, state, acc, gyr, dt, mask, p: Params,
     err = lib.lio_imu_predict(*(x.data_ptr() for x in held), W, p.gravity,
                               p.pileup_dt, p.fallback_dt, out.data_ptr(),
                               stream)
-    _raise_on(err, "predict")
-    return out
+    return err, out
 
 
 def fusion_launch(lib, lidar_odom6, imu_front6, imu_back6,
-                  stream) -> torch.Tensor:
-    """One launch of TransformFusion through `lib` on `stream`: poses
-    shaped as `imu_back6`."""
+                  stream) -> tuple:
+    """One launch of TransformFusion through `lib` on `stream`:
+    (cudaError_t, poses shaped as `imu_back6`)."""
     if (tuple(lidar_odom6.shape) != (6,) or tuple(imu_front6.shape) != (6,)
             or imu_back6.dim() < 1 or imu_back6.shape[-1] != 6
             or imu_back6.numel() == 0):
@@ -194,42 +173,25 @@ def fusion_launch(lib, lidar_odom6, imu_front6, imu_back6,
     err = lib.lio_imu_fusion(lidar.data_ptr(), front.data_ptr(),
                              back.data_ptr(), back.numel() // 6,
                              out.data_ptr(), stream)
-    _raise_on(err, "fusion")
-    return out
-
-
-def _lib():
-    from lio_slam_tpu_torch.ops import _build
-
-    return _build.load_fused_corr()
+    return err, out
 
 
 def correct(state, acc, gyr, dt, mask, lidar_pose6, degenerate,
             p: Params) -> tuple:
     """The correction on the card (see `correct_launch`)."""
-    dev = acc.device
-    with torch.cuda.device(dev):      # the launcher works on the current device
-        out = correct_launch(_lib(), state, acc, gyr, dt, mask, lidar_pose6,
-                             degenerate, p, _stream(dev))
-    _count("correct")
-    return out
+    return _build.launch("imu_correct", acc.device, correct_launch,
+                         _build.load_kernels(), state, acc, gyr, dt, mask,
+                         lidar_pose6, degenerate, p)
 
 
 def predict(state, acc, gyr, dt, mask, p: Params) -> torch.Tensor:
     """The rate prediction on the card (see `predict_launch`)."""
-    dev = acc.device
-    with torch.cuda.device(dev):
-        out = predict_launch(_lib(), state, acc, gyr, dt, mask, p,
-                             _stream(dev))
-    _count("predict")
-    return out
+    return _build.launch("imu_predict", acc.device, predict_launch,
+                         _build.load_kernels(), state, acc, gyr, dt, mask, p)
 
 
 def fusion(lidar_odom6, imu_front6, imu_back6) -> torch.Tensor:
     """TransformFusion on the card (see `fusion_launch`)."""
-    dev = imu_back6.device
-    with torch.cuda.device(dev):
-        out = fusion_launch(_lib(), lidar_odom6, imu_front6, imu_back6,
-                            _stream(dev))
-    _count("fusion")
-    return out
+    return _build.launch("imu_fusion", imu_back6.device, fusion_launch,
+                         _build.load_kernels(), lidar_odom6, imu_front6,
+                         imu_back6)

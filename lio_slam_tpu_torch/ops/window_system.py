@@ -23,21 +23,19 @@ a graph on the card comes here, a CPU graph runs the plain version
 - The launch reads `count` on the device, reads nothing on the host and
   writes into `torch.empty` outputs, so it can be captured in a CUDA
   graph; nothing here waits for the device.
-- `KERNEL_LAUNCHES` counts launches; a launch recorded into a CUDA graph
-  counts in `CAPTURED_LAUNCHES` instead, and the graph's owner adds its
-  captured count at each replay (`pipeline/replay._ScanProgram`), as with
-  `fused_corr` and `gn_small`.
+- A launch counts in `_build.LAUNCHES["window_system"]`
+  (`ops/_build.launch`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from lio_slam_tpu_torch.ops import _build
+
 # the kernel keeps a block row in shared memory (MAX_WINDOW in the source,
 # which refuses a wider window itself)
 MAX_WINDOW = 128
-KERNEL_LAUNCHES = 0
-CAPTURED_LAUNCHES = 0     # launches recorded into CUDA graphs
 
 _FLOATS = ("poses", "prior_pose", "prior_info", "bt_meas", "bt_info",
            "gps_meas", "gps_info")
@@ -69,35 +67,30 @@ def _check(graph, count: torch.Tensor, window: int):
                          + ", ".join(bad))
 
 
+def kernel_launch(lib, graph, count: torch.Tensor, window: int, stream):
+    """One launch of the kernel through `lib` on `stream` (the card's
+    build, or the tests' emulated one with CPU tensors and no stream):
+    (cudaError_t, (H, b))."""
+    g = type(graph)(*(x.contiguous() for x in graph))
+    count = count.to(torch.int32)
+    W = window
+    dev = g.poses.device
+    H = torch.empty((6 * W, 6 * W), dtype=torch.float32, device=dev)
+    b = torch.empty(6 * W, dtype=torch.float32, device=dev)
+    err = lib.lio_window_system(
+        g.poses.data_ptr(), g.poses.shape[0], count.data_ptr(),
+        g.prior_pose.data_ptr(), g.prior_info.data_ptr(), g.bt_i.data_ptr(),
+        g.bt_j.data_ptr(), g.bt_meas.data_ptr(), g.bt_info.data_ptr(),
+        g.bt_mask.data_ptr(), g.bt_i.shape[0], g.gps_i.data_ptr(),
+        g.gps_meas.data_ptr(), g.gps_info.data_ptr(), g.gps_mask.data_ptr(),
+        g.gps_i.shape[0], W, H.data_ptr(), b.data_ptr(), stream)
+    return err, (H, b)
+
+
 def assemble(graph, count: torch.Tensor, window: int):
     """(H (6W, 6W), b (6W,)) of the window solve's GN iteration at
     `graph.poses`, the window being the last `window` of `count` keyframes:
     one kernel launch on the graph's device."""
-    from lio_slam_tpu_torch.ops import _build
-
-    global KERNEL_LAUNCHES, CAPTURED_LAUNCHES
     _check(graph, count, window)
-    lib = _build.load_fused_corr()
-    dev = graph.poses.device
-    g = type(graph)(*(x.contiguous() for x in graph))
-    count = count.to(torch.int32)
-    W = window
-    H = torch.empty((6 * W, 6 * W), dtype=torch.float32, device=dev)
-    b = torch.empty(6 * W, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):      # the launcher works on the current device
-        err = lib.lio_window_system(
-            g.poses.data_ptr(), g.poses.shape[0], count.data_ptr(),
-            g.prior_pose.data_ptr(), g.prior_info.data_ptr(),
-            g.bt_i.data_ptr(), g.bt_j.data_ptr(), g.bt_meas.data_ptr(),
-            g.bt_info.data_ptr(), g.bt_mask.data_ptr(), g.bt_i.shape[0],
-            g.gps_i.data_ptr(), g.gps_meas.data_ptr(), g.gps_info.data_ptr(),
-            g.gps_mask.data_ptr(), g.gps_i.shape[0], W, H.data_ptr(),
-            b.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window_system kernel launch failed: "
-                           f"cudaError_t {err}")
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED_LAUNCHES += 1
-    else:
-        KERNEL_LAUNCHES += 1
-    return H, b
+    return _build.launch("window_system", graph.poses.device, kernel_launch,
+                         _build.load_kernels(), graph, count, window)

@@ -43,9 +43,8 @@ Two forms:
   prep+predict+mapping step and (b) front-end correction + TransformFusion
   over the rate train, on static buffers that the graphs update in place;
   nothing is read back inside a scan or between the scans of a chunk.  The
-  kernel launches a graph holds count in `fused_corr.KERNEL_LAUNCHES`,
-  `gn_small.KERNEL_LAUNCHES`, `window_system.KERNEL_LAUNCHES` and
-  `imu_frontend.KERNEL_LAUNCHES` at each replay.  Capture happens once per
+  kernel launches a graph holds count in `ops/_build.LAUNCHES` at each
+  replay.  Capture happens once per
   program (at `capture` or the first call); a failed capture raises, and
   there is no fallback to the host-driven loop.  On the CPU (`device="cpu"`, the tests) the same
   resident step runs eagerly.
@@ -65,11 +64,13 @@ and at the scan that consumed it in the JAX monolith.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
 
 from lio_slam_tpu_torch.config import Config
+from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.ops import deskew as deskew_mod
 from lio_slam_tpu_torch.pipeline import imu_frontend as fe
 from lio_slam_tpu_torch.pipeline import lio
@@ -278,12 +279,8 @@ class _ScanProgram:
             fe.make_frontend(cfg.imu)
         self.state = self.fes = self.last_pose = self.scan = None
         self.graphs = None
-        self.graph_launches = (0, 0)     # fused_corr nodes of (a), (b)
-        # gn_small nodes of (a), (b): (launches, of them with the eigensolve)
-        self.gn_graph_launches = ((0, 0), (0, 0))
-        self.ws_graph_launches = (0, 0)  # window_system nodes of (a), (b)
-        # imu_frontend nodes of (a), (b), by kernel
-        self.imu_graph_launches = ({}, {})
+        # the kernel launches graphs (a), (b) hold, by `_build.LAUNCHES` key
+        self.launches = (collections.Counter(), collections.Counter())
         self.capture_seconds = None
         self._scan_span = None           # the open `replay.scan`
 
@@ -343,18 +340,15 @@ class _ScanProgram:
         self.capture_seconds = time.perf_counter() - t0
 
     def _capture(self, batch: ReplayBatch):
-        from lio_slam_tpu_torch.ops import (fused_corr, gn_small,
-                                            imu_frontend, window_system)
-
-        def gn_captured():
-            return (gn_small.CAPTURED_LAUNCHES,
-                    gn_small.CAPTURED_EIGH_LAUNCHES)
+        from lio_slam_tpu_torch.ops import fused_corr
 
         _copy_into(self.scan, ReplayBatch(*(a[0] for a in batch)))
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         held = (self.state, self.fes, self.last_pose)
         with torch.cuda.stream(side):
+            # the one kernel named here: the fused kernel's scratch must
+            # exist on the capture stream before the capture
             fused_corr.prepare_stream(self.device)
             for _ in range(2):
                 self.state, self.fes, self.last_pose = _clone(held)
@@ -362,30 +356,18 @@ class _ScanProgram:
         self.state, self.fes, self.last_pose = held
         torch.cuda.synchronize(self.device)
         graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        n0, g0 = fused_corr.CAPTURED_LAUNCHES, gn_captured()
-        w0 = window_system.CAPTURED_LAUNCHES
-        i0 = dict(imu_frontend.CAPTURED_LAUNCHES)
+        c0 = _build.CAPTURED.copy()
         try:
             with torch.cuda.graph(graph_a, stream=side):
                 mapped = self._stage_a()
-            n_a, g_a = fused_corr.CAPTURED_LAUNCHES - n0, gn_captured()
-            w_a = window_system.CAPTURED_LAUNCHES - w0
-            i_a = dict(imu_frontend.CAPTURED_LAUNCHES)
+            c_a = _build.CAPTURED.copy()
             with torch.cuda.graph(graph_b, pool=graph_a.pool(), stream=side):
                 pose, fused = self._stage_b(mapped)
         except Exception as exc:
             raise RuntimeError("capturing the resident replay's per-scan "
                                f"step as a CUDA graph failed: {exc}") from exc
         torch.cuda.synchronize(self.device)
-        self.graph_launches = (n_a, fused_corr.CAPTURED_LAUNCHES - n0 - n_a)
-        g_b = gn_captured()
-        self.gn_graph_launches = (tuple(a - b for a, b in zip(g_a, g0)),
-                                  tuple(a - b for a, b in zip(g_b, g_a)))
-        self.ws_graph_launches = (w_a,
-                                  window_system.CAPTURED_LAUNCHES - w0 - w_a)
-        self.imu_graph_launches = tuple(
-            {k: hi[k] - lo[k] for k in lo}
-            for lo, hi in ((i0, i_a), (i_a, imu_frontend.CAPTURED_LAUNCHES)))
+        self.launches = (c_a - c0, _build.CAPTURED - c_a)
         self.graphs = (graph_a, graph_b)
         self._a, self._b = mapped, (pose, fused)
 
@@ -402,16 +384,8 @@ class _ScanProgram:
 
     def _replay(self, k: int):
         """Replay graph `k`; its kernel launches count here."""
-        from lio_slam_tpu_torch.ops import (fused_corr, gn_small,
-                                            imu_frontend, window_system)
-
         self.graphs[k].replay()
-        fused_corr.KERNEL_LAUNCHES += self.graph_launches[k]
-        gn_small.KERNEL_LAUNCHES += self.gn_graph_launches[k][0]
-        gn_small.EIGH_LAUNCHES += self.gn_graph_launches[k][1]
-        window_system.KERNEL_LAUNCHES += self.ws_graph_launches[k]
-        for name, n in self.imu_graph_launches[k].items():
-            imu_frontend.KERNEL_LAUNCHES[name] += n
+        _build.LAUNCHES.update(self.launches[k])
 
     def finish_scan(self, mapped: _ScanMapped, outs: ReplayOut, i: int):
         """Stage (b) of the scan, its outputs written at row `i` of

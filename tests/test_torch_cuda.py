@@ -21,9 +21,9 @@ from torch_port_helpers import (GN_SMALL_CASES, IMU_CASES, IMU_POSE_ATOL,
 from lio_slam_tpu_torch.config import Config, LoopClosureConfig
 from lio_slam_tpu_torch.graph import solver
 from lio_slam_tpu_torch.io import synthetic
+from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.ops import fused_corr as fc
 from lio_slam_tpu_torch.ops import gn_small as gn
-from lio_slam_tpu_torch.ops import imu_frontend as imu
 from lio_slam_tpu_torch.ops import voxel_grid as vg
 from lio_slam_tpu_torch.ops import window_system as ws
 from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
@@ -31,6 +31,18 @@ from lio_slam_tpu_torch.pipeline.runner import Runner
 
 KW = dict(nn_radius=1.0, plane_dist_thresh=0.2, robust_weight_floor=0.1)
 POSE = np.array([0.02, -0.01, 0.3, 0.5, -0.2, 0.1], np.float32)
+IMU_KEYS = ("imu_correct", "imu_predict", "imu_fusion")
+
+
+def since(before):
+    """The kernels' launches since `before`, a copy of `_build.LAUNCHES`,
+    by key."""
+    return _build.LAUNCHES - before
+
+
+def gn_passes(launches):
+    """The GN step's launches: with the eigensolve (first passes) or not."""
+    return launches["gn_small"] + launches["gn_small_eigh"]
 
 
 @pytest.fixture
@@ -65,10 +77,10 @@ def test_kernel_matches_plain_version(cuda, seed):
     mask = torch.ones(len(scan), dtype=torch.bool, device=cuda)
     mask[::7] = False
     pose = t(POSE).to(cuda)
-    before = fc.KERNEL_LAUNCHES
+    before = _build.LAUNCHES.copy()
     out = fc.fused_normal_equations(grid, scan, mask, pose, **KW)
     torch.cuda.synchronize()
-    assert fc.KERNEL_LAUNCHES == before + 1
+    assert since(before) == {"fused_corr": 1}
     ref = fc.fused_normal_equations_ref(grid, scan, mask, pose, **KW)
     assert int(out[2]) > 100
     assert_ne_close(out, ref)
@@ -113,10 +125,10 @@ def test_kernel_at_every_layout(cuda, halo, cap):
     mask = torch.ones(len(scan), dtype=torch.bool, device=cuda)
     mask[3::11] = False
     pose = t(POSE).to(cuda)
-    before = fc.KERNEL_LAUNCHES
+    before = _build.LAUNCHES.copy()
     out = fc.fused_normal_equations(grid, scan, mask, pose, halo=halo, **KW)
     torch.cuda.synchronize()
-    assert fc.KERNEL_LAUNCHES == before + 1
+    assert since(before) == {"fused_corr": 1}
     ref = fc.fused_normal_equations_ref(grid, scan, mask, pose, halo=halo, **KW)
     assert int(out[2]) > 100
     assert_ne_close(out, ref)
@@ -171,14 +183,14 @@ def test_wrapper_refuses_counts_that_are_not_the_grids(cuda):
     mask = torch.ones(len(scan), dtype=torch.bool, device=cuda)
     pose = t(POSE).to(cuda)
     hh = fc._bucket_ids_at(grid, scan, pose, "z")[:1].contiguous()
-    before = fc.KERNEL_LAUNCHES
+    before = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     for bad, err in ((grid.counts.long(), TypeError),
                      (grid.counts[:-1], ValueError),
                      (grid.counts.cpu(), ValueError)):
         with pytest.raises(err):
             fc.fused_ne_from_bucket_ids(grid.table, hh, scan, mask, pose, **KW,
                                         counts=bad)
-    assert fc.KERNEL_LAUNCHES == before
+    assert (_build.LAUNCHES, _build.CAPTURED) == before
 
 
 @pytest.mark.cuda
@@ -211,7 +223,7 @@ def test_wrapper_refuses_other_offset_counts_and_narrow_buckets(cuda):
     mask = torch.ones(len(scan), dtype=torch.bool, device=cuda)
     pose = t(POSE).to(cuda)
     hh = vg.bucket_ids(scan, grid.cell_size, grid.table.shape[0])
-    before = fc.KERNEL_LAUNCHES
+    before = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     for ids in (hh[:2], torch.cat([hh, hh[:1]])):
         with pytest.raises(ValueError, match="buckets per point"):
             fc.fused_ne_from_bucket_ids(grid.table, ids.contiguous(), scan,
@@ -219,7 +231,7 @@ def test_wrapper_refuses_other_offset_counts_and_narrow_buckets(cuda):
     with pytest.raises(ValueError, match="slots a bucket"):
         fc.fused_ne_from_bucket_ids(grid.table[:, :4].contiguous(), hh, scan,
                                     mask, pose, **KW)
-    assert fc.KERNEL_LAUNCHES == before
+    assert (_build.LAUNCHES, _build.CAPTURED) == before
 
 
 @pytest.mark.cuda
@@ -299,17 +311,17 @@ def test_register_launches_the_kernel_once_a_gn_iteration(cuda):
     # the scene (a ground plane and one wall) does not constrain y
     init = pose + torch.tensor([0.0, 0.0, 0.01, 0.1, 0.0, 0.02], device=cuda)
     for refresh in (1, 2):
-        fc.KERNEL_LAUNCHES = 0
+        before = _build.LAUNCHES.copy()
         r = reg.register(scan, mask, submap.xyz, submap.mask, init,
                          RegistrationConfig(corr_refresh_every=refresh))
-        assert fc.KERNEL_LAUNCHES == r.iterations > 1
+        assert since(before)["fused_corr"] == r.iterations > 1
         assert float((r.pose - pose).abs().max()) < 0.05
     # below the point gates nothing is launched and the guess comes back
-    fc.KERNEL_LAUNCHES = 0
+    before = _build.LAUNCHES.copy()
     few = torch.zeros_like(mask)
     few[:20] = True
     r = reg.register(scan, few, submap.xyz, submap.mask, init, RegistrationConfig())
-    assert fc.KERNEL_LAUNCHES == 0 and r.iterations == 0
+    assert since(before)["fused_corr"] == 0 and r.iterations == 0
     assert torch.equal(r.pose, init)
 
 
@@ -325,13 +337,12 @@ def test_gn_small_matches_smallmat_on_the_card(cuda, case):
     AtA, Atb = (t(x).to(cuda) for x in gn_small_case(case))
     dx = smallmat.cholesky_solve(AtA, Atb, eps=1e-6)
     w, V = smallmat.eigh_jacobi(AtA)
-    before = gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES
+    before = _build.LAUNCHES.copy()
     got_dx = gn.solve(AtA, Atb)
     got = gn.solve_eigh(AtA, Atb)
     again = gn.solve_eigh(AtA, Atb)
     torch.cuda.synchronize()
-    assert (gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES) == (before[0] + 3,
-                                                      before[1] + 2)
+    assert since(before) == {"gn_small": 1, "gn_small_eigh": 2}
     assert_same_bits(got_dx.cpu(), dx.cpu())
     for a, b, c in zip(got, (dx, w, V), again):
         assert a.device.type == "cuda"
@@ -351,11 +362,11 @@ def test_gn_small_refuses_what_the_kernel_does_not_take(cuda, bad):
         AtA, Atb = AtA[None], Atb[None]
     else:
         Atb = Atb.cpu()
-    before = gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES
+    before = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     for fn in (gn.solve, gn.solve_eigh):
         with pytest.raises(ValueError, match="float32"):
             fn(AtA, Atb)
-    assert (gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES) == before
+    assert (_build.LAUNCHES, _build.CAPTURED) == before
 
 
 @pytest.mark.cuda
@@ -371,14 +382,12 @@ def test_gn_small_in_a_cuda_graph(cuda):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    counts = (gn.KERNEL_LAUNCHES, gn.CAPTURED_LAUNCHES,
-              gn.CAPTURED_EIGH_LAUNCHES)
+    counts = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     with torch.cuda.graph(graph):
         first = gn.solve_eigh(AtA, Atb)
         dx = gn.solve(AtA, Atb)
-    assert (gn.KERNEL_LAUNCHES, gn.CAPTURED_LAUNCHES,
-            gn.CAPTURED_EIGH_LAUNCHES) == (counts[0], counts[1] + 2,
-                                           counts[2] + 1)
+    assert _build.LAUNCHES == counts[0]
+    assert _build.CAPTURED - counts[1] == {"gn_small": 1, "gn_small_eigh": 1}
     for case in ("gn_plane", "rank_deficient", "spd_1"):
         A2, b2 = (t(x).to(cuda) for x in gn_small_case(case))
         AtA.copy_(A2)
@@ -406,11 +415,11 @@ def test_window_system_matches_the_plain_version_on_the_card(cuda, case):
     bits; then `solve_window_compact` on the card, two launches, its poses
     within the CPU tests' bounds of the CPU solve's."""
     on_card, on_cpu = window_graph_on(cuda, case)
-    before = ws.KERNEL_LAUNCHES
+    before = _build.LAUNCHES.copy()
     H, b = ws.assemble(*on_card)
     again = ws.assemble(*on_card)
     torch.cuda.synchronize()
-    assert ws.KERNEL_LAUNCHES == before + 2
+    assert since(before) == {"window_system": 2}
     assert H.device.type == "cuda" and H.dtype == torch.float32
     assert torch.equal(H, again[0]) and torch.equal(b, again[1])
     assert torch.equal(H, H.T)
@@ -419,7 +428,7 @@ def test_window_system_matches_the_plain_version_on_the_card(cuda, case):
                         on_cpu[2], truth=window_truth(case, *on_cpu))
     got = solver.solve_window_compact(*on_card, iterations=2)
     ref = solver.solve_window_compact(*on_cpu, iterations=2)
-    assert ws.KERNEL_LAUNCHES == before + 4
+    assert since(before) == {"window_system": 4}
     torch.testing.assert_close(got.poses.cpu(), ref.poses, rtol=0,
                                atol=window_pose_atol(case, *on_cpu[1:]))
 
@@ -437,11 +446,11 @@ def test_window_system_in_a_cuda_graph(cuda):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     cuda_graph = torch.cuda.CUDAGraph()
-    counts = ws.KERNEL_LAUNCHES, ws.CAPTURED_LAUNCHES
+    counts = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     with torch.cuda.graph(cuda_graph):
         out = solver.solve_window_compact(graph, count, W, iterations=2)
-    assert (ws.KERNEL_LAUNCHES, ws.CAPTURED_LAUNCHES) == (counts[0],
-                                                          counts[1] + 2)
+    assert _build.LAUNCHES == counts[0]
+    assert _build.CAPTURED - counts[1] == {"window_system": 2}
     for case in ("chain", "gps", "loops"):
         (other, other_count, _), _ = window_graph_on(cuda, case)
         for dst, src in zip(graph, other):
@@ -493,17 +502,19 @@ def test_loop_mission_on_the_card_is_repeatable(cuda):
     for _ in range(2):
         runner = Runner(cfg, loop_every=6)
         assert runner.device.type == "cuda"
-        fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = ws.KERNEL_LAUNCHES = 0
+        before = _build.LAUNCHES.copy()
         results, ver = [], 0
         for i in range(20):
             results.append(runner.process_scan(scans[i], imu=imus[i],
                                                gps_fixes=fixes[i]))
             if (i + 1) % 6 == 0:
                 ver += sum(runner.last_loop_aux["loop_iters"])
-        assert ver > 0 and fc.KERNEL_LAUNCHES \
+        launched = since(before)
+        assert ver > 0 and launched["fused_corr"] \
             == sum(r.registration_iters for r in results) + ver
-        assert gn.KERNEL_LAUNCHES == fc.KERNEL_LAUNCHES
-        assert ws.KERNEL_LAUNCHES == 2 * sum(r.is_keyframe for r in results)
+        assert gn_passes(launched) == launched["fused_corr"]
+        assert launched["window_system"] \
+            == 2 * sum(r.is_keyframe for r in results)
         assert int(runner.state.gps_count) >= 1 and runner.full_correction_scans
         runs.append(np.stack([r.pose for r in results]))
     assert np.isfinite(runs[0]).all()
@@ -573,16 +584,19 @@ def test_runner_goes_through_the_kernel(cuda):
     seq = synthetic.make_sequence(n_scans=6, n_points=4096, seed=0)
     scans, imus = sm.synthetic_inputs(seq, cfg)
     runner = Runner(cfg, device=cuda)
-    fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = gn.EIGH_LAUNCHES = 0
-    ws.KERNEL_LAUNCHES = 0
+    before = _build.LAUNCHES.copy()
     results = [runner.process_scan(scans[i], imu=imus[i]) for i in range(6)]
-    assert fc.KERNEL_LAUNCHES == sum(r.registration_iters for r in results) > 0
+    launched = since(before)
+    assert launched["fused_corr"] \
+        == sum(r.registration_iters for r in results) > 0
     # every GN pass takes its step in one launch, the first with the
     # eigensolve: one a registration that ran
-    assert gn.KERNEL_LAUNCHES == fc.KERNEL_LAUNCHES
-    assert gn.EIGH_LAUNCHES == sum(r.registration_iters > 0 for r in results) > 0
+    assert gn_passes(launched) == launched["fused_corr"]
+    assert launched["gn_small_eigh"] \
+        == sum(r.registration_iters > 0 for r in results) > 0
     # the keyframe save's window solve: one launch an iteration, two a save
-    assert ws.KERNEL_LAUNCHES == 2 * sum(r.is_keyframe for r in results) > 0
+    assert launched["window_system"] \
+        == 2 * sum(r.is_keyframe for r in results) > 0
     poses = np.stack([r.pose for r in results])
     assert np.isfinite(poses).all()
     assert np.abs(poses - sm.relative_truth(seq)).max() < 0.05
@@ -610,7 +624,7 @@ def test_imu_kernels_match_the_plain_front_end_on_the_card(cuda, case):
     (state, window, pose, degenerate), on_cpu = imu_case_on(cuda, case)
     correct, predict, fusion = fe.make_frontend(ImuConfig())
     plain = fe.make_frontend_plain(ImuConfig())
-    before = dict(imu.KERNEL_LAUNCHES)
+    before = _build.LAUNCHES.copy()
     outs = []
     for _ in range(2):
         train = predict(state, *window)
@@ -618,7 +632,7 @@ def test_imu_kernels_match_the_plain_front_end_on_the_card(cuda, case):
                                                degenerate)),
                      train, fusion(pose, train[0], train)))
     torch.cuda.synchronize()
-    assert imu.KERNEL_LAUNCHES == {k: before[k] + 2 for k in before}
+    assert since(before) == dict.fromkeys(IMU_KEYS, 2)
     assert all(x.device.type == "cuda" for x in outs[0])
     assert outs[0][5].dtype == torch.float32
     assert all(torch.equal(a, b) for a, b in zip(*outs))
@@ -647,7 +661,7 @@ def test_imu_kernels_refuse_what_they_do_not_take(cuda):
     (state, (acc, gyr, dt, mask), pose, degenerate), _ = imu_case_on(
         cuda, "w64")
     correct, predict, fusion = fe.make_frontend(ImuConfig())
-    before = dict(imu.KERNEL_LAUNCHES)
+    before = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     bad = [(state, (acc.double(), gyr, dt, mask)),
            (state, (acc, gyr, dt, mask.float())),
            (state._replace(cov=state.cov.cpu()), (acc, gyr, dt, mask))]
@@ -660,7 +674,7 @@ def test_imu_kernels_refuse_what_they_do_not_take(cuda):
         fusion(pose.double(), pose, pose)
     with pytest.raises(ValueError, match="float32"):
         fusion(pose, pose.cpu(), pose)
-    assert imu.KERNEL_LAUNCHES == before
+    assert (_build.LAUNCHES, _build.CAPTURED) == before
 
 
 @pytest.mark.cuda
@@ -686,11 +700,11 @@ def test_imu_kernels_in_a_cuda_graph(cuda):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    counts = dict(imu.KERNEL_LAUNCHES), dict(imu.CAPTURED_LAUNCHES)
+    counts = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     with torch.cuda.graph(graph):
         out = calls()
-    assert imu.KERNEL_LAUNCHES == counts[0]
-    assert imu.CAPTURED_LAUNCHES == {k: v + 1 for k, v in counts[1].items()}
+    assert _build.LAUNCHES == counts[0]
+    assert _build.CAPTURED - counts[1] == dict.fromkeys(IMU_KEYS, 1)
     for name in ("first_update", "diverged", "scattered", "empty"):
         (other, other_window, other_pose, other_degenerate), _ = imu_case_on(
             cuda, name)
@@ -737,14 +751,14 @@ def test_runner_mission_through_the_imu_kernels(cuda):
 
     runner.correct = counted("correct", correct)
     runner.predict_rate = counted("predict", predict)
-    before = dict(imu.KERNEL_LAUNCHES)
+    before = _build.LAUNCHES.copy()
     results = [runner.process_scan(scans[i], imu=imus[i])
                for i in range(len(scans))]
     torch.cuda.synchronize()
-    launched = {k: imu.KERNEL_LAUNCHES[k] - before[k] for k in before}
-    assert calls["correct"] == launched["correct"] > 0
-    assert calls["predict"] == launched["predict"] > 0
-    assert launched["fusion"] == calls["predict"]
+    launched = since(before)
+    assert calls["correct"] == launched["imu_correct"] > 0
+    assert calls["predict"] == launched["imu_predict"] > 0
+    assert launched["imu_fusion"] == calls["predict"]
     assert isinstance(runner.imu_state, fe.ImuFrontendState)
     assert runner.imu_state.cov.device.type == "cuda"
     poses = np.stack([r.pose for r in results])
@@ -778,15 +792,14 @@ def test_resident_replay_through_the_imu_kernels(cuda):
                                       device=cuda)
     staged = run.stage(batch)
     run.capture(*run.init(), staged)
-    assert run.program.imu_graph_launches == (
-        {"correct": 0, "predict": 1, "fusion": 0},
-        {"correct": 1, "predict": 0, "fusion": 1})
-    before = dict(imu.KERNEL_LAUNCHES)
+    held = [{k: c[k] for k in IMU_KEYS if c[k]} for c in run.program.launches]
+    assert held == [{"imu_predict": 1}, {"imu_correct": 1, "imu_fusion": 1}]
+    before = _build.LAUNCHES.copy()
     _, _, outs = run(*run.init(), staged)
     torch.cuda.synchronize()
     n = outs.poses.shape[0]
-    assert {k: imu.KERNEL_LAUNCHES[k] - before[k] for k in before} == \
-        dict.fromkeys(before, n)
+    launched = since(before)
+    assert {k: launched[k] for k in IMU_KEYS} == dict.fromkeys(IMU_KEYS, n)
     poses = outs.poses.cpu().numpy()
     assert np.isfinite(poses).all()
     assert (outs.degenerate.cpu().numpy() == fixture["degenerate"]).all()
@@ -863,12 +876,12 @@ def test_archive_verifier_on_the_card(cuda, monkeypatch):
         [0, 0, 0.01, 0.1, -0.05, 0], device=cuda)
     iters = counted_registrations(monkeypatch)
     verify = archive.make_archive_verifier(cfg)
-    fc.KERNEL_LAUNCHES = 0
+    before = _build.LAUNCHES.copy()
     gpu, added, fit = verify(state, xyz, mask, init, 5.0)
-    assert fc.KERNEL_LAUNCHES == iters[0] > 0
+    assert since(before)["fused_corr"] == iters[0] > 0
     cpu_state = convert.from_numpy(convert.to_numpy(state))
     cpu, added_c, fit_c = verify(cpu_state, xyz.cpu(), mask.cpu(), init.cpu(), 5.0)
-    assert fc.KERNEL_LAUNCHES == iters[0]          # the CPU runs the plain version
+    assert since(before)["fused_corr"] == iters[0]   # the CPU: plain version
     assert bool(added) and bool(added_c)
     assert abs(float(fit) - float(fit_c)) < 2e-3 and float(fit) < 0.3
     for a, b in ((gpu.pend_mask, cpu.pend_mask), (gpu.pend_i, cpu.pend_i),
@@ -892,9 +905,9 @@ def test_relocalizer_on_the_card(cuda, monkeypatch):
     reloc = relocalization.make_relocalizer(cfg)
     # scan 4 is the place of keyframe 2 (it relocalizes there on the CPU)
     scan = pc.Cloud(xyz=t(seq.scans[4]).to(cuda), mask=t(seq.scan_masks[4]).to(cuda))
-    fc.KERNEL_LAUNCHES = 0
+    before = _build.LAUNCHES.copy()
     r = reloc(state, scan)
-    assert fc.KERNEL_LAUNCHES == iters[0] > 0
+    assert since(before)["fused_corr"] == iters[0] > 0
     rc = reloc(convert.from_numpy(convert.to_numpy(state)),
                pc.Cloud(xyz=scan.xyz.cpu(), mask=scan.mask.cpu()))
     assert bool(r.success) and bool(rc.success)
@@ -949,10 +962,10 @@ def test_bag_replay_on_the_card_matches_the_cpu(cuda, tmp_path):
     for dev in (torch.device("cpu"), cuda):
         rec = str(tmp_path / f"{dev.type}.bag")
         runner = Runner(cfg, device=dev, loop_every=100, record_bag=rec)
-        before = fc.KERNEL_LAUNCHES
+        before = _build.LAUNCHES.copy()
         results = list(replay_bag(runner, path, BagTopics(
             gps="/gps/fix", raw_gps="/gpsdata"), use_native=True))
-        launches = fc.KERNEL_LAUNCHES - before
+        launches = since(before)["fused_corr"]
         runner.close()
         topics = collections.Counter(m.topic for m in rb.BagReader(rec).read_messages())
         runs[dev.type] = (results, launches, int(runner.state.gps_count), topics)
@@ -1031,9 +1044,9 @@ def test_corner_paths_on_the_card(cuda, mode, monkeypatch):
     monkeypatch.setattr(fc, "fused_normal_equations", counted)
     monkeypatch.setattr(fc, "fused_ne_from_bucket_ids", checked)
     runner = Runner(cfg, device=cuda)
-    fc.KERNEL_LAUNCHES = 0
+    before = _build.LAUNCHES.copy()
     res = [runner.process_scan(scans[i], imu=imus[i]) for i in range(6)]
-    launches = fc.KERNEL_LAUNCHES
+    launches = since(before)["fused_corr"]
     assert launches == len(calls) == sum(r.registration_iters for r in res) > 0
     assert all(calls)
     assert int(runner.state.store.corner_masks.sum()) > 0
@@ -1116,9 +1129,9 @@ def test_corrupt_scans_on_the_card(cuda, case, monkeypatch):
 
     monkeypatch.setattr(fc, "fused_ne_from_bucket_ids", checked)
     runner = Runner(cfg, device=cuda, loop_every=100)
-    fc.KERNEL_LAUNCHES = 0
+    before = _build.LAUNCHES.copy()
     res = [runner.process_scan(s, imu=i) for s, i in steps]
-    assert fc.KERNEL_LAUNCHES == len(launched) == \
+    assert since(before)["fused_corr"] == len(launched) == \
         sum(r.registration_iters for r in res) > 0
     cpu = Runner(cfg, device="cpu", loop_every=100)
     ref = [cpu.process_scan(s, imu=i) for s, i in steps]
@@ -1130,9 +1143,9 @@ def test_corrupt_scans_on_the_card(cuda, case, monkeypatch):
     table, hh, scan, mask, pose = launched[-1][:5]
     for keep in (torch.zeros_like(mask),
                  mask & (torch.arange(len(mask), device=cuda) % 10 == 0)):
-        before = fc.KERNEL_LAUNCHES
+        before = _build.LAUNCHES.copy()
         out = checked(table, hh, scan, keep, pose)
-        assert fc.KERNEL_LAUNCHES == before + 1
+        assert since(before) == {"fused_corr": 1}
         if not keep.any():
             assert int(out[2]) == 0 and float(out[0].abs().sum()) == 0.0
 
@@ -1172,20 +1185,21 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     staged = run.stage(batch)
     state, fes = run.init()
     R = cfg.registration.max_iterations
-    fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = gn.EIGH_LAUNCHES = 0
-    ws.KERNEL_LAUNCHES = 0
+    before = _build.LAUNCHES.copy()
     run.capture(state, fes, staged)
     assert run.capture_seconds is not None
+    launched, (held_a, held_b) = since(before), run.program.launches
     # the warm-up's two eager scans launch the kernel at every GN pass; the
     # capture only records graph (a)'s R launches
-    assert fc.KERNEL_LAUNCHES == 2 * R
-    assert run.program.graph_launches == (R, 0)
+    assert launched["fused_corr"] == 2 * R
+    assert (held_a["fused_corr"], held_b["fused_corr"]) == (R, 0)
     # so does the GN step's kernel, the first pass with the eigensolve
-    assert (gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES) == (2 * R, 2)
-    assert run.program.gn_graph_launches == ((R, 1), (0, 0))
+    assert (gn_passes(launched), launched["gn_small_eigh"]) == (2 * R, 2)
+    assert (gn_passes(held_a), held_a["gn_small_eigh"]) == (R, 1)
+    assert gn_passes(held_b) == 0
     # and the masked keyframe save's window solve, two iterations a scan
-    assert ws.KERNEL_LAUNCHES == 2 * 2
-    assert run.program.ws_graph_launches == (2, 0)
+    assert launched["window_system"] == 2 * 2
+    assert (held_a["window_system"], held_b["window_system"]) == (2, 0)
 
     def quiet(fn):
         def wrapped(*a, **k):
@@ -1199,8 +1213,7 @@ def test_graph_replay_matches_the_eager_replay(cuda):
 
     run.detector, run.full_correct = quiet(run.detector), quiet(run.full_correct)
     outs = []
-    fc.KERNEL_LAUNCHES = gn.KERNEL_LAUNCHES = gn.EIGH_LAUNCHES = 0
-    ws.KERNEL_LAUNCHES = 0
+    before = _build.LAUNCHES.copy()
     for _ in range(2):
         state, fes = run.init()
         torch.cuda.set_sync_debug_mode("error")
@@ -1217,10 +1230,11 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     assert torch.equal(outs[1].poses, graph.poses)
     # each replay of graph (a) launches the kernel R times; the cadence
     # calls' loop verifications (none here: no candidate) would add theirs
-    assert fc.KERNEL_LAUNCHES == 2 * n_scans * R
-    assert (gn.KERNEL_LAUNCHES, gn.EIGH_LAUNCHES) == (2 * n_scans * R,
-                                                      2 * n_scans)
-    assert ws.KERNEL_LAUNCHES == 2 * n_scans * 2
+    launched = since(before)
+    assert launched["fused_corr"] == 2 * n_scans * R
+    assert (gn_passes(launched), launched["gn_small_eigh"]) == (
+        2 * n_scans * R, 2 * n_scans)
+    assert launched["window_system"] == 2 * n_scans * 2
 
 
 @pytest.mark.cuda
@@ -1272,7 +1286,8 @@ def test_graph_replay_at_every_config(cuda, mode):
     run.capture(*run.init(), staged)
     R = cfg.registration.max_iterations
     fused = mode != "rebuild_brute"
-    assert run.program.graph_launches == ((R if fused else 0), 0)
+    assert [c["fused_corr"] for c in run.program.launches] == [
+        R if fused else 0, 0]
 
     def quiet(fn):
         def wrapped(*a, **k):
@@ -1285,7 +1300,7 @@ def test_graph_replay_at_every_config(cuda, mode):
         return wrapped
 
     run.detector, run.full_correct = quiet(run.detector), quiet(run.full_correct)
-    fc.KERNEL_LAUNCHES = 0
+    before = _build.LAUNCHES.copy()
     state, fes = run.init()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1296,7 +1311,7 @@ def test_graph_replay_at_every_config(cuda, mode):
     for name in ("poses", "iters", "degenerate"):
         assert torch.equal(getattr(graph, name), getattr(eager, name)), name
     assert int(graph.iters.max()) >= 1
-    assert fc.KERNEL_LAUNCHES == (n_scans * R if fused else 0)
+    assert since(before)["fused_corr"] == (n_scans * R if fused else 0)
 
 
 @pytest.mark.cuda

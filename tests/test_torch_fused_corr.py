@@ -19,6 +19,7 @@ from lio_slam_tpu.ops import fused_corr as jfc
 from lio_slam_tpu.ops import registration as jreg
 from lio_slam_tpu.ops import voxel_grid as jvg
 from lio_slam_tpu.utils import se3 as jse3
+from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.ops import fused_corr as tfc
 from lio_slam_tpu_torch.ops import voxel_grid as tvg
 from lio_slam_tpu_torch.utils import se3 as tse3
@@ -173,13 +174,13 @@ def test_non_finite_points_contribute_nothing():
 def test_cpu_tensors_never_launch_the_kernel():
     map_pts, scan = planar_scene(4, n_scan=256)
     _, gb = grids(map_pts)
-    before = tfc.KERNEL_LAUNCHES
+    before = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     out = tfc.fused_normal_equations(gb, t(scan), torch.ones(256, dtype=torch.bool),
                                      t(POSE), **KW)
     ref = tfc.fused_normal_equations_ref(gb, t(scan),
                                          torch.ones(256, dtype=torch.bool),
                                          t(POSE), **KW)
-    assert tfc.KERNEL_LAUNCHES == before
+    assert (_build.LAUNCHES, _build.CAPTURED) == before
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(n(a), n(b))
 

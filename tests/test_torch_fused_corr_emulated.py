@@ -118,7 +118,8 @@ def test_non_finite_and_masked_points_contribute_nothing(lib, halo):
 def test_launcher_refuses_other_offset_counts(lib):
     table, hh, scan, mask, pose = layout_scene("z", 24)
     for ids in (hh[:2], torch.cat([hh, hh[:1]])):
-        with pytest.raises(RuntimeError, match="refused"):
+        with pytest.raises(RuntimeError,
+                           match="fused_corr kernel launch failed"):
             E.fused_ne_emulated(lib, table, ids, scan, mask, pose, **KW)
 
 

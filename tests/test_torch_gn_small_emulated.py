@@ -24,6 +24,7 @@ import torch_port_cuda_emulator as E
 from torch_port_helpers import (GN_SMALL_CASES, assert_same_bits,
                                 gn_small_case, planar_scene, t)
 from lio_slam_tpu_torch.config import RegistrationConfig
+from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.ops import gn_small
 from lio_slam_tpu_torch.ops import registration as reg
 from lio_slam_tpu_torch.utils import smallmat
@@ -113,10 +114,10 @@ def test_cpu_inputs_run_the_plain_version(dtype):
     """The wrapper launches nothing for CPU tensors: its results are the
     smallmat functions' own, in the input's dtype."""
     AtA, Atb = (t(x, dtype) for x in gn_small_case("gn_plane"))
-    before = gn_small.KERNEL_LAUNCHES, gn_small.EIGH_LAUNCHES
+    before = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     dx = gn_small.solve(AtA, Atb)
     dx2, w, V = gn_small.solve_eigh(AtA, Atb)
-    assert (gn_small.KERNEL_LAUNCHES, gn_small.EIGH_LAUNCHES) == before
+    assert (_build.LAUNCHES, _build.CAPTURED) == before
     assert torch.equal(dx, smallmat.cholesky_solve(AtA, Atb, eps=1e-6))
     assert torch.equal(dx2, dx) and dx.dtype == dtype
     w_ref, V_ref = smallmat.eigh_jacobi(AtA)

@@ -1,8 +1,9 @@
 """The IMU front end's kernels (`lio_slam_tpu_torch/ops/csrc/
 imu_frontend.cu`: the correction, the rate prediction, TransformFusion) run
 on the CPU: compiled with g++ against `tests/cuda_emulator.h`
-(`tests/torch_port_cuda_emulator.py`), launched through the wrapper's own
-`correct_launch`, `predict_launch` and `fusion_launch`, and held to the
+(`tests/torch_port_cuda_emulator.py`), launched through `ops/_build.launch`
+and the wrapper's own `correct_launch`, `predict_launch` and
+`fusion_launch`, and held to the
 plain front end (`pipeline/imu_frontend.make_frontend_plain`) and to its
 float64 answer on the calls of `torch_port_helpers.IMU_CASES`: an
 uninitialized state, the first update after initialization (the 1e8
@@ -26,6 +27,7 @@ from torch_port_helpers import (IMU_CASES, IMU_POSE_ATOL, IMU_R_ATOL,
                                 assert_imu_state_close, imu_case,
                                 imu_case_float64, imu_state_leaves)
 from lio_slam_tpu_torch.config import ImuConfig
+from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.ops import imu_frontend as kernels
 from lio_slam_tpu_torch.pipeline import imu_frontend as fe
 
@@ -36,6 +38,18 @@ PARAMS = kernels.params(CFG, fe.pileup_min_dt(CFG))
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     return E.build_imu_frontend(tmp_path_factory.mktemp("emulated_imu"))
+
+
+def correct(lib, *args):
+    return E.launch("imu_correct", kernels.correct_launch, lib, *args, PARAMS)
+
+
+def predict(lib, *args):
+    return E.launch("imu_predict", kernels.predict_launch, lib, *args, PARAMS)
+
+
+def fusion(lib, *args):
+    return E.launch("imu_fusion", kernels.fusion_launch, lib, *args)
 
 
 def plain_and_float64(case):
@@ -57,22 +71,18 @@ def test_kernels_match_the_plain_front_end(lib, name):
     within the IMU_* bounds; a second launch of each repeats the bits."""
     case = imu_case(name)
     state, window, pose, degenerate = case
-    got = kernels.correct_launch(lib, state, *window, pose, degenerate,
-                                 PARAMS, None)
-    train = kernels.predict_launch(lib, state, *window, PARAMS, None)
-    fused = kernels.fusion_launch(lib, pose, train[0], train, None)
+    got = correct(lib, state, *window, pose, degenerate)
+    train = predict(lib, state, *window)
+    fused = fusion(lib, pose, train[0], train)
     assert train.shape == (window[0].shape[0], 6) and fused.shape == train.shape
     for ref, ref_train, ref_fused in plain_and_float64(case):
         assert_imu_state_close(got, ref)
         for a, b in ((train, ref_train), (fused, ref_fused)):
             assert float((a.double() - b.double()).abs().max()) <= IMU_POSE_ATOL
-    again = kernels.correct_launch(lib, state, *window, pose, degenerate,
-                                   PARAMS, None)
+    again = correct(lib, state, *window, pose, degenerate)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    assert torch.equal(kernels.predict_launch(lib, state, *window, PARAMS,
-                                              None), train)
-    assert torch.equal(kernels.fusion_launch(lib, pose, train[0], train,
-                                             None), fused)
+    assert torch.equal(predict(lib, state, *window), train)
+    assert torch.equal(fusion(lib, pose, train[0], train), fused)
 
 
 @pytest.mark.parametrize("name", ["uninitialized", "diverged"])
@@ -82,8 +92,7 @@ def test_anchored_states_are_the_plain_versions(lib, name):
     and the prior covariance the plain version's words, the rotation within
     rounding of its sin and cos."""
     case = imu_case(name)
-    got = kernels.correct_launch(lib, case[0], *case[1], case[2], case[3],
-                                 PARAMS, None)
+    got = correct(lib, case[0], *case[1], case[2], case[3])
     ref = imu_state_leaves(fe.make_frontend_plain(CFG)[0](
         case[0], *case[1], case[2], case[3]))
     assert float((got[0] - ref[0]).abs().max()) <= IMU_R_ATOL
@@ -102,9 +111,8 @@ def test_masked_slots_are_skipped(lib):
         x[~mask] = float("nan")
     outs = []
     for a, g, d in ((acc, gyr, dt), dirty):
-        train = kernels.predict_launch(lib, state, a, g, d, mask, PARAMS, None)
-        outs.append((*kernels.correct_launch(lib, state, a, g, d, mask, pose,
-                                             degenerate, PARAMS, None),
+        train = predict(lib, state, a, g, d, mask)
+        outs.append((*correct(lib, state, a, g, d, mask, pose, degenerate),
                      train))
     assert all(torch.equal(a, b) for a, b in zip(*outs))
 
@@ -113,11 +121,10 @@ def test_fusion_takes_any_leading_shape(lib):
     """TransformFusion of one pose and of a (2, W, 6) stack: the rows of
     the (W, 6) train, word for word."""
     state, window, pose, _ = imu_case("conditioned")
-    train = kernels.predict_launch(lib, state, *window, PARAMS, None)
-    rows = kernels.fusion_launch(lib, pose, train[0], train, None)
-    one = kernels.fusion_launch(lib, pose, train[0], train[-1], None)
-    stack = kernels.fusion_launch(lib, pose, train[0],
-                                  torch.stack([train, train]), None)
+    train = predict(lib, state, *window)
+    rows = fusion(lib, pose, train[0], train)
+    one = fusion(lib, pose, train[0], train[-1])
+    stack = fusion(lib, pose, train[0], torch.stack([train, train]))
     assert one.shape == (6,) and torch.equal(one, rows[-1])
     assert stack.shape == (2, *train.shape)
     assert torch.equal(stack[0], rows) and torch.equal(stack[1], rows)
@@ -132,10 +139,9 @@ def test_the_wrapper_refuses_shapes_it_does_not_take(lib):
            (state._replace(cov=state.cov[:9, :9]), acc, gyr, dt, mask)]
     for s, *window in bad:
         with pytest.raises(ValueError):
-            kernels.correct_launch(lib, s, *window, pose, degenerate, PARAMS,
-                                   None)
+            correct(lib, s, *window, pose, degenerate)
         with pytest.raises(ValueError):
-            kernels.predict_launch(lib, s, *window, PARAMS, None)
+            predict(lib, s, *window)
 
 
 @pytest.mark.parametrize("name", ["conditioned", "w64"])
@@ -143,7 +149,7 @@ def test_cpu_inputs_run_the_plain_front_end(name):
     """`make_frontend` launches nothing for CPU tensors: its results are
     the plain versions' own words."""
     state, window, pose, degenerate = imu_case(name)
-    before = dict(kernels.KERNEL_LAUNCHES)
+    before = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     got = fe.make_frontend(CFG)
     ref = fe.make_frontend_plain(CFG)
     outs = []
@@ -152,5 +158,5 @@ def test_cpu_inputs_run_the_plain_front_end(name):
         outs.append((*imu_state_leaves(correct(state, *window, pose,
                                                degenerate)),
                      train, fusion(pose, train[0], train)))
-    assert kernels.KERNEL_LAUNCHES == before
+    assert (_build.LAUNCHES, _build.CAPTURED) == before
     assert all(torch.equal(a, b) for a, b in zip(*outs))

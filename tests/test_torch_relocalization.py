@@ -23,7 +23,7 @@ from lio_slam_tpu.utils import pointcloud as jpc
 from lio_slam_tpu_torch import config as port_config
 from lio_slam_tpu_torch import convert
 from lio_slam_tpu_torch.io import synthetic
-from lio_slam_tpu_torch.ops import fused_corr
+from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.pipeline import relocalization as treloc
 from lio_slam_tpu_torch.utils import pointcloud as tpc
 from lio_slam_tpu_torch.utils import se3
@@ -73,10 +73,10 @@ def both(mapped, scan, mask):
     ja = jreloc.make_relocalizer(cfg_small(jax_config))(
         jax.tree.map(jnp.asarray, state),
         jpc.Cloud(xyz=jnp.asarray(scan), mask=jnp.asarray(mask)))
-    before = fused_corr.KERNEL_LAUNCHES
+    before = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     tb = treloc.make_relocalizer(cfg_small(port_config))(
         convert.from_numpy(state), tpc.Cloud(xyz=t(scan), mask=t(mask)))
-    assert fused_corr.KERNEL_LAUNCHES == before          # CPU: plain version
+    assert (_build.LAUNCHES, _build.CAPTURED) == before  # CPU: plain
     return ja, tb
 
 

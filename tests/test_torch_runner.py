@@ -37,7 +37,7 @@ from lio_slam_tpu.utils import pointcloud as jpc
 from lio_slam_tpu_torch import config as port_config
 from lio_slam_tpu_torch import convert
 from lio_slam_tpu_torch.io import synthetic
-from lio_slam_tpu_torch.ops import fused_corr
+from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.pipeline import lio as tlio
 from lio_slam_tpu_torch.pipeline import synthetic_mission as sm
 from lio_slam_tpu_torch.pipeline.runner import Runner
@@ -71,13 +71,13 @@ def run_both(seed, carry_imu_state=False):
     jr, iters = jax_runner_counting_iters()
     tr = Runner(small_config(port_config), device="cpu")
     ja, tb = [], []
-    before = fused_corr.KERNEL_LAUNCHES
+    before = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     for i in range(N_SCANS):
         if carry_imu_state:
             tr.imu_state = convert.from_numpy(jax.tree.map(np.array, jr.imu_state))
         ja.append(jr.process_scan(scans[i], imu=imus[i]))
         tb.append(tr.process_scan(scans[i], imu=imus[i]))
-    assert fused_corr.KERNEL_LAUNCHES == before          # CPU: plain version
+    assert (_build.LAUNCHES, _build.CAPTURED) == before  # CPU: plain
     return seq, (jr, ja, iters), (tr, tb)
 
 

@@ -25,6 +25,7 @@ from torch_port_helpers import (WINDOW_CASES, assert_window_close,
                                 window_blocks, window_case, window_pose_atol,
                                 window_truth)
 from lio_slam_tpu_torch.graph import solver
+from lio_slam_tpu_torch.ops import _build
 from lio_slam_tpu_torch.ops import window_system as ws
 
 
@@ -83,11 +84,11 @@ def test_cpu_graphs_run_the_plain_version(monkeypatch):
     and launches nothing (the kernel's wrapper refuses a CPU graph); the
     window solve asks for one system an iteration."""
     graph, count, W = window_case("loops")
-    before = ws.KERNEL_LAUNCHES, ws.CAPTURED_LAUNCHES
+    before = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
     H, b = solver.assemble_window(graph, count, W)
     Hp, bp = solver.assemble_window_plain(graph, count, W)
     assert torch.equal(H, Hp) and torch.equal(b, bp)
-    assert (ws.KERNEL_LAUNCHES, ws.CAPTURED_LAUNCHES) == before
+    assert (_build.LAUNCHES, _build.CAPTURED) == before
     with pytest.raises(ValueError):
         ws.assemble(graph, count, W)
     calls = []

@@ -6,7 +6,9 @@ to the plain versions.  The sources are taken as they are, with mechanical
 substitutions: the CUDA runtime header for the emulator's, and each launch
 for `emu_launch`; in `fused_corr.cu` also the dynamic shared array for the
 emulator's buffer and the three cp.async helpers' bodies for plain copies.
-A substitution that no longer matches raises.
+A substitution that no longer matches raises.  Each build is bound by
+the `ops/_build` binder of its source and launched through `_build.launch`
+and the wrapper's own marshalling function, with CPU tensors and no stream.
 
     lib = build(tmp_dir)
     out = fused_ne_emulated(lib, table, hh, scan, mask, pose, counts=None, **kw)
@@ -14,8 +16,8 @@ A substitution that no longer matches raises.
     out = gn_small_emulated(gn, AtA, Atb, eigh=True)
     ws = build_window_system(tmp_dir)
     H, b = window_system_emulated(ws, graph, count, window)
-    imu = build_imu_frontend(tmp_dir)    # launched through ops/imu_frontend's
-                                         # *_launch with CPU tensors
+    imu = build_imu_frontend(tmp_dir)
+    leaves = launch("imu_correct", imu_frontend.correct_launch, imu, ...)
 """
 
 from __future__ import annotations
@@ -25,8 +27,11 @@ import os
 import re
 import shutil
 import subprocess
+from unittest import mock
 
 import torch
+
+from lio_slam_tpu_torch.ops import _build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
@@ -95,48 +100,56 @@ def _compile(out_dir, name: str, source: str) -> ctypes.CDLL:
     return ctypes.CDLL(so)
 
 
+def launch(kernel: str, fn, lib, *args):
+    """`fn(lib, *args, None)`, a wrapper's marshalling function, through
+    `_build.launch` on the CPU: one launch counted under `kernel`.  Every
+    float output the launch allocates starts as NaN, so a word the kernel
+    leaves unwritten shows."""
+    empty = torch.empty
+
+    def nan_empty(*size, dtype=None, **kw):
+        out = empty(*size, dtype=dtype, **kw)
+        return out.fill_(float("nan")) if out.is_floating_point() else out
+
+    with mock.patch.object(torch, "empty", nan_empty):
+        return _build.launch(kernel, "cpu", fn, lib, *args)
+
+
 def build(out_dir) -> ctypes.CDLL:
-    """Compile the emulated fused kernel into `out_dir` and bind it."""
-    lib = _compile(out_dir, "fused_corr_emulated", emulated_source())
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in (lib.lio_fused_corr, lib.lio_fused_corr_floor):
-        fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, vp,
-                       cf, cf, cf, vp, ci, vp, vp]
-        fn.restype = ci
-    lib.lio_fused_corr_scratch_floats.argtypes = []
-    lib.lio_fused_corr_scratch_floats.restype = ci
-    lib.lio_fused_corr_block_warps.argtypes = [ci, ci]
-    lib.lio_fused_corr_block_warps.restype = ci
-    return lib
+    """Compile the emulated fused kernel into `out_dir` and bind it as
+    `ops/_build.bind_fused_corr` binds the card's build."""
+    return _build.bind_fused_corr(
+        _compile(out_dir, "fused_corr_emulated", emulated_source()))
 
 
 def fused_ne_emulated(lib, table, hh, scan, mask, pose, nn_radius=1.0,
                       plane_dist_thresh=0.2, robust_weight_floor=0.1,
                       scratch=None, counts=None, floor=False):
     """The kernel's five results (the wrapper's views of its 45 output
-    words) on CPU tensors, through the emulated launcher; `counts` as the
-    wrapper takes it (the grid's filled slots a bucket, or None for whole
-    rows); `floor` launches the fixed chain alone.  `scratch`, where given,
-    is the zeroed scratch buffer to launch with (the ticket must be back at
-    0 afterwards)."""
+    words) on CPU tensors, through the wrapper's `kernel_launch`; `counts`
+    as the wrapper takes it (the grid's filled slots a bucket, or None for
+    whole rows); `floor` launches the fixed chain alone (uncounted: it is
+    no launch of the kernel).  `scratch`, where given, is the zeroed
+    scratch buffer to launch with (the ticket must be back at 0
+    afterwards)."""
     from lio_slam_tpu_torch.ops import fused_corr as fc
 
     table, hh, scan, pose = (x.contiguous() for x in (table, hh, scan, pose))
-    mask8 = mask.to(torch.uint8).contiguous()
+    mask = mask.to(torch.bool).contiguous()
     if scratch is None:
         scratch = torch.zeros(lib.lio_fused_corr_scratch_floats())
-    out = torch.zeros(fc.OUT_WORDS)
-    T, C, _ = table.shape
-    O, N = hh.shape
     if counts is not None:
         counts = counts.to(torch.int32).contiguous()
-    launch = lib.lio_fused_corr_floor if floor else lib.lio_fused_corr
-    err = launch(
-        table.data_ptr(), T, C, hh.data_ptr(), O,
-        None if counts is None else counts.data_ptr(), scan.data_ptr(),
-        mask8.data_ptr(), N, pose.data_ptr(), nn_radius, plane_dist_thresh,
-        robust_weight_floor, scratch.data_ptr(), scratch.numel(),
-        out.data_ptr(), None)
+    if not floor:
+        return fc._views(launch(
+            "fused_corr", fc.kernel_launch, lib, table, hh, scan, mask, pose,
+            nn_radius, plane_dist_thresh, robust_weight_floor, counts,
+            scratch))
+    out = torch.full((fc.OUT_WORDS,), float("nan"))
+    err = lib.lio_fused_corr_floor(
+        *fc._kernel_args(table, hh, scan, mask, pose, nn_radius,
+                         plane_dist_thresh, robust_weight_floor, counts),
+        scratch.data_ptr(), scratch.numel(), out.data_ptr(), None)
     if err != 0:
         raise RuntimeError(f"emulated launch refused: {err}")
     return fc._views(out)
@@ -145,24 +158,18 @@ def fused_ne_emulated(lib, table, hh, scan, mask, pose, nn_radius=1.0,
 def build_gn_small(out_dir) -> ctypes.CDLL:
     """Compile the emulated GN-step kernel into `out_dir` and bind it as
     `ops/_build.bind_gn_small` binds the card's build."""
-    from lio_slam_tpu_torch.ops import _build
-
     return _build.bind_gn_small(
         _compile(out_dir, "gn_small_emulated", gn_small_source()))
 
 
 def gn_small_emulated(lib, AtA, Atb, eigh: bool):
-    """The kernel's results on CPU tensors as the wrapper returns them: dx,
-    and with `eigh` (dx, eigenvalues, eigenvectors as columns)."""
+    """The kernel's results on CPU tensors as the wrapper returns them, through
+    its `kernel_launch`: dx, and with `eigh` (dx, eigenvalues, eigenvectors as
+    columns)."""
     from lio_slam_tpu_torch.ops import gn_small as gs
 
-    AtA = AtA.to(torch.float32).contiguous()
-    Atb = Atb.to(torch.float32).contiguous()
-    out = torch.full((gs.OUT_WORDS[eigh],), float("nan"))
-    err = lib.lio_gn_small(AtA.data_ptr(), Atb.data_ptr(), int(eigh),
-                           out.data_ptr(), None)
-    if err != 0:
-        raise RuntimeError(f"emulated launch refused: {err}")
+    out = launch("gn_small_eigh" if eigh else "gn_small", gs.kernel_launch,
+                 lib, AtA.to(torch.float32), Atb.to(torch.float32), eigh)
     if not eigh:
         return out
     return out[:6], out[6:12], out[12:].view(6, 6)
@@ -179,33 +186,18 @@ def window_system_source() -> str:
 def build_window_system(out_dir) -> ctypes.CDLL:
     """Compile the emulated window-system kernel into `out_dir` and bind it
     as `ops/_build.bind_window_system` binds the card's build."""
-    from lio_slam_tpu_torch.ops import _build
-
     return _build.bind_window_system(
         _compile(out_dir, "window_system_emulated", window_system_source()))
 
 
 def window_system_emulated(lib, graph, count, window: int):
     """The kernel's (H (6W, 6W), b (6W,)) of a CPU `PoseGraph` (the
-    wrapper's dtypes) at `count` keyframes, through the emulated launcher;
-    the outputs start as NaN, so a word the kernel leaves unwritten shows."""
-    from lio_slam_tpu_torch.graph import factors as F
+    wrapper's dtypes) at `count` keyframes, through the wrapper's
+    `kernel_launch`."""
+    from lio_slam_tpu_torch.ops import window_system as ws
 
-    g = F.PoseGraph(*(x.contiguous() for x in graph))
     count = torch.as_tensor(count, dtype=torch.int32).reshape(())
-    W = window
-    H = torch.full((6 * W, 6 * W), float("nan"))
-    b = torch.full((6 * W,), float("nan"))
-    err = lib.lio_window_system(
-        g.poses.data_ptr(), g.poses.shape[0], count.data_ptr(),
-        g.prior_pose.data_ptr(), g.prior_info.data_ptr(), g.bt_i.data_ptr(),
-        g.bt_j.data_ptr(), g.bt_meas.data_ptr(), g.bt_info.data_ptr(),
-        g.bt_mask.data_ptr(), g.bt_i.shape[0], g.gps_i.data_ptr(),
-        g.gps_meas.data_ptr(), g.gps_info.data_ptr(), g.gps_mask.data_ptr(),
-        g.gps_i.shape[0], W, H.data_ptr(), b.data_ptr(), None)
-    if err != 0:
-        raise RuntimeError(f"emulated launch refused: {err}")
-    return H, b
+    return launch("window_system", ws.kernel_launch, lib, graph, count, window)
 
 
 def imu_frontend_source() -> str:
@@ -218,10 +210,8 @@ def imu_frontend_source() -> str:
 
 def build_imu_frontend(out_dir) -> ctypes.CDLL:
     """Compile the emulated front-end kernels into `out_dir` and bind them
-    as `ops/_build.bind_imu_frontend` binds the card's build; launch them
-    through `ops/imu_frontend`'s `correct_launch`, `predict_launch` and
-    `fusion_launch` with CPU tensors and no stream."""
-    from lio_slam_tpu_torch.ops import _build
-
+    as `ops/_build.bind_imu_frontend` binds the card's build; `launch` them
+    with `ops/imu_frontend`'s `correct_launch`, `predict_launch` and
+    `fusion_launch`."""
     return _build.bind_imu_frontend(
         _compile(out_dir, "imu_frontend_emulated", imu_frontend_source()))

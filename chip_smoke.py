@@ -294,16 +294,32 @@
    kernel's device ms a launch, in a CUDA graph and through the wrapper,
    its dependent-chain bound, and the plain version's host ms a call,
    device ms, operations and ms as a graph.
+25. The mapping step's pose-tail kernels (`ops/csrc/pose_update.cu`:
+   `pose_update`, the select on has_map, transformUpdate and the keyframe
+   gate; `pose_between`, the incremental odometry), run right after phase
+   24: on the tests' calls (`torch_port_helpers.POSE_TAIL_*`, the seeded
+   calls and the edge cases) and on a stream scan's inputs (the 9-axis
+   blend engaged, a store of 1500 keyframes of 2048) against the plain
+   chain on the same card tensors and on the CPU (pose6_between against
+   the CPU's through the float64 chain), within the tests' bounds, a
+   second launch the same words, pose6_between's largest angle gaps
+   printed; on the stream scan's inputs each kernel's device ms a launch,
+   in a CUDA
+   graph and through the wrapper, its dependent-chain bound
+   (`pose_chain_ms`), and the plain chain's host ms a call, device ms,
+   operations and ms as a graph.
 Every path above zeroes `_build.LAUNCHES` (every kernel's launches, by
-key) and the count of the calls they are held to (`CALLS`: keyframe saves
-and the front end's corrections and predictions outside a capture) before
-its run, and `check_launches` holds each key to those calls: gn_small and
-gn_small_eigh together once a GN pass (the fused kernel's launches, or the
-sharded paths' GN iterations), gn_small_eigh once a registration (exactly,
-where the run registers only its scans); window_system twice a keyframe
-save; imu_correct and imu_predict once a call; a scan replayed as CUDA
-graphs counting as one save, correction and prediction (the resident step
-saves on every scan).  A fault fails the run after the last phase.
+key) and the count of the calls they are held to (`CALLS`: mapping steps
+on the card, keyframe saves and the front end's corrections and
+predictions outside a capture) before its run, and `check_launches` holds
+each key to those calls: gn_small and gn_small_eigh together once a GN
+pass (the fused kernel's launches, or the sharded paths' GN iterations),
+gn_small_eigh once a registration (exactly, where the run registers only
+its scans); window_system twice a keyframe save; imu_correct and
+imu_predict once a call; pose_update and pose_between once a mapping step;
+a scan replayed as CUDA graphs counting as one step, save, correction and
+prediction (the resident step saves on every scan).  A fault fails the run
+after the last phase.
 Each phase prints its wall time.
 
 Prints the card's name and power limit, one JSON line with the launches
@@ -313,7 +329,8 @@ with each instantiation's offsets, cap, times, bound and error) and
 gn_small (its launches, those with the eigensolve, and phase 22's times)
 and window_system (its launches, the keyframe saves, and phase 23's gaps
 and times) and imu_frontend (each kernel's launches and phase 24's gaps
-and times), and last
+and times) and pose_update (each kernel's launches, the mapping steps,
+and phase 25's gaps and times), and last
 `{"ok": true, "device": {...}}`.  Exits
 non-zero, without that line, if there is no CUDA device or any check
 fails.
@@ -367,13 +384,14 @@ GN_SOLVE_CHAIN = (6, 17, 45)  # roots, divisions, adds and multiplies
 GN_ROTATION_CHAIN = (2, 3, 15)
 GN_ROTATIONS = 8 * 15
 # the kernels' launches on each path driven, apart: path -> Counter by
-# `_build.LAUNCHES` key, with the calls they are held to ("save", "correct",
-# "predict": CALLS, a scan of CUDA graphs counting one of each), summed
-# over the path's runs
+# `_build.LAUNCHES` key, with the calls they are held to ("step", "save",
+# "correct", "predict": CALLS, a scan of CUDA graphs counting one of each),
+# summed over the path's runs
 PATHS = {}
-# the calls outside a CUDA graph's capture since `zero_launches`: keyframe
-# saves (`lio._save_keyframe`), the front end's corrections and predictions
-# (`make_frontend`'s functions)
+# the calls outside a CUDA graph's capture since `zero_launches`: mapping
+# steps on the card (`lio._update_initial_guess`, which each step calls
+# once), keyframe saves (`lio._save_keyframe`), the front end's
+# corrections and predictions (`make_frontend`'s functions)
 CALLS = collections.Counter()
 # each path whose launches are not what its calls ask (the run fails on them
 # after its last phase)
@@ -511,8 +529,9 @@ def warm_profiler(dev):
 
 
 def count_calls():
-    """Wrap `lio._save_keyframe` and `imu_frontend.make_frontend` (once a
-    process, before anything makes a front end) so that each keyframe save
+    """Wrap `lio._update_initial_guess`, `lio._save_keyframe` and
+    `imu_frontend.make_frontend` (once a process, before anything makes a
+    front end) so that each mapping step on CUDA tensors, each keyframe save
     and each call of the correction and the prediction it returns adds 1 to
     CALLS outside a CUDA graph's capture.  A scan of the resident step run
     eagerly saves on every scan and selects the result."""
@@ -521,15 +540,19 @@ def count_calls():
     from lio_slam_tpu_torch.pipeline import imu_frontend as fe
     from lio_slam_tpu_torch.pipeline import lio
 
-    def count(name, fn):
+    def count(name, fn, when=lambda *a: True):
         def counted(*a, **k):
-            if not (torch.cuda.is_available()
-                    and torch.cuda.is_current_stream_capturing()):
+            if when(*a) and not (torch.cuda.is_available()
+                                 and torch.cuda.is_current_stream_capturing()):
                 CALLS[name] += 1
             return fn(*a, **k)
         counted.counted = True
         return counted
 
+    if not getattr(lio._update_initial_guess, "counted", False):
+        lio._update_initial_guess = count(
+            "step", lio._update_initial_guess,
+            lambda state, inp: state.pose.is_cuda)
     if not getattr(lio._save_keyframe, "counted", False):
         lio._save_keyframe = count("save", lio._save_keyframe)
     make = fe.make_frontend
@@ -569,23 +592,27 @@ def check_launches(path, passes, first=None, graph_scans=0, counts=None):
       own, None: at least once where any pass ran and at most once a pass);
     - the window solve twice a keyframe save;
     - the correction and the prediction once a call;
-    each of `graph_scans` scans replayed as CUDA graphs counting a save, a
-    correction and a prediction (the resident step saves on every scan)."""
+    - the pose tail's two kernels once a mapping step on the card;
+    each of `graph_scans` scans replayed as CUDA graphs counting a step, a
+    save, a correction and a prediction (the resident step saves on every
+    scan)."""
     got = collections.Counter(counts if counts is not None else tally())
-    got.update(save=graph_scans, correct=graph_scans, predict=graph_scans)
+    got.update(step=graph_scans, save=graph_scans, correct=graph_scans,
+               predict=graph_scans)
     PATHS[path] = PATHS.get(path, collections.Counter()) + got
     lo, e = min(passes, 1), got["gn_small_eigh"]
     if first is None:
         first = min(max(e, lo), passes)
     want = {"gn_small": passes - first, "gn_small_eigh": first,
             "window_system": 2 * got["save"],
-            "imu_correct": got["correct"], "imu_predict": got["predict"]}
+            "imu_correct": got["correct"], "imu_predict": got["predict"],
+            "pose_update": got["step"], "pose_between": got["step"]}
     line = ", ".join(f"{k} {got[k]} of {v}" for k, v in want.items())
     print(f"{path}: launches {line}; fused_corr {got['fused_corr']}, "
           f"imu_fusion {got['imu_fusion']} ({passes} GN passes, "
-          f"{got['save']} saves, {got['correct']} corrections, "
-          f"{got['predict']} predictions, {graph_scans} scans of each "
-          "in CUDA graphs)", flush=True)
+          f"{got['step']} mapping steps, {got['save']} saves, "
+          f"{got['correct']} corrections, {got['predict']} predictions, "
+          f"{graph_scans} scans of each in CUDA graphs)", flush=True)
     if any(got[k] != v for k, v in want.items()) or not lo <= first <= passes:
         FAULTS.append(f"{path}: {line} ({passes} GN passes)")
 
@@ -1288,6 +1315,197 @@ def imu_frontend_phase(dev):
                   f"{res[key + 'plain_ops']} operations, "
                   f"{res[key + 'plain_graph_ms']:.4f} ms as a graph",
                   flush=True)
+    return res
+
+
+# ---- phase 25: the mapping step's pose tail ----
+
+# Their chains, in GN_SOLVE_CHAIN's and IMU_TAIL_CHAIN's latencies: roots,
+# divisions, float32 adds and multiplies, sin / cos / acos / asin / atan2.
+# pose_update: one blend (a rotation from rpy, Shepperd's root and
+# division, the quaternion's norm, the slerp's acos, sin and weights, its
+# norm, quat_to_matrix's norm, two entries and atan2), then the gate on the
+# blended pose (a rotation from rpy, a 3x3 product's dot, getRPY; the
+# delta's norm beside it); the other blend and the keyframe's inverse run
+# beside the first.  pose_between: a rotation from rpy, getRPY of its
+# transpose, a rotation from those angles, a 3x3 product's dot, getRPY.
+POSE_CHAIN = {"pose_update": (5, 5, 45, 7), "pose_between": (0, 0, 10, 4)}
+
+
+def pose_chain_ms(kernel):
+    """The dependent chain of a launch of `kernel` at the SM clock
+    (POSE_CHAIN: roots, divisions, adds and multiplies, trigonometry);
+    loads not counted."""
+    roots, divs, fp, trig = POSE_CHAIN[kernel]
+    cycles = (roots * SQRT_CYCLES + divs * DIV_CYCLES + fp * FP_CYCLES
+              + trig * TRIG_CYCLES)
+    return 1e3 * cycles / SM_CLOCK_HZ
+
+
+def stream_pose_tail(dev, H):
+    """A stream scan's pose-tail inputs on `dev`, made with the test
+    helpers `H`: the default preset's store of K = 2048 keyframes holding
+    1500 along a 2 m/s route, the registered pose 0.4 m past the last, the
+    IMU attitude 0.02 rad from it (the blend engaged); (the `update` call,
+    the incremental's (a, b))."""
+    import numpy as np
+    import torch
+
+    from lio_slam_tpu_torch.config import get_config
+    from lio_slam_tpu_torch.ops import pose_update as pu
+
+    rs = np.random.RandomState(25)
+    K, n = 2048, 1500
+    poses = np.zeros((K, 6), np.float32)
+    poses[:n, :3] = rs.uniform(-0.05, 0.05, (n, 3))
+    poses[:n, 3] = np.arange(n) * 1.0
+    last = poses[n - 1].astype(np.float64)
+    reg = last + [0.01, -0.01, 0.02, 0.4, 0.05, 0.01]
+    call = H.pose_tail_on(H._pose_tail_call(
+        reg, reg + 0.01, reg[:3] + 0.02, True, poses, n,
+        pu.params(get_config("default"))), dev)
+    a = torch.tensor(last - [0, 0, 0, 0.4, 0, 0], dtype=torch.float32,
+                     device=dev)
+    return call, (a, call.reg_pose)
+
+
+def pose_tail_phase(dev):
+    """Phase 25: the pose tail's two kernels (`ops/csrc/pose_update.cu`)
+    against the plain chain on the tests' calls (`torch_port_helpers.
+    POSE_TAIL_*`) and on a stream scan's inputs (`stream_pose_tail`) on the
+    card and on the CPU, within the tests' bounds; then on the stream
+    scan's inputs each kernel's device
+    ms a launch, in a CUDA graph and through the wrapper, its chain bound
+    (`pose_chain_ms`), and the plain chain's host ms a call, device ms,
+    operations and ms as a graph.  Returns the `kernels` entry's
+    numbers."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    threads = torch.get_num_threads()
+    import torch_port_helpers as H
+    torch.set_num_threads(threads)
+
+    from lio_slam_tpu_torch.ops import pose_update as pu
+    from lio_slam_tpu_torch.ops import registration as reg
+    from lio_slam_tpu_torch.pipeline import keyframes as kf
+    from lio_slam_tpu_torch.utils import se3
+
+    calls = [c for s in H.POSE_TAIL_SEEDS for c in H.pose_tail_calls(s)]
+    calls += [c for n in H.POSE_TAIL_CASES for c in H.pose_tail_case(n)]
+    pairs = [p for s in H.POSE_TAIL_SEEDS for p in H.pose_between_pairs(s)]
+    pairs += [p for n in H.POSE_BETWEEN_CASES for p in H.pose_between_case(n)]
+    gap = {"pose_update": 0.0, "pose_between": 0.0}
+
+    def angle_gap(got, ref):
+        d = (got[:3].cpu().double() - ref[:3].cpu().double()).abs()
+        return float(d.nan_to_num(0.0).max())
+
+    def update_held(c):
+        """Launch the update twice on call `c` (on the card), hold it to
+        the plain chain on the card and on the CPU; its angle gap to the
+        card's plain chain."""
+        pose, is_kf = pu.update(*c)
+        again = pu.update(*c)
+        try:
+            H.assert_same_bits(pose, again[0])
+            assert bool(is_kf) == bool(again[1]), "a second launch's flag"
+            H.assert_pose_tail_matches(c, pose, is_kf)
+            H.assert_pose_tail_matches(H.pose_tail_on(c, "cpu"), pose.cpu(),
+                                       is_kf.cpu())
+        except AssertionError as exc:
+            fail(f"pose_update parts from the plain chain: {exc}")
+        return angle_gap(pose, H.pose_tail_plain(c)[0])
+
+    # pose6_between's angle gaps (rad): the kernel to the card's plain
+    # chain, to the CPU's, to the float64 chain; each plain chain to the
+    # float64 chain; the pitch's cosine where the kernel and the CPU's
+    # plain chain part most
+    between_gaps = dict.fromkeys(("card", "cpu", "f64", "card_plain_f64",
+                                  "cpu_plain_f64", "cos_at_cpu"), 0.0)
+
+    def between_held(a, b):
+        """Launch `pose6_between(a, b)` twice (on the card), hold it to the
+        plain one on the card and, through the float64 chain, on the CPU;
+        its angle gap to the card's plain chain."""
+        got = pu.between(a, b)
+        card, cpu = se3.pose6_between(a, b), se3.pose6_between(a.cpu(),
+                                                                b.cpu())
+        try:
+            H.assert_same_bits(got, pu.between(a, b))
+            H.assert_pose_between_matches(a, b, got)
+            H.assert_pose_between_accurate(a, b, got, cpu)
+        except AssertionError as exc:
+            fail(f"pose_between parts from the plain chain: {exc}")
+        exact = se3.pose6_between(a.cpu().double(), b.cpu().double())
+        g = between_gaps
+        if angle_gap(got, cpu) > g["cpu"]:
+            g["cpu"] = angle_gap(got, cpu)
+            g["cos_at_cpu"] = abs(math.cos(float(exact[1])))
+        for key, x, ref in (("card", got, card), ("f64", got, exact),
+                            ("card_plain_f64", card, exact),
+                            ("cpu_plain_f64", cpu, exact)):
+            g[key] = max(g[key], angle_gap(x, ref))
+        return angle_gap(got, card)
+
+    for c in calls:
+        gap["pose_update"] = max(gap["pose_update"],
+                                 update_held(H.pose_tail_on(c, dev)))
+    for a, b in pairs:
+        gap["pose_between"] = max(gap["pose_between"],
+                                  between_held(a.to(dev), b.to(dev)))
+    print(f"pose tail: {len(calls)} pose_update calls and {len(pairs)} "
+          "pose_between pairs within the tests' bounds of the plain chain on "
+          f"the card and on the CPU (angles {gap['pose_update']:.3e} and "
+          f"{gap['pose_between']:.3e} from the card's, limit "
+          f"{H.POSE_TAIL_ANGLE_ATOL}); a second launch the same bits; "
+          "pose_between's largest angle gaps: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in between_gaps.items()),
+          flush=True)
+
+    call, (a, b) = stream_pose_tail(dev, H)
+    gap["pose_update"] = max(gap["pose_update"], update_held(call))
+    gap["pose_between"] = max(gap["pose_between"], between_held(a, b))
+    print("pose tail: a stream scan's inputs (K = 2048, count 1500) within "
+          "the tests' bounds of the plain chain on the card and on the CPU",
+          flush=True)
+    p = call.params
+    store = kf.empty_store(call.poses.shape[0], 1, device=dev)._replace(
+        poses=call.poses, count=call.count)
+
+    def plain_update():
+        pose = torch.where(call.has_map, call.reg_pose, call.guess)
+        pose = reg.transform_update(pose, call.imu_rpy, call.imu_available,
+                                    p.weight, p.rotation_tolerance,
+                                    p.z_tolerance)
+        return pose, kf.should_add_keyframe(store, pose, p.angle_threshold,
+                                            p.dist_threshold)
+
+    res = {"bound_by": "latency", "max_angle_err": max(gap.values()),
+           "between_gaps": between_gaps}
+    for kernel, fn, ref in (
+            ("pose_update", lambda: pu.update(*call), plain_update),
+            ("pose_between", lambda: pu.between(a, b),
+             lambda: se3.pose6_between(a, b))):
+        key = f"{kernel}_"
+        res[f"{key}ms"] = named_kernel_ms(fn, kernel, reps=50)
+        res[f"{key}graph_ms"] = launch_graph_ms(fn)
+        res[f"{key}call_ms"] = call_ms(fn)
+        res[f"{key}bound_ms"] = pose_chain_ms(kernel)
+        _, res[f"{key}plain_ms"], res[f"{key}plain_ops"], _ = \
+            profiled_once(ref)
+        res[f"{key}plain_call_ms"] = call_ms(ref, reps=5, runs=3, warmup=1)
+        res[f"{key}plain_graph_ms"] = graph_ms(ref)
+        print(f"{kernel} ({SMI}), a stream scan's inputs: device ms a launch "
+              f"(torch.profiler) {res[key + 'ms']:.5f}, in a CUDA graph "
+              f"{res[key + 'graph_ms']:.5f}, a call through the wrapper "
+              f"{res[key + 'call_ms']:.5f}; chain bound "
+              f"{res[key + 'bound_ms']:.5f} (time over it "
+              f"{res[key + 'ms'] / res[key + 'bound_ms']:.2f}); the plain "
+              f"chain {res[key + 'plain_call_ms']:.3f} ms a call, device "
+              f"{res[key + 'plain_ms']:.4f} ms in {res[key + 'plain_ops']} "
+              f"operations, {res[key + 'plain_graph_ms']:.4f} ms as a graph",
+              flush=True)
     return res
 
 
@@ -3943,8 +4161,8 @@ def resident_costs(run, batch, state, fes, iters, is_kf_share):
     full = step_ms(R)
     pass_ms = (full - step_ms(m)) / (R - m) if m < R else 0.0
     no = torch.zeros((), dtype=torch.bool, device=run.device)
-    restore = [run_wrapped(lio.kf, "should_add_keyframe",
-                           lambda fn: lambda *a, **k: no)]
+    restore = [run_wrapped(lio.pu, "update",
+                           lambda fn: lambda *a: (fn(*a)[0], no))]
     try:
         gated = step_ms(R)
         restore.append(run_wrapped(lio, "_save_keyframe",
@@ -5111,6 +5329,8 @@ def main():
                dev)
     ik = phase("phase 24 (the IMU front end's kernels)", imu_frontend_phase,
                dev)
+    pk = phase("phase 25 (the mapping step's pose tail)", pose_tail_phase,
+               dev)
     launches, default_rate = phase("phases 3-5 (mission, carried, profiled)",
                                    mission_phase, dev, args.profile_dir)
     loop_map, loop_ver, loop_err = phase("phases 6-8 (loop mission, kernel "
@@ -5192,7 +5412,13 @@ def main():
         "replaces": None,
         **{f"{k}_launches": total[f"imu_{k}"]
            for k in ("correct", "predict", "fusion")},
-        **ik, "library_ms": None}]}), flush=True)
+        **ik, "library_ms": None}, {
+        "name": "pose_update", "route": "cuda",
+        "source": "lio_slam_tpu_torch/ops/csrc/pose_update.cu",
+        "replaces": None,
+        **{f"{k}_launches": total[k] for k in ("pose_update",
+                                                "pose_between")},
+        "steps": total["step"], **pk, "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -3,7 +3,8 @@
 - The CUDA kernel library, compiled with nvcc from `ops/csrc/*.cu`: the
   fused correspondence pass (`fused_corr.cu`), the GN step's 6x6
   linear algebra (`gn_small.cu`), the keyframe save's window system
-  (`window_system.cu`) and the IMU front end (`imu_frontend.cu`).
+  (`window_system.cu`), the IMU front end (`imu_frontend.cu`) and the
+  mapping step's pose tail (`pose_update.cu`).
 - The host runtime (SPSC queues, the PCD fast path, a host voxel
   downsample), compiled with g++ from `io/csrc/liorf_runtime.cpp`; it needs
   no CUDA and builds on any machine with a C++17 compiler.
@@ -16,11 +17,11 @@ CPU-only tests import every module.
 Every kernel of the library is launched through `launch`, which counts it
 in `LAUNCHES` under one key: "fused_corr", "gn_small" (the solve alone),
 "gn_small_eigh" (the solve and the eigensolve), "window_system",
-"imu_correct", "imu_predict", "imu_fusion".  A launch recorded into a CUDA
-graph counts in `CAPTURED` instead; the graph's owner adds what a graph
-holds to `LAUNCHES` at each replay, where the kernels run
-(`pipeline/replay._ScanProgram`).  Adding a kernel touches its `.cu` file,
-its wrapper, `_SOURCES` and its binder.
+"imu_correct", "imu_predict", "imu_fusion", "pose_update", "pose_between".
+A launch recorded into a CUDA graph counts in `CAPTURED` instead; the
+graph's owner adds what a graph holds to `LAUNCHES` at each replay, where
+the kernels run (`pipeline/replay._ScanProgram`).  Adding a kernel touches
+its `.cu` file, its wrapper, `_SOURCES` and its binder.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 _SOURCES = (_PKG / "csrc" / "fused_corr.cu", _PKG / "csrc" / "gn_small.cu",
             _PKG / "csrc" / "window_system.cu",
-            _PKG / "csrc" / "imu_frontend.cu")
+            _PKG / "csrc" / "imu_frontend.cu",
+            _PKG / "csrc" / "pose_update.cu")
 _HOST_SOURCES = (_PKG.parent / "io" / "csrc" / "liorf_runtime.cpp",)
 BUILD_DIR = _PKG.parents[1] / "build" / "lio_slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -100,8 +102,8 @@ def load_kernels() -> ctypes.CDLL:
     so = BUILD_DIR / f"liblio_kernels_{_digest(NVCC_FLAGS, _SOURCES)}.so"
     if not so.exists():
         BUILD_SECONDS, BUILD_LOG = _compile(_nvcc(), NVCC_FLAGS, _SOURCES, so)
-    _lib = bind_imu_frontend(bind_window_system(
-        bind_gn_small(bind_fused_corr(ctypes.CDLL(str(so))))))
+    _lib = bind_pose_update(bind_imu_frontend(bind_window_system(
+        bind_gn_small(bind_fused_corr(ctypes.CDLL(str(so)))))))
     return _lib
 
 
@@ -188,6 +190,21 @@ def bind_imu_frontend(lib: ctypes.CDLL) -> ctypes.CDLL:
     # lidar, front, back, N, out, stream
     lib.lio_imu_fusion.argtypes = [vp, vp, vp, ci, vp, vp]
     lib.lio_imu_fusion.restype = ci
+    return lib
+
+
+def bind_pose_update(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the functions of a build of `ops/csrc/pose_update.cu` on
+    `lib`; returns `lib`."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # reg_pose, guess, has_map, imu_rpy, imu_available, poses, count, K,
+    # weight, keep, rotation_tolerance, z_tolerance, angle_threshold,
+    # dist_threshold, out, stream
+    lib.lio_pose_update.argtypes = [vp] * 7 + [ci] + [cf] * 6 + [vp, vp]
+    lib.lio_pose_update.restype = ci
+    # a, b, out, stream
+    lib.lio_pose_between.argtypes = [vp] * 4
+    lib.lio_pose_between.restype = ci
     return lib
 
 

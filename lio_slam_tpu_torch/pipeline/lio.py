@@ -36,6 +36,7 @@ from lio_slam_tpu_torch.config import Config
 from lio_slam_tpu_torch.graph import factors as F
 from lio_slam_tpu_torch.graph import solver
 from lio_slam_tpu_torch.graph import sparse
+from lio_slam_tpu_torch.ops import pose_update as pu
 from lio_slam_tpu_torch.ops import registration as reg
 from lio_slam_tpu_torch.ops import scancontext as sc_mod
 from lio_slam_tpu_torch.ops import voxel_grid as vg
@@ -530,6 +531,22 @@ def make_full_correction(cfg: Config, ops: MapOps = None, device=None):
     return full_correct
 
 
+def _pose_tail(reg_pose, guess, has_map, inp: ScanInput,
+               store: kf.KeyframeStore, p: pu.Params):
+    """(pose, is_kf): the registered pose kept where the scan has a map,
+    transformUpdate and the keyframe gate.  CUDA tensors: one launch of
+    `ops/pose_update.update`; CPU tensors: the plain chain
+    (`registration.transform_update`, `keyframes.should_add_keyframe`)."""
+    if guess.is_cuda:
+        return pu.update(reg_pose, guess, has_map, inp.imu_rpy,
+                         inp.imu_available, store.poses, store.count, p)
+    pose = torch.where(has_map, reg_pose, guess)
+    pose = reg.transform_update(pose, inp.imu_rpy, inp.imu_available,
+                                p.weight, p.rotation_tolerance, p.z_tolerance)
+    return pose, kf.should_add_keyframe(store, pose, p.angle_threshold,
+                                        p.dist_threshold)
+
+
 def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
                   resident: bool = False):
     """The per-scan step for `cfg`: `step(state, inp) -> (state, out)`.  A
@@ -548,7 +565,12 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
     has none).  It leaves the GPS factor out, which the replays of neither
     package feed, and raises on a corner cloud: no JAX program hands its
     step one, so a resident LOAM term would be a path the reference
-    lacks."""
+    lacks.
+
+    On CUDA tensors the pose tail (`_pose_tail`; after the save, the
+    incremental odometry, `ops/pose_update.between`) is two launches of
+    `ops/pose_update`, the same on every path; on CPU tensors it is the
+    plain chain, the reference the tests hold the kernels to."""
     s = cfg.static
     r = cfg.registration
     if ops is None:
@@ -558,6 +580,7 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
                          "incremental-map mission path")
     nearby = dict(radius=r.surrounding_radius, recent_sec=r.recent_window_sec,
                   max_selected=cfg.output.local_map_keyframes)
+    tail = pu.params(cfg)
 
     def lio_step(state: LioState, inp: ScanInput):
         if resident and inp.corner is not None:
@@ -614,13 +637,8 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
                 res = reg.register(scan_ds.xyz, scan_ds.mask & has_map,
                                    local_map.xyz, local_map.mask,
                                    pose_guess, r, resident=resident)
-        pose = torch.where(has_map, res.pose, pose_guess)
-        pose = reg.transform_update(pose, inp.imu_rpy, inp.imu_available,
-                                    cfg.imu.imu_rpy_weight,
-                                    r.rotation_tolerance, r.z_tolerance)
-        is_kf = kf.should_add_keyframe(state.store, pose,
-                                       cfg.keyframe.angle_threshold,
-                                       cfg.keyframe.dist_threshold)
+        pose, is_kf = _pose_tail(res.pose, pose_guess, has_map, inp,
+                                 state.store, tail)
         state = state._replace(pose=pose, degenerate=res.degenerate)
         if resident:                           # JAX lax.cond, as a select
             state = select(is_kf, _save_keyframe(state, inp, pose, scan_ds,
@@ -633,7 +651,7 @@ def make_lio_step(cfg: Config, ops: MapOps = None, device=None,
                                        corner_ds=corner_ds, ops=ops)
         else:
             is_kf = False
-        incremental = se3.pose6_between(state.last_incre_pose, state.pose)
+        incremental = pu.between(state.last_incre_pose, state.pose)
         out = StepOutput(pose=state.pose, incremental=incremental,
                          degenerate=res.degenerate, is_keyframe=is_kf,
                          num_inliers=res.num_inliers,

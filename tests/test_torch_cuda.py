@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_helpers as H
 from torch_port_helpers import (GN_SMALL_CASES, IMU_CASES, IMU_POSE_ATOL,
                                 WINDOW_CASES, assert_imu_state_close,
                                 assert_same_bits, assert_window_close,
@@ -808,6 +809,142 @@ def test_resident_replay_through_the_imu_kernels(cuda):
         <= math.radians(0.1)
 
 
+def pose_tail_calls_on(dev, group):
+    """The emulated tests' calls of the pose-tail kernels on `dev`: the
+    seeded ones or the edge cases; (pose-update calls, pose-between
+    pairs)."""
+    if group == "seeded":
+        calls = [c for s in H.POSE_TAIL_SEEDS for c in H.pose_tail_calls(s)]
+        pairs = [p for s in H.POSE_TAIL_SEEDS
+                 for p in H.pose_between_pairs(s)]
+    else:
+        calls = [c for n in H.POSE_TAIL_CASES for c in H.pose_tail_case(n)]
+        pairs = [p for n in H.POSE_BETWEEN_CASES
+                 for p in H.pose_between_case(n)]
+    return ([H.pose_tail_on(c, dev) for c in calls],
+            [(a.to(dev), b.to(dev)) for a, b in pairs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["seeded", "edge"])
+def test_pose_tail_kernels_match_the_plain_chain_on_the_card(cuda, group):
+    """Both pose-tail kernels (`ops/csrc/pose_update.cu`) on the emulated
+    tests' calls, against the plain chain on the card and on the CPU within
+    `torch_port_helpers.POSE_TAIL_*` (pose6_between against the CPU's
+    through the float64 chain); a second launch repeats the bits; one
+    launch a call."""
+    from lio_slam_tpu_torch.ops import pose_update as pu
+    from lio_slam_tpu_torch.utils import se3
+
+    calls, pairs = pose_tail_calls_on(cuda, group)
+    before = _build.LAUNCHES.copy()
+    for c in calls:
+        pose, is_kf = pu.update(*c)
+        again = pu.update(*c)
+        assert_same_bits(pose, again[0])
+        assert bool(again[1]) == bool(is_kf)
+        H.assert_pose_tail_matches(c, pose, is_kf)
+        H.assert_pose_tail_matches(H.pose_tail_on(c, "cpu"), pose.cpu(),
+                                   is_kf.cpu())
+    for a, b in pairs:
+        got = pu.between(a, b)
+        assert_same_bits(got, pu.between(a, b))
+        H.assert_pose_between_matches(a, b, got)
+        H.assert_pose_between_accurate(a, b, got,
+                                       se3.pose6_between(a.cpu(), b.cpu()))
+    assert since(before) == {"pose_update": 2 * len(calls),
+                             "pose_between": 2 * len(pairs)}
+
+
+@pytest.mark.cuda
+def test_pose_tail_kernels_in_a_cuda_graph(cuda):
+    """Both pose-tail kernels captured once in a CUDA graph (counted in
+    `CAPTURED`, not `LAUNCHES`), replayed on other inputs copied into the
+    captured ones: the eager launches' words."""
+    from lio_slam_tpu_torch.ops import pose_update as pu
+
+    calls, pairs = pose_tail_calls_on(cuda, "seeded")
+    c, (a, b) = H.pose_tail_on(calls[0], cuda), pairs[0]
+    held = [x.clone() for x in (*c[:7], a, b)]
+    run = lambda: (*pu.update(*held[:7], c.params), pu.between(*held[7:]))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    counts = _build.LAUNCHES.copy(), _build.CAPTURED.copy()
+    with torch.cuda.graph(graph):
+        out = run()
+    assert _build.LAUNCHES == counts[0]
+    assert _build.CAPTURED - counts[1] == {"pose_update": 1,
+                                           "pose_between": 1}
+    for other, (oa, ob) in list(zip(calls, pairs))[1:6]:
+        for dst, src in zip(held, (*other[:7], oa, ob)):
+            dst.copy_(src)
+        graph.replay()
+        eager = run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(out, eager))
+
+
+@pytest.mark.cuda
+def test_runner_mission_through_the_pose_tail_kernels(cuda, monkeypatch):
+    """The 40-scan smoke mission on the card (9-axis IMU: the blend runs;
+    the stream preset's weight, clamps and gate): every scan's pose tail is
+    one launch of each kernel, held to the plain chain on the card on the
+    same inputs within `torch_port_helpers.POSE_TAIL_*`, and the keyframes
+    the step saves are the ones the kernel's flag asks for."""
+    from lio_slam_tpu_torch.ops import pose_update as pu
+
+    cfg = sm.bench_config()
+    assert cfg.imu.imu_type == 1
+    seq = synthetic.make_sequence(n_scans=sm.SMOKE_SCANS,
+                                  n_points=sm.SMOKE_POINTS, seed=sm.SMOKE_SEED,
+                                  speed=sm.SMOKE_SPEED)
+    scans, imus = sm.synthetic_inputs(seq, cfg)
+    seen = {"update": [], "between": [], "steps": 0}
+    real_update, real_between = pu.update, pu.between
+
+    def update(*a):
+        held = H.PoseTailCall(*(x.clone() for x in a[:7]), a[7])
+        out = real_update(*a)
+        seen["update"].append((held, out))
+        return out
+
+    def between(a, b):
+        out = real_between(a, b)
+        seen["between"].append((a.clone(), b.clone(), out))
+        return out
+
+    monkeypatch.setattr(pu, "update", update)
+    monkeypatch.setattr(pu, "between", between)
+    runner = Runner(cfg, device=cuda)
+    step = runner.step
+
+    def counted(*a, **k):
+        seen["steps"] += 1
+        return step(*a, **k)
+
+    runner.step = counted
+    before = _build.LAUNCHES.copy()
+    results = [runner.process_scan(scans[i], imu=imus[i])
+               for i in range(len(scans))]
+    torch.cuda.synchronize()
+    launched = since(before)
+    n = seen["steps"]
+    assert n == len(scans)
+    assert launched["pose_update"] == launched["pose_between"] == n
+    assert sum(bool(r.is_keyframe) for r in results) == sum(
+        bool(out[1]) for _, out in seen["update"]) > 1
+    assert any(bool(c.imu_available) for c, _ in seen["update"])
+    for c, (pose, is_kf) in seen["update"]:
+        H.assert_pose_tail_matches(c, pose, is_kf)
+    for a, b, got in seen["between"]:
+        H.assert_pose_between_matches(a, b, got)
+
+
 def circuit_state(dev, n_scans=11, seed=3):
     """The port's mapping step over a circuit of 2048-point scans on `dev`
     (five keyframes at seeds 0 and 3): a state whose newest keyframe
@@ -1157,9 +1294,10 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     scans at tests/test_replay.py's config: poses, GN iterations and
     degenerate flags bit-equal, TransformFusion within 1e-6; the replay
     loop under `torch.cuda.set_sync_debug_mode("error")` but for the
-    cadence calls; the kernel counted where it runs, at each replay of the
-    graph that holds it, not at its capture; a second call reuses the
-    graphs and repeats the poses."""
+    cadence calls; the kernels counted where they run, at each replay of
+    the graph that holds them, not at its capture, the pose tail's once a
+    scan on both paths; a second call reuses the graphs and repeats the
+    poses."""
     from lio_slam_tpu_torch.config import (RegistrationConfig,
                                            StaticConfig)
     from lio_slam_tpu_torch.pipeline import replay
@@ -1179,7 +1317,11 @@ def test_graph_replay_matches_the_eager_replay(cuda):
         pmask=seq.scan_masks, ring=np.zeros((n_scans, 2048), np.int32),
         acc=acc, gyr=gyr, dts=dts, rel_t=rel_t, imask=imask, stamp=seq.stamps)
     hd = replay.HostDrivenReplay(cfg, loop_every=4, device=cuda)
+    before = _build.LAUNCHES.copy()
     _, _, eager = hd.run(*hd.init(), hd.split(batch))
+    # the pose tail, one launch of each of its kernels a scan
+    launched = since(before)
+    assert launched["pose_update"] == launched["pose_between"] == n_scans
 
     run = replay.make_pipeline_replay(cfg, loop_every=4, device=cuda)
     staged = run.stage(batch)
@@ -1200,6 +1342,9 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     # and the masked keyframe save's window solve, two iterations a scan
     assert launched["window_system"] == 2 * 2
     assert (held_a["window_system"], held_b["window_system"]) == (2, 0)
+    # and the pose tail, once a scan each
+    for key in ("pose_update", "pose_between"):
+        assert (launched[key], held_a[key], held_b[key]) == (2, 1, 0)
 
     def quiet(fn):
         def wrapped(*a, **k):
@@ -1235,6 +1380,7 @@ def test_graph_replay_matches_the_eager_replay(cuda):
     assert (gn_passes(launched), launched["gn_small_eigh"]) == (
         2 * n_scans * R, 2 * n_scans)
     assert launched["window_system"] == 2 * n_scans * 2
+    assert launched["pose_update"] == launched["pose_between"] == 2 * n_scans
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
 """The CUDA kernels `lio_slam_tpu_torch/ops/csrc/fused_corr.cu`,
-`gn_small.cu`, `window_system.cu` and `imu_frontend.cu` compiled for the CPU against
-`tests/cuda_emulator.h` (g++, C++20) and bound through ctypes, so that the
-CPU tests hold the kernels' own source, their control flow and arithmetic,
-to the plain versions.  The sources are taken as they are, with mechanical
-substitutions: the CUDA runtime header for the emulator's, and each launch
+`gn_small.cu`, `window_system.cu`, `imu_frontend.cu` and `pose_update.cu`
+compiled for the CPU against `tests/cuda_emulator.h` (g++, C++20) and bound
+through ctypes, so that the CPU tests hold the kernels' own source, their
+control flow and arithmetic, to the plain versions.  The sources are taken
+as they are, with mechanical substitutions: the CUDA runtime header for the
+emulator's, and each launch
 for `emu_launch`; in `fused_corr.cu` also the dynamic shared array for the
 emulator's buffer and the three cp.async helpers' bodies for plain copies.
 A substitution that no longer matches raises.  Each build is bound by
@@ -18,6 +19,8 @@ and the wrapper's own marshalling function, with CPU tensors and no stream.
     H, b = window_system_emulated(ws, graph, count, window)
     imu = build_imu_frontend(tmp_dir)
     leaves = launch("imu_correct", imu_frontend.correct_launch, imu, ...)
+    tail = build_pose_update(tmp_dir)
+    pose, is_kf = launch("pose_update", pose_update.update_launch, tail, ...)
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ WS_SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
                          "window_system.cu")
 IMU_SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
                           "imu_frontend.cu")
+POSE_SOURCE = os.path.join(ROOT, "lio_slam_tpu_torch", "ops", "csrc",
+                           "pose_update.cu")
 HEADER = os.path.join(ROOT, "tests", "cuda_emulator.h")
 
 
@@ -73,9 +78,10 @@ def emulated_source() -> str:
     return s
 
 
-def gn_small_source() -> str:
-    """gn_small.cu with the substitutions that make it a CPU program."""
-    s = open(GN_SOURCE).read()
+def one_thread_source(path: str) -> str:
+    """A source whose kernels are one-thread launches (gn_small.cu,
+    pose_update.cu) with the substitutions that make it a CPU program."""
+    s = open(path).read()
     s = _sub("#include <cuda_runtime.h>", f'#include "{HEADER}"', s)
     return _sub(r"([\w<>]+)<<<1, 1, 0, s>>>\(", r"emu_launch(\1, 1, 1, 0, ",
                 s, literal=False)
@@ -159,7 +165,7 @@ def build_gn_small(out_dir) -> ctypes.CDLL:
     """Compile the emulated GN-step kernel into `out_dir` and bind it as
     `ops/_build.bind_gn_small` binds the card's build."""
     return _build.bind_gn_small(
-        _compile(out_dir, "gn_small_emulated", gn_small_source()))
+        _compile(out_dir, "gn_small_emulated", one_thread_source(GN_SOURCE)))
 
 
 def gn_small_emulated(lib, AtA, Atb, eigh: bool):
@@ -215,3 +221,12 @@ def build_imu_frontend(out_dir) -> ctypes.CDLL:
     `fusion_launch`."""
     return _build.bind_imu_frontend(
         _compile(out_dir, "imu_frontend_emulated", imu_frontend_source()))
+
+
+def build_pose_update(out_dir) -> ctypes.CDLL:
+    """Compile the emulated pose-tail kernels into `out_dir` and bind them
+    as `ops/_build.bind_pose_update` binds the card's build; `launch` them
+    with `ops/pose_update`'s `update_launch` and `between_launch`."""
+    return _build.bind_pose_update(
+        _compile(out_dir, "pose_update_emulated",
+                 one_thread_source(POSE_SOURCE)))

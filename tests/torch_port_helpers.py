@@ -967,3 +967,314 @@ def assert_imu_state_close(got, ref):
     gap = float(((got[5] - ref[5]).abs() / scale).max())
     assert gap <= IMU_COV_RTOL, ("cov", gap)
     assert bool(got[6]) == bool(ref[6]) and bool(got[7]) == bool(ref[7])
+
+
+# the mapping step's pose tail (ops/csrc/pose_update.cu: the select on
+# has_map, transformUpdate and the keyframe gate in one launch, the
+# incremental odometry in another) against the plain chain, in
+# tests/test_torch_pose_update_emulated.py and on the card
+POSE_TAIL_SEEDS = tuple(range(8))   # POSE_TAIL_CALLS seeded calls each
+POSE_TAIL_CALLS = 25
+POSE_TAIL_K = 8                     # the keyframe store's rows
+POSE_TAIL_CASES = ("imu_off", "flip", "small_angle", "quat_branch_0",
+                   "quat_branch_1", "quat_nan", "gimbal", "clamped",
+                   "count_0", "count_1", "count_full", "unmapped_nonfinite",
+                   "gate_margins")
+POSE_BETWEEN_CASES = ("gimbal", "identical", "nan")
+# The bounds.  The kernels take the plain chain's expressions in its order;
+# its 3x3 products and its 3- and 4-term sums and norms may be taken in
+# another order (a BLAS call, a reduction), and torch's CPU sin and cos may
+# differ from the C library's by an ulp.  Emulated kernel against the plain
+# chain on the CPU, the POSE_TAIL_* calls: angles 4.8e-7 (pose tail) and
+# 1.4e-6 (pose6_between, on a pair whose pitch comes 0.04 rad from pi/2;
+# the kernel 1.4e-6 and the plain chain 1.6e-6 from the float64 chain
+# there), positions 3e-7 of the operands' largest.
+POSE_TAIL_ANGLE_ATOL = 2e-6         # rad
+POSE_TAIL_POS_RTOL = 1e-6           # of the operands' largest position
+# the keyframe flags are held equal where the plain gate's delta is this
+# far from both thresholds (rad and m): nearer, rounding may decide
+POSE_TAIL_GATE_MARGIN = 1e-5
+# Across devices (the card's kernel against the CPU's plain chain, or
+# against the JAX package) pose6_between is held to the float64 chain
+# instead: getRPY reads its angles with asin and atan2, whose conditioning
+# is 1/cos(pitch), so near pi/2 an ulp of difference in sin, cos, asin or
+# atan2 between two libraries parts the angles by that much more on every
+# implementation.  On an H100, on the seeded pairs: the kernel within
+# 7.2e-7 of the card's plain chain, but 2.5e-6 from the CPU's on a pair
+# whose pitch comes 0.04 rad from pi/2, where the kernel and the card's
+# plain chain lie 1.9e-6 from the float64 chain and the CPU's 1.6e-6 the
+# other way.  The kernel's answer is held no further from the float64 chain
+# than the other side's is, within POSE_TAIL_ANGLE_ATOL on angles and
+# POSE_TAIL_POS_RTOL on positions (`assert_pose_between_accurate`).
+
+
+class PoseTailCall(NamedTuple):
+    """The pose tail's inputs: what `ops/pose_update.update_launch` takes."""
+    reg_pose: torch.Tensor         # (6,)
+    guess: torch.Tensor            # (6,)
+    has_map: torch.Tensor          # () bool
+    imu_rpy: torch.Tensor          # (3,)
+    imu_available: torch.Tensor    # () bool
+    poses: torch.Tensor            # (K, 6) the store's poses
+    count: torch.Tensor            # () int32
+    params: tuple                  # ops/pose_update.Params
+
+
+def pose_tail_params(weight=0.01, rotation_tolerance=1000.0,
+                     z_tolerance=1000.0, angle=0.2, dist=1.0):
+    """`ops/pose_update.Params`; the defaults are the stream preset's."""
+    from lio_slam_tpu_torch.ops import pose_update as pu
+
+    return pu.Params(weight, 1.0 - weight, rotation_tolerance, z_tolerance,
+                     angle, dist)
+
+
+def _pose_tail_call(reg_pose, guess, imu_rpy, imu_available, poses, count,
+                    params=None, has_map=None):
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))
+    count = int(count)
+    return PoseTailCall(
+        reg_pose=f32(reg_pose), guess=f32(guess),
+        has_map=torch.tensor(count > 0 if has_map is None else has_map),
+        imu_rpy=f32(imu_rpy), imu_available=torch.tensor(bool(imu_available)),
+        poses=f32(poses), count=torch.tensor(count, dtype=torch.int32),
+        params=params or pose_tail_params())
+
+
+def _store_poses(rs, K=POSE_TAIL_K):
+    poses = rs.uniform(-1, 1, (K, 6)) * [3.1, 1.5, 3.1, 60.0, 60.0, 5.0]
+    return poses
+
+
+def pose_tail_calls(seed) -> list:
+    """POSE_TAIL_CALLS seeded calls: a store of random keyframes, `count`
+    anywhere in 0..K, the registered pose near the last keyframe (within
+    the gate's thresholds about half the time), the guess near it, the IMU
+    attitude within 0.5 rad of it, the IMU available two calls in three,
+    the slerp's weight 0.01, 0.1 or 0.5."""
+    rs = np.random.RandomState(1000 + seed)
+    calls = []
+    for i in range(POSE_TAIL_CALLS):
+        poses = _store_poses(rs)
+        count = rs.randint(0, POSE_TAIL_K + 1)
+        last = poses[max(count - 1, 0)]
+        reg_pose = last + rs.uniform(-1, 1, 6) * [0.3, 0.3, 0.3, 1.2, 1.2, 0.4]
+        guess = reg_pose + rs.uniform(-1, 1, 6) * 0.05
+        imu_rpy = reg_pose[:3] + rs.uniform(-0.5, 0.5, 3)
+        calls.append(_pose_tail_call(
+            reg_pose, guess, imu_rpy, i % 3 != 0, poses, count,
+            pose_tail_params(weight=(0.01, 0.1, 0.5)[i % 3])))
+    return calls
+
+
+def pose_tail_case(name) -> list:
+    """The calls of one edge case of POSE_TAIL_CASES."""
+    rs = np.random.RandomState(sum(map(ord, name)))
+    poses = _store_poses(rs)
+    K = POSE_TAIL_K
+    last = poses[K // 2 - 1]
+    near = last + [0.05, -0.04, 0.03, 0.3, -0.2, 0.1]
+
+    def call(roll, pitch, imu_rpy, count=K // 2, reg=None, **kw):
+        pose = near.copy() if reg is None else np.asarray(reg, np.float64)
+        if reg is None:
+            pose[:2] = roll, pitch
+        return _pose_tail_call(pose, pose + 0.01, imu_rpy, True, poses,
+                               count, **kw)
+
+    if name == "imu_off":          # the blend skipped: a NaN attitude unread
+        c = call(0.2, -0.1, [np.nan] * 3)
+        return [c._replace(imu_available=torch.tensor(False))]
+    if name == "flip":             # the slerp's dot < 0: |angle - target| > pi
+        return [call(2.0, -1.0, [-2.0, 2.5, 0.0]),
+                call(-2.9, 1.4, [1.0, -2.0, 0.0])]
+    if name == "small_angle":      # sin(theta) < 1e-5: angle == target
+        return [call(0.3, -0.2, [0.3, -0.2, 0.0]),
+                call(0.0, 0.0, [0.0, 0.0, 0.0])]
+    if name == "quat_branch_0":    # trace > 0: |angle| < 2 pi / 3
+        return [call(0.3, -1.5, [0.5, -1.9, 0.0])]
+    if name == "quat_branch_1":    # trace <= 0, R00 the largest
+        return [call(2.5, -2.6, [2.8, -2.2, 0.0]),
+                call(-3.1, 3.0, [3.1, -3.0, 0.0])]
+    if name == "quat_nan":         # a NaN attitude reaches the last branch
+        return [call(0.1, 0.1, [np.nan, 0.1, 0.0]),
+                call(0.1, 0.1, [0.1, np.nan, 0.0], count=0)]
+    if name == "gimbal":           # pitch within 1e-3 of +-pi/2, near the
+        out = []                   # last keyframe's
+        for sign in (1.0, -1.0):
+            p = poses.copy()
+            p[K // 2 - 1, 1] = sign * (math.pi / 2 - 8e-4)
+            pose = p[K // 2 - 1] + [0.02, 0.0, -0.03, 0.4, 0.2, 0.0]
+            pose[1] = sign * (math.pi / 2 - 5e-4)
+            out.append(_pose_tail_call(
+                pose, pose, [pose[0] + 0.1, sign * (math.pi / 2 - 2e-4), 0.0],
+                True, p, K // 2))
+        return out
+    if name == "clamped":          # roll, pitch and z at their clamps
+        tight = pose_tail_params(rotation_tolerance=0.1, z_tolerance=0.5)
+        high = near.copy()
+        high[5] = 2.0
+        low = near.copy()
+        low[5] = -3.0
+        return [call(0.3, -0.4, [0.35, -0.45, 0.0], reg=np.r_[0.3, -0.4,
+                                                             high[2:]],
+                     params=tight),
+                call(-0.3, 0.4, [-0.35, 0.45, 0.0], reg=np.r_[-0.3, 0.4,
+                                                             low[2:]],
+                     params=tight)]
+    if name == "count_0":          # no keyframe: the guess, a keyframe
+        return [call(0.1, 0.1, [0.1, 0.12, 0.0], count=0)]
+    if name == "count_1":
+        return [_pose_tail_call(poses[0] + 0.05, poses[0], poses[0][:3], True,
+                                poses, 1)]
+    if name == "count_full":       # the last row of a full store
+        return [_pose_tail_call(poses[K - 1] + 0.05, poses[K - 1],
+                                poses[K - 1][:3], True, poses, K)]
+    if name == "unmapped_nonfinite":   # a non-finite registration unread
+        bad = [np.nan, np.inf, -np.inf, np.nan, np.inf, np.nan]
+        return [_pose_tail_call(bad, near, near[:3], True, poses, 0),
+                _pose_tail_call(bad, near, near[:3], False, poses, 3,
+                                has_map=False)]
+    if name == "gate_margins":     # each threshold missed or crossed by
+        out = []                   # 1e-4, from a level keyframe
+        level = poses.copy()
+        level[K // 2 - 1, :2] = 0.0
+        for k, step in ((0, 0.2), (1, -0.2), (2, 0.2), (3, 1.0), (5, -1.0)):
+            for d in (-1e-4, 1e-4):
+                pose = level[K // 2 - 1].copy()
+                pose[k] += step + d * math.copysign(1.0, step)
+                out.append(_pose_tail_call(pose, pose, pose[:3], False,
+                                           level, K // 2))
+        return out
+    raise ValueError(name)
+
+
+def pose_tail_on(call: PoseTailCall, dev) -> PoseTailCall:
+    """The call with its tensors on `dev`."""
+    return call._replace(**{k: v.to(dev) for k, v in call._asdict().items()
+                            if isinstance(v, torch.Tensor)})
+
+
+def pose_tail_plain(c: PoseTailCall):
+    """(pose, is_kf, the gate's delta) of the plain chain, on the call's
+    device."""
+    from lio_slam_tpu_torch.ops import registration as reg
+    from lio_slam_tpu_torch.pipeline import keyframes as kf
+    from lio_slam_tpu_torch.utils import se3
+
+    p = c.params
+    pose = torch.where(c.has_map, c.reg_pose, c.guess)
+    pose = reg.transform_update(pose, c.imu_rpy, c.imu_available, p.weight,
+                                p.rotation_tolerance, p.z_tolerance)
+    store = kf.empty_store(c.poses.shape[0], 1, device=c.poses.device)
+    store = store._replace(poses=c.poses, count=c.count)
+    is_kf = kf.should_add_keyframe(store, pose, p.angle_threshold,
+                                   p.dist_threshold)
+    last = c.poses[max(int(c.count) - 1, 0)]
+    return pose, is_kf, se3.pose6_between(last, pose)
+
+
+def gate_margin(c: PoseTailCall, delta) -> float:
+    """How far the gate's delta lies from its thresholds (inf where the
+    store is empty, which makes a keyframe whatever the delta; NaN where
+    the delta is not finite)."""
+    if int(c.count) == 0:
+        return math.inf
+    d = delta.detach().cpu().double()
+    p = c.params
+    return min(float((d[:3].abs() - p.angle_threshold).abs().min()),
+               abs(float(torch.linalg.norm(d[3:])) - p.dist_threshold))
+
+
+def assert_pose6_close(got, ref, scale=1.0):
+    """Two (6,) poses: NaN where the other is, angles within
+    POSE_TAIL_ANGLE_ATOL, positions within POSE_TAIL_POS_RTOL of `scale`,
+    the operands' largest position (at least 1 m)."""
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan), (got, ref)
+    gap = (got - ref).abs().nan_to_num(0.0)
+    gap[~nan & (got == ref)] = 0.0           # equal infinities
+    assert float(gap[:3].max()) <= POSE_TAIL_ANGLE_ATOL, (got, ref)
+    assert float(gap[3:].max()) <= POSE_TAIL_POS_RTOL * max(scale, 1.0), (
+        got, ref)
+
+
+def assert_pose_tail_matches(c: PoseTailCall, pose, is_kf, ref=None):
+    """The kernel's (pose, is_kf) on call `c` against `ref`, (pose, is_kf,
+    the gate's delta), by default the plain chain's on the same device: the
+    pose by `assert_pose6_close`, the flags equal wherever `gate_margin`
+    exceeds POSE_TAIL_GATE_MARGIN."""
+    ref_pose, ref_kf, delta = pose_tail_plain(c) if ref is None else ref
+    assert pose.shape == (6,) and is_kf.shape == ()
+    assert is_kf.dtype == torch.bool
+    assert_pose6_close(pose, ref_pose)
+    if not gate_margin(c, delta) <= POSE_TAIL_GATE_MARGIN:
+        assert bool(is_kf) == bool(ref_kf), (c, pose, ref_pose, delta)
+
+
+def pose_between_pairs(seed) -> list:
+    """POSE_TAIL_CALLS seeded (a, b) pairs: b near a (the incremental
+    odometry's) in the first half, both anywhere in the second."""
+    rs = np.random.RandomState(2000 + seed)
+    pairs = []
+    for i in range(POSE_TAIL_CALLS):
+        a = _store_poses(rs, 1)[0]
+        b = (a + rs.uniform(-1, 1, 6) * [0.1, 0.1, 0.1, 2.0, 2.0, 0.3]
+             if i < POSE_TAIL_CALLS // 2 else _store_poses(rs, 1)[0])
+        pairs.append((torch.tensor(a, dtype=torch.float32),
+                      torch.tensor(b, dtype=torch.float32)))
+    return pairs
+
+
+def pose_between_case(name) -> list:
+    """The (a, b) pairs of one edge case of POSE_BETWEEN_CASES."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    if name == "gimbal":           # both pitches within 1e-3 of +-pi/2
+        return [(f32([0.3, s * (math.pi / 2 - 9e-4), -1.0, 5.0, -3.0, 1.0]),
+                 f32([0.32, s * (math.pi / 2 - 4e-4), -0.97, 5.5, -2.8, 1.1]))
+                for s in (1.0, -1.0)]
+    if name == "identical":
+        a = f32([0.4, -0.3, 2.9, 40.0, -35.0, 2.0])
+        return [(a, a.clone())]
+    if name == "nan":
+        return [(f32([np.nan, 0.0, 0.0, 1.0, 2.0, 3.0]),
+                 f32([0.1, 0.2, 0.3, 1.0, 2.0, 3.0]))]
+    raise ValueError(name)
+
+
+def _operands_scale(a, b) -> float:
+    """The operands' largest position, the scale of pose6_between's."""
+    return float(torch.cat([a[3:], b[3:]]).detach().cpu().abs()
+                 .nan_to_num(0.0).max())
+
+
+def assert_pose_between_matches(a, b, got):
+    """The kernel's `pose6_between(a, b)` against the plain one on the same
+    device, by `assert_pose6_close` at the operands' scale."""
+    from lio_slam_tpu_torch.utils import se3
+
+    assert_pose6_close(got, se3.pose6_between(a, b), _operands_scale(a, b))
+
+
+def assert_pose_between_accurate(a, b, got, ref):
+    """The kernel's `pose6_between(a, b)` against `ref`, another
+    implementation's answer on the same operands (the plain chain on
+    another device, the JAX package), through the float64 chain: NaN where
+    it is, and each element no further from it than `ref`'s, within
+    POSE_TAIL_ANGLE_ATOL on angles and POSE_TAIL_POS_RTOL of the operands'
+    largest position on positions."""
+    from lio_slam_tpu_torch.utils import se3
+
+    exact = se3.pose6_between(a.detach().cpu().double(),
+                              b.detach().cpu().double())
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    nan = torch.isnan(exact)
+    assert torch.equal(torch.isnan(got), nan), (got, exact)
+    assert torch.equal(torch.isnan(ref), nan), (ref, exact)
+    tol = torch.tensor([POSE_TAIL_ANGLE_ATOL] * 3 + [
+        POSE_TAIL_POS_RTOL * max(_operands_scale(a, b), 1.0)] * 3,
+        dtype=torch.float64)
+    err = (got - exact).abs().nan_to_num(0.0)
+    allowed = (ref - exact).abs().nan_to_num(0.0) + tol
+    assert bool((err <= allowed).all()), (got, ref, exact)
